@@ -1,0 +1,102 @@
+"""The port's CUDA kernels: nvcc build at first use, bound with ctypes.
+
+Every ``csrc/*.cu`` file is compiled for ``sm_90a`` (Hopper) into one
+shared library with a plain C interface in the port's build directory.
+Each entry point takes its pointers and the CUDA stream as
+``ctypes.c_void_p``, launches on that stream, and returns
+``cudaGetLastError()``; :func:`launch` raises when it is not 0. Nothing
+is built or loaded at import, so the CPU tests import every module.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import pathlib
+import shutil
+import threading
+
+import torch
+
+from flake_tpu_torch import _build
+
+SOURCES = sorted((pathlib.Path(__file__).resolve().parent / "csrc")
+                 .glob("*.cu"))
+LIB = _build.BUILD_DIR / "libflake_kernels.so"
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# entry point -> argument types after the pointers and ints, in order;
+# every entry ends with the stream
+SIGNATURES = {
+    # x, window, out, N, B, max_order
+    "flake_autocorr": [_P, _P, _P, _I, _I, _I],
+    # x, coefs, shifts, out, N, B, max_order, pmax_static
+    "flake_sweep_sums": [_P, _P, _P, _P, _I, _I, _I, _I],
+    # lengths, leading, payload, words, total_bits, F, M, W
+    "flake_merge_words": [_P, _P, _P, _P, _P, _I, _I, _I],
+}
+
+_lock = threading.Lock()
+_lib = None
+
+
+def nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = pathlib.Path(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                           "bin", "nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def build() -> str:
+    """Compile the kernels if the library is missing or stale; returns
+    the compiler's report (registers, shared memory, spills per kernel),
+    empty when the library was up to date."""
+    cmd = [nvcc(), *ARCH, "-std=c++17", "-O3", "-shared",
+           "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+    return _build.build(cmd, SOURCES, LIB)
+
+
+def get_lib() -> ctypes.CDLL:
+    global _lib
+    with _lock:
+        if _lib is None:
+            build()
+            lib = ctypes.CDLL(str(LIB))
+            for name, args in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = [*args, _P]
+                fn.restype = ctypes.c_int
+            _lib = lib
+        return _lib
+
+
+def launch(name: str, device: torch.device, *args) -> None:
+    """Call entry point ``name`` on ``device``'s current stream. Tensors
+    pass as their data pointers, ints as ints. Raises on a refused
+    launch."""
+    fn = getattr(get_lib(), name)
+    c_args = [_P(a.data_ptr()) if isinstance(a, torch.Tensor) else int(a)
+              for a in args]
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = fn(*c_args, _P(stream))
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA error {rc} at launch")
+
+
+def check(t: torch.Tensor, name: str, dtype: torch.dtype,
+          shape: tuple, device: torch.device) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
+    ``device`` (what the kernels take)."""
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape) \
+            or t.device != device or not t.is_contiguous():
+        raise ValueError(
+            f"{name}: expected contiguous {dtype} {tuple(shape)} on "
+            f"{device}, got {t.dtype} {tuple(t.shape)} on {t.device}"
+            f"{'' if t.is_contiguous() else ' (non-contiguous)'}")

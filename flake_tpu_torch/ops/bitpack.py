@@ -1,0 +1,289 @@
+"""Device-side FLAC bitstream emission (port of ``flake_tpu/ops/bitpack.py``).
+
+Every frame is a fixed layout of variable-length bit fields (header
+bytes, subframe headers, warm-ups, coefficients, Rice parameters, one
+Rice code per sample). :func:`slot_layout` turns a batch's analysis into
+dense [F, M] slot tables (bit length, leading zero bits, payload);
+K3 (:mod:`flake_tpu_torch.ops.bitmerge`) places the payloads into each
+frame's big-endian 32-bit words. CRC-8/CRC-16 placeholders are emitted
+as zeros and patched on the host.
+
+The JAX package's slot combining, ``kmax_for``, 4 KiB granules and
+overflow re-pack (``bitpack.py:298-395,738-763``) exist only for the
+TPU's matrix-unit merge and tile-aligned DMA; they are not ported. One
+difference from the JAX layout code: the warm-up view ``res[..., :32]``
+is padded to 32 columns, so blocks shorter than 32 samples (a stream's
+last frame) lay out instead of failing to broadcast
+(``bitpack.py:479-485``).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from flake_tpu_torch import params as P
+from flake_tpu_torch.ops.bitmerge import merge_words
+from flake_tpu_torch.ops.common import U32_MASK, wrap_int32
+from flake_tpu_torch.ops.frame import (SF_CONSTANT, SF_FIXED, SF_LPC,
+                                       SF_VERBATIM, FrameConfig)
+from flake_tpu_torch.ops.rice import limit_max_partition_order, zigzag_u32
+
+HDR_SLOTS = 16  # max header bytes: 4 fixed + 7 utf8 + 2 + 2 + crc8
+
+
+def _split_wide(cfg: FrameConfig) -> bool:
+    """Whether sample fields may exceed a 32-bit payload: obits = bps
+    (+1 for a side channel)."""
+    return cfg.bps + (1 if cfg.channels == 2 else 0) > 32
+
+
+def slot_bytes(cfg: FrameConfig) -> int:
+    """Static per-frame output slot size in bytes (multiple of 512 so
+    the word view tiles as [wr, 128] int32 rows)."""
+    vsize = P.max_frame_size(cfg.block_size, cfg.channels, cfg.bps)
+    return (-(-(vsize + 8) // 512)) * 512
+
+
+def word_rows(cfg: FrameConfig) -> int:
+    """Rows of the [F, wr, 128] int32 per-frame word layout."""
+    return slot_bytes(cfg) // 512
+
+
+def frame_header_bytes(nums: np.ndarray, *, bs_code, sr_code,
+                       allow_vbs: int) -> tuple[np.ndarray, np.ndarray]:
+    """Host-side frame header bytes (encode.c:718-764) without the
+    device-known channel-assignment/bps byte (set on the device) and with
+    a zero CRC-8 placeholder (patched on the host).
+
+    Returns (bytes uint8 [F, HDR_SLOTS], nbytes int32 [F])."""
+    F = nums.shape[0]
+    out = np.zeros((F, HDR_SLOTS), dtype=np.uint8)
+    nbytes = np.zeros(F, dtype=np.int32)
+    for f in range(F):
+        b = bytearray()
+        b.append(0xFF)
+        b.append(0xF8 | (1 if allow_vbs else 0))
+        b.append(((bs_code[0] & 0xF) << 4) | (sr_code[0] & 0xF))
+        b.append(0)  # (ch_assign << 4) | (bps_code << 1) set on device
+        val = int(nums[f])
+        if val < 0x80:
+            b.append(val)
+        else:
+            lg = val.bit_length() - 1
+            nb = (lg + 4) // 5
+            shift = (nb - 1) * 6
+            b.append((256 - (256 >> nb)) | (val >> shift))
+            while shift >= 6:
+                shift -= 6
+                b.append(0x80 | ((val >> shift) & 0x3F))
+        if bs_code[1] >= 0:
+            if bs_code[1] < 256:
+                b.append(bs_code[1])
+            else:
+                b += bytes([bs_code[1] >> 8, bs_code[1] & 0xFF])
+        if sr_code[1] > 0:
+            if sr_code[1] < 256:
+                b.append(sr_code[1])
+            else:
+                b += bytes([sr_code[1] >> 8, sr_code[1] & 0xFF])
+        b.append(0)  # CRC-8 placeholder
+        out[f, :len(b)] = b
+        nbytes[f] = len(b)
+    return out, nbytes
+
+
+def _pairs(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+    """Interleave two [..., K] slot arrays as [..., 2K] (hi, lo) pairs."""
+    return torch.stack([hi, lo], dim=-1).flatten(-2)
+
+
+def slot_layout(analysis: dict, hdr_bytes: torch.Tensor,
+                hdr_nbytes: torch.Tensor, cfg: FrameConfig):
+    """Slot tables of a batch of analysed frames (``bitpack.py:421-625``).
+
+    ``analysis`` is the :func:`~flake_tpu_torch.ops.frame.analyze_frames`
+    dict; hdr_bytes uint8 [F, HDR_SLOTS] and hdr_nbytes int32 [F] come
+    from :func:`frame_header_bytes`. Returns (lengths, leading, payload)
+    int32 [F, M]: each slot's bit length, its leading zero bits (a Rice
+    quotient) and its payload (the uint32 bit pattern)."""
+    n = cfg.block_size
+    C = cfg.channels
+    i64 = torch.int64
+    pmax_static = limit_max_partition_order(cfg.max_partition_order, n, 1)
+    G = 1 << pmax_static
+    gs = n >> pmax_static
+
+    sf = analysis["sf_type"]                              # [F, C]
+    order = analysis["order"].to(i64)
+    obits = analysis["obits"].to(i64)
+    wasted_b = analysis["wasted"].to(i64)
+    res = analysis["residual"].to(i64)                    # [F, C, n]
+    method = analysis["method"].to(i64)
+    porder = analysis["porder"].to(i64)
+    F = sf.shape[0]
+    dev = sf.device
+
+    pred = (sf == SF_FIXED) | (sf == SF_LPC)
+    is_lpc = sf == SF_LPC
+    is_verb = (sf == SF_VERBATIM)[..., None]
+    is_const = sf == SF_CONSTANT
+    wide = _split_wide(cfg)
+    if wide:
+        # (hi, lo) slot pairs; the hi part is the value arithmetic-shifted
+        # (sign extension supplies bit 32 of a 33-bit field)
+        ob_lo = torch.clamp(obits, max=16)[..., None]     # [F, C, 1]
+        ob_hi = obits[..., None] - ob_lo
+        lo_mask = (1 << ob_lo) - 1
+        hi_mask = (1 << ob_hi) - 1
+    else:
+        ob_mask = (U32_MASK >> (32 - obits))[..., None]   # obits >= 1
+
+    # subframe header byte (pad + 6-bit type code + wasted flag) and the
+    # wasted-bits unary code (w-1 zeros then a 1 == value 1 in w bits)
+    subhdr_len = torch.full((F, C, 1), 8, dtype=i64, device=dev)
+    subhdr_pay = ((analysis["type_code"].to(i64) << 1)
+                  | (wasted_b > 0).to(i64))[..., None]
+    unary_len = wasted_b[..., None]
+    unary_pay = (wasted_b > 0).to(i64)[..., None]
+
+    # warm-up region: 32 slots, slot j active for j < order on the
+    # predicted paths; slot 0 doubles as the CONSTANT value
+    j32 = torch.arange(32, device=dev)
+    warm_active = (pred[..., None] & (j32 < order[..., None])) \
+        | (is_const[..., None] & (j32 == 0))
+    w32 = torch.nn.functional.pad(res[..., :32], (0, max(0, 32 - n)))
+    if wide:
+        warm_len = _pairs(torch.where(warm_active, ob_hi, 0),
+                          torch.where(warm_active, ob_lo, 0))
+        warm_pay = _pairs(
+            torch.where(warm_active, (w32 >> ob_lo) & hi_mask, 0),
+            torch.where(warm_active, w32 & lo_mask, 0))
+    else:
+        warm_len = torch.where(warm_active, obits[..., None], 0)
+        warm_pay = torch.where(warm_active, w32 & ob_mask, 0)
+
+    # LPC header (4-bit precision-1 + 5-bit shift) and coefficients
+    lpch_len = torch.where(is_lpc, 9, 0)[..., None].to(i64)
+    lpch_pay = torch.where(
+        is_lpc, ((cfg.precision - 1) << 5)
+        | (analysis["shift"].to(i64) & 31), 0)[..., None]
+    coef_on = is_lpc[..., None] & (j32 < order[..., None])
+    coef_len = torch.where(coef_on, cfg.precision, 0)
+    coef_pay = torch.where(coef_on, analysis["coefs"].to(i64)
+                           & ((1 << cfg.precision) - 1), 0)
+
+    # Rice method (2 bits) + partition order (4 bits)
+    riceh_len = torch.where(pred, 6, 0)[..., None].to(i64)
+    riceh_pay = torch.where(pred, (method << 4) | porder, 0)[..., None]
+
+    # partition parameters on the pmax_static grid: group g starts a
+    # partition when it is a multiple of 2^(pmax_static - porder)
+    po_shift = (pmax_static - porder)[..., None]           # [F, C, 1]
+    g_idx = torch.arange(G, device=dev)
+    g_active = pred[..., None] & ((g_idx & ((1 << po_shift) - 1)) == 0)
+    rice_k = analysis["rice_params"][..., :G].to(i64)
+    k_of_g = torch.gather(rice_k, -1,
+                          (g_idx >> po_shift).expand(F, C, G).contiguous())
+    param_len = torch.where(g_active, 4 + method[..., None], 0)
+    param_pay = torch.where(g_active, k_of_g, 0)
+
+    # per-sample Rice codes: the q leading zeros cost length only
+    k_j = k_of_g.repeat_interleave(gs, dim=-1)             # [F, C, n]
+    zig = zigzag_u32(res)
+    q = torch.clamp(zig >> k_j, max=1 << 24)  # tames masked-out lanes
+    rice_active = pred[..., None] \
+        & (torch.arange(n, device=dev) >= order[..., None])
+    rice_len = q + 1 + k_j
+    rice_pay = (1 << k_j) | (zig & ((1 << k_j) - 1))
+    if wide:
+        # a Rice code rides whole in the hi slot; a verbatim sample splits
+        samp_len = _pairs(
+            torch.where(rice_active, rice_len,
+                        torch.where(is_verb, ob_hi, 0)),
+            torch.where(is_verb, ob_lo, 0).expand(F, C, n))
+        samp_lead = _pairs(torch.where(rice_active, q, 0),
+                           torch.zeros_like(q))
+        samp_pay = _pairs(
+            torch.where(rice_active, rice_pay,
+                        torch.where(is_verb, (res >> ob_lo) & hi_mask, 0)),
+            torch.where(is_verb, res & lo_mask, 0))
+        spg = 2 * gs
+    else:
+        samp_len = torch.where(rice_active, rice_len,
+                               torch.where(is_verb, obits[..., None], 0))
+        samp_lead = torch.where(rice_active, q, 0)
+        samp_pay = torch.where(rice_active, rice_pay,
+                               torch.where(is_verb, res & ob_mask, 0))
+        spg = gs
+
+    def interleave(par, samp):
+        """[param_g][sample slots of group g] for each group g."""
+        return torch.cat([par.reshape(F, C, G, 1),
+                          samp.reshape(F, C, G, spg)], dim=-1) \
+            .reshape(F, C, G * (1 + spg))
+
+    body_len = interleave(param_len, samp_len)
+    body_lead = interleave(torch.zeros_like(param_len), samp_lead)
+    body_pay = interleave(param_pay, samp_pay)
+
+    fixed_len = [subhdr_len, unary_len, warm_len, lpch_len, coef_len,
+                 riceh_len]
+    n_fixed = sum(t.shape[-1] for t in fixed_len)   # 68, or 100 if wide
+    ch_len = torch.cat([*fixed_len, body_len], dim=-1)
+    ch_lead = torch.cat([torch.zeros((F, C, n_fixed), dtype=i64,
+                                     device=dev), body_lead], dim=-1)
+    ch_pay = torch.cat([subhdr_pay, unary_pay, warm_pay, lpch_pay,
+                        coef_pay, riceh_pay, body_pay], dim=-1)
+
+    # header region; byte 3 (channel assignment + bps code) is known here
+    hdr_len = torch.where(
+        torch.arange(HDR_SLOTS, device=dev)[None, :]
+        < hdr_nbytes.to(dev)[:, None], 8, 0).to(i64)
+    hdr_pay = hdr_bytes.to(dev, i64).clone()
+    ch_mode = analysis["ch_mode"].to(i64)
+    ch_field = torch.where(ch_mode > 0, ch_mode, C - 1)
+    hdr_pay[:, 3] = (ch_field << 4) | (P.bps_code(cfg.bps) << 1)
+
+    lengths = torch.cat([hdr_len, ch_len.reshape(F, -1)], dim=-1)
+    leading = torch.cat([torch.zeros_like(hdr_len),
+                         ch_lead.reshape(F, -1)], dim=-1)
+    payload = torch.cat([hdr_pay, ch_pay.reshape(F, -1)], dim=-1)
+
+    # byte-alignment pad + CRC-16 placeholder
+    pad_bits = (-lengths.sum(dim=-1)) & 7
+    tail = torch.stack([pad_bits, torch.full_like(pad_bits, 16)], dim=-1)
+    lengths = torch.cat([lengths, tail], dim=-1)
+    leading = torch.cat([leading, torch.zeros_like(tail)], dim=-1)
+    payload = torch.cat([payload, torch.zeros_like(tail)], dim=-1)
+    return (lengths.to(torch.int32), leading.to(torch.int32),
+            wrap_int32(payload))
+
+
+def pack_frames_device(analysis: dict, hdr_bytes: torch.Tensor,
+                       hdr_nbytes: torch.Tensor, cfg: FrameConfig):
+    """Emit a batch's frames: (words int32 [F, word_rows(cfg), 128] —
+    each frame's bytes as big-endian words with zeroed CRC placeholders
+    — and total_bits int32 [F], == 8*frame_bytes when the layout agrees
+    with the analysis accounting)."""
+    lengths, leading, payload = slot_layout(analysis, hdr_bytes,
+                                            hdr_nbytes, cfg)
+    return merge_words(lengths, leading, payload, word_rows(cfg))
+
+
+def words_to_slot_bytes(words: torch.Tensor) -> torch.Tensor:
+    """Big-endian byte view of per-frame word blocks (MSB-first
+    bitstream): [F, wr, 128] int32 -> uint8 [F, wr*512]."""
+    F = words.shape[0]
+    return words.contiguous().view(torch.uint8).reshape(F, -1, 4) \
+        .flip(-1).reshape(F, -1)
+
+
+def compact(words: torch.Tensor, frame_bytes: torch.Tensor) -> torch.Tensor:
+    """The frames' exact bytes, back to back: the byte view of each
+    frame's word block masked at ``pos < frame_bytes`` (uint8 [total]).
+    One copy of the result brings a batch to the host; the 4 KiB granules
+    of the JAX package exist only for the TPU's tile-aligned DMA."""
+    slots = words_to_slot_bytes(words)
+    pos = torch.arange(slots.shape[1], device=slots.device)
+    return slots[pos < frame_bytes[:, None]]

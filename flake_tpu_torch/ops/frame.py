@@ -1,0 +1,314 @@
+"""Batched per-frame analysis (port of ``flake_tpu/ops/frame.py``).
+
+Everything the reference does per frame, channel and candidate order
+runs as dense tensor ops over a [F, C, B] batch: stereo-mode estimation,
+wasted-bit removal, LPC analysis, order selection (optimize.c:196-261)
+and the Rice partition search. The LPC path runs the two kernels of the
+analysis: K1 for the windowed autocorrelation and K2 for the
+candidate-order sweep. The output dict has the JAX package's keys, so the
+tests compare key by key.
+
+Order methods: MAX, LOG and SEARCH are ported; EST (level 5, Schur) and
+the 2/4/8-LEVEL methods raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from flake_tpu_torch import params as P
+from flake_tpu_torch.ops import lpc as lpc_ops
+from flake_tpu_torch.ops import predict, stereo, wasted
+from flake_tpu_torch.ops.autocorr import autocorr
+from flake_tpu_torch.ops.common import U32_MASK
+from flake_tpu_torch.ops.rice import (calc_rice_params_dynamic,
+                                      limit_max_partition_order,
+                                      subframe_bits, subframe_bits_from_sums)
+from flake_tpu_torch.ops.sweep import sweep_sums
+
+SF_CONSTANT = 0
+SF_VERBATIM = 1
+SF_FIXED = 8
+SF_LPC = 32
+
+
+@dataclasses.dataclass(frozen=True)
+class FrameConfig:
+    """Static encoding configuration of one batch: block size, channels,
+    bit depth and the search parameters that shape the computation."""
+
+    block_size: int
+    channels: int
+    bps: int
+    prediction_type: int
+    order_method: int
+    stereo_method: int
+    min_prediction_order: int
+    max_prediction_order: int
+    min_partition_order: int
+    max_partition_order: int
+    precision: int = P.LPC_PRECISION
+
+    @classmethod
+    def from_params(cls, p: P.EncodeParams, channels: int, bps: int,
+                    block_size: int | None = None) -> "FrameConfig":
+        return cls(
+            block_size=block_size or p.block_size,
+            channels=channels, bps=bps,
+            prediction_type=int(p.prediction_type),
+            order_method=int(p.order_method),
+            stereo_method=int(p.stereo_method),
+            min_prediction_order=int(p.min_prediction_order),
+            max_prediction_order=int(p.max_prediction_order),
+            min_partition_order=int(p.min_partition_order),
+            max_partition_order=int(p.max_partition_order),
+        )
+
+
+def _select_order_log(bits_all: torch.Tensor, min_order: int,
+                      max_order: int) -> torch.Tensor:
+    """The LOG step-halving search (optimize.c:239-261) on the full
+    per-order bits tensor: the same candidates and strict-< updates, so
+    the same order. bits_all int64 [..., max_order]; returns the order
+    (1-based) int32 [...]."""
+    batch = bits_all.shape[:-1]
+    dev = bits_all.device
+    opt = torch.full(batch, min_order - 1 + (max_order - min_order) // 3,
+                     dtype=torch.int64, device=dev)
+    visited = torch.zeros(batch + (max_order,), dtype=torch.bool,
+                          device=dev)
+
+    def at(t, i):
+        idx = i.clamp(0, max_order - 1)[..., None]
+        return torch.gather(t, -1, idx)[..., 0]
+
+    for step in (16, 8, 4, 2, 1):
+        last = opt
+        for d in (-step, 0, step):
+            i = last + d
+            in_range = (i >= min_order - 1) & (i < max_order)
+            fresh = in_range & ~at(visited, i)
+            # bits of the current opt: UINT32_MAX until it is visited
+            opt_bits = torch.where(at(visited, opt), at(bits_all, opt),
+                                   U32_MASK)
+            better = fresh & (at(bits_all, i) < opt_bits)
+            visited = visited.scatter(
+                -1, i.clamp(0, max_order - 1)[..., None],
+                (fresh | at(visited, i))[..., None])
+            opt = torch.where(better, i, opt)
+    return (opt + 1).to(torch.int32)
+
+
+def select_order(cfg: FrameConfig, bits_all, batch,
+                 device: torch.device) -> torch.Tensor:
+    """Order-method dispatch (optimize.c:196-261). bits_all int64
+    [..., max_order] (None for MAX). Returns the order (1-based) int32
+    [batch]."""
+    method = cfg.order_method
+    if method == P.OrderMethod.MAX:
+        return torch.full(batch, cfg.max_prediction_order,
+                          dtype=torch.int32, device=device)
+    if method == P.OrderMethod.SEARCH:
+        idx = torch.min(bits_all[..., :cfg.max_prediction_order],
+                        dim=-1).indices
+        return (idx + 1).to(torch.int32)
+    if method == P.OrderMethod.LOG:
+        return _select_order_log(bits_all, cfg.min_prediction_order,
+                                 cfg.max_prediction_order)
+    raise NotImplementedError(
+        f"order method {P.OrderMethod(method).name} is not ported yet")
+
+
+def finalize_analysis(cfg: FrameConfig, chans, obits, wasted_bits,
+                      constant, mode, sf_type, order, coefs, shift, res,
+                      rc, hdr_bits) -> dict:
+    """CONSTANT override (optimize.c:143-151), exact frame-size
+    accounting, the verbatim fallback (encode.c:949-964), header type
+    codes, and the output dict (``frame.py:188-261``)."""
+    n = cfg.block_size
+    C = sf_type.shape[1]
+    i64 = torch.int64
+
+    sf_type = torch.where(constant, SF_CONSTANT, sf_type)
+    order = torch.where(constant, 0, order)
+    res = torch.where(constant[..., None], chans, res)
+
+    ob64 = obits.to(i64)
+    sub_hdr = 8 + wasted_bits.to(i64)           # header byte + unary
+    exact_rice = rc.get("exact_rice_bits", 0)       # 0 on VERBATIM
+    o64 = order.to(i64)
+    body = torch.where(
+        sf_type == SF_CONSTANT, ob64,
+        torch.where(sf_type == SF_VERBATIM, n * ob64,
+                    torch.where(sf_type == SF_FIXED,
+                                o64 * ob64 + 6 + exact_rice,
+                                o64 * ob64 + 9 + o64 * cfg.precision
+                                + 6 + exact_rice)))
+    total_bits = hdr_bits.to(i64) + (sub_hdr + body).sum(dim=-1)
+    frame_bytes = ((total_bits + 7) >> 3) + 2      # align + CRC-16
+
+    # verbatim re-encode of frames over the uncompressed bound; it
+    # stores the decorrelated, wasted-shifted samples
+    vsize = P.max_frame_size(n, C, cfg.bps)
+    fb = frame_bytes > vsize
+    sf_type = torch.where(fb[..., None], SF_VERBATIM, sf_type)
+    order = torch.where(fb[..., None], 0, order)
+    res = torch.where(fb[..., None, None], chans, res)
+    vb_total = hdr_bits.to(i64) + (sub_hdr + n * ob64).sum(dim=-1)
+    frame_bytes = torch.where(fb, ((vb_total + 7) >> 3) + 2,
+                              frame_bytes)
+
+    type_code = torch.where(
+        sf_type == SF_FIXED, SF_FIXED + order,
+        torch.where(sf_type == SF_LPC, SF_LPC + order - 1, sf_type))
+
+    i32 = torch.int32
+    return {
+        "ch_mode": mode.to(i32),             # [F]
+        "obits": obits.to(i32),              # [F, C]
+        "wasted": wasted_bits.to(i32),       # [F, C]
+        "sf_type": sf_type.to(i32),          # [F, C] 0/1/8/32
+        "type_code": type_code.to(i32),      # [F, C] 6-bit header code
+        "order": order.to(i32),              # [F, C]
+        "coefs": coefs.to(i32),              # [F, C, 32]
+        "shift": shift.to(i32),              # [F, C]
+        "porder": rc["porder"].to(i32),      # [F, C]
+        "method": rc["method"].to(i32),      # [F, C]
+        "rice_params": rc["params"].to(i32),  # [F, C, 2^pmax_static]
+        "residual": res.to(i32),             # [F, C, B]
+        "frame_bytes": frame_bytes,          # [F] int64
+    }
+
+
+def _lpc_search(cfg: FrameConfig, chans, obits):
+    """The LPC path (optimize.c:192-275) on the flattened [N = F*C]
+    stream batch: K1, Levinson and quantization, K2 and the Rice scan
+    for every candidate order, order selection, the final residual and
+    its exact Rice parameters."""
+    F, C, n = chans.shape
+    N = F * C
+    max_o = cfg.max_prediction_order
+    pmin, pmax = cfg.min_partition_order, cfg.max_partition_order
+    dev = chans.device
+    cN = chans.reshape(N, n).contiguous()
+    obitsN = obits.reshape(N)
+    window = lpc_ops.welch_window_on(n, dev)
+
+    autoc = autocorr(cN, window, max_o)                          # K1
+    lpc_rows, _ = lpc_ops.levinson_all_orders(autoc)
+    qcoefs, shifts = lpc_ops.quantize_lpc_coefs(lpc_rows, cfg.precision)
+
+    bits_all = None
+    if cfg.order_method != P.OrderMethod.MAX:
+        pmax_static = limit_max_partition_order(pmax, n, 1)
+        sums = sweep_sums(cN, qcoefs.contiguous(), shifts.contiguous(),
+                          max_o, pmax_static)                    # K2
+        o_arr = torch.arange(1, max_o + 1, dtype=torch.int32, device=dev)
+        bits_all = subframe_bits_from_sums(
+            sums, n, o_arr.expand(N, max_o), obitsN[..., None], pmin, pmax,
+            cfg.precision, True)
+    order = select_order(cfg, bits_all, (N,), dev)
+
+    sel = (order.to(torch.int64) - 1).clamp(0, max_o - 1)
+    coefs = torch.gather(qcoefs, 1,
+                         sel[:, None, None].expand(N, 1, max_o))[:, 0]
+    shift = torch.gather(shifts, 1, sel[:, None])[:, 0]
+    res = predict.residual_lpc_dynamic(cN, coefs, shift, order, max_o)
+    rc = calc_rice_params_dynamic(res, n, order, pmin, pmax)
+    coefs = torch.nn.functional.pad(coefs, (0, P.MAX_LPC_ORDER - max_o))
+    return (order.reshape(F, C), coefs.reshape(F, C, P.MAX_LPC_ORDER),
+            shift.reshape(F, C), res.reshape(F, C, n),
+            {k: v.reshape((F, C) + v.shape[1:]) for k, v in rc.items()})
+
+
+def analyze_frames(samples: torch.Tensor, cfg: FrameConfig,
+                   hdr_bits: torch.Tensor) -> dict:
+    """Analyse a batch of frames.
+
+    samples: int32 [F, B, C] (channels on the last axis).
+    hdr_bits: int32 [F], each frame's header bit count incl. CRC-8, for
+      the exact frame byte counts and the verbatim fallback
+      (encode.c:949-964).
+    Returns the dict of per-frame/channel selection tensors + residuals.
+    """
+    n = cfg.block_size
+    C = cfg.channels
+    F = samples.shape[0]
+    dev = samples.device
+    i32 = torch.int32
+
+    chans = samples.permute(0, 2, 1)                   # [F, C, B]
+    obits = torch.full((F, C), cfg.bps, dtype=i32, device=dev)
+
+    # stereo decorrelation (encode.c:648-694)
+    if C == 2 and n > 32 and cfg.stereo_method == P.StereoMethod.ESTIMATE:
+        mode = stereo.decorr_mode(chans[:, 0], chans[:, 1], n)
+        if cfg.bps >= 32:
+            # a 33-bit side value cannot ride the int32 residual pipeline:
+            # veto side modes where |l - r| would overflow
+            over = (chans[:, 0].to(torch.int64)
+                    - chans[:, 1].to(torch.int64)).abs().amax(dim=-1) \
+                >= (1 << 31)
+            mode = torch.where(over, stereo.LEFT_RIGHT, mode)
+        ch0, ch1, extra = stereo.apply_decorr(chans[:, 0], chans[:, 1],
+                                              mode)
+        chans = torch.stack([ch0, ch1], dim=1)
+        obits = obits + extra
+    elif C == 2:
+        mode = torch.full((F,), stereo.LEFT_RIGHT, dtype=i32, device=dev)
+    else:
+        mode = torch.full((F,), stereo.NOT_STEREO, dtype=i32, device=dev)
+
+    # wasted bits (encode.c:558-593) and constant blocks
+    # (optimize.c:143-151)
+    chans, wasted_bits = wasted.remove_wasted_bits(chans, cfg.bps)
+    obits = obits - wasted_bits
+    constant = (chans == chans[..., :1]).all(dim=-1)
+
+    pmin, pmax = cfg.min_partition_order, cfg.max_partition_order
+    zeros32 = torch.zeros((F, C, P.MAX_LPC_ORDER), dtype=i32, device=dev)
+    if n < 5 or cfg.prediction_type == P.Prediction.NONE:
+        # VERBATIM for every subframe (optimize.c:153-158)
+        order = torch.zeros((F, C), dtype=i32, device=dev)
+        sf_type = torch.full((F, C), SF_VERBATIM, dtype=i32, device=dev)
+        shift = torch.zeros_like(order)
+        coefs = zeros32
+        res = chans
+        rc = {"porder": torch.zeros_like(order),
+              "method": torch.zeros_like(order),
+              "params": torch.zeros((F, C, 1 << pmax), dtype=i32,
+                                    device=dev)}
+    elif (cfg.prediction_type == P.Prediction.FIXED
+          or n <= cfg.max_prediction_order):
+        # FIXED path (optimize.c:167-190): ascending orders, strict <
+        min_o = cfg.min_prediction_order
+        max_o = min(cfg.max_prediction_order, 4)
+        best_bits = best_order = None
+        for o in range(min_o, max_o + 1):
+            bits = subframe_bits(predict.residual_fixed(chans, o), n, o,
+                                 obits, pmin, pmax, 0, False)
+            if best_bits is None:
+                best_bits = bits
+                best_order = torch.full((F, C), o, dtype=i32, device=dev)
+            else:
+                take = bits < best_bits
+                best_bits = torch.where(take, bits, best_bits)
+                best_order = torch.where(take, o, best_order)
+        order = best_order
+        res = predict.residual_fixed(chans, min_o)
+        for o in range(min_o + 1, max_o + 1):
+            res = torch.where((order == o)[..., None],
+                              predict.residual_fixed(chans, o), res)
+        rc = calc_rice_params_dynamic(res, n, order, pmin, pmax)
+        sf_type = torch.full((F, C), SF_FIXED, dtype=i32, device=dev)
+        shift = torch.zeros_like(order)
+        coefs = zeros32
+    else:
+        order, coefs, shift, res, rc = _lpc_search(cfg, chans, obits)
+        sf_type = torch.full((F, C), SF_LPC, dtype=i32, device=dev)
+
+    return finalize_analysis(cfg, chans, obits, wasted_bits, constant,
+                             mode, sf_type, order, coefs, shift, res, rc,
+                             hdr_bits)

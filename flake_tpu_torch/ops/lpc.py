@@ -1,0 +1,162 @@
+"""Batched LPC analysis: Welch window, autocorrelation, Levinson-Durbin,
+coefficient quantization (port of ``flake_tpu/ops/lpc.py``, lpc.c).
+
+- :func:`autocorr` is the plain float64 windowed autocorrelation: the
+  CPU path, and the version K1 (:mod:`flake_tpu_torch.ops.autocorr`) is
+  held against on the card.
+- :func:`levinson_all_orders` keeps the recursion's one sequential
+  dependency as a Python loop of at most 32 batch-wide steps, with the
+  JAX package's float operations in the same order, so given the same
+  autocorrelation the coefficients agree bit for bit: the reflection
+  numerator is summed left to right, and ``1 - r*r`` and the symmetric
+  update are fused multiply-adds (``torch.addcmul``), as XLA contracts
+  them.
+- :func:`quantize_lpc_coefs` reproduces the shift search, scale-down
+  branch and error-feedback rounding (lpc.c:167-219). Powers of two are
+  built exactly from their bits, as the reference's ``1 << shift`` is;
+  XLA's ``exp2`` can be an ulp off, which moves a quantized coefficient
+  only when ``error + tap * 2^shift + 0.5`` lies within an ulp of an
+  integer.
+
+Schur, ``levinson_from_refs`` and ``estimate_order`` serve the EST order
+method (level 5), which the port does not run yet.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def welch_window(n: int) -> np.ndarray:
+    """Welch window matching lpc.c:28-40 (host-computed float64)."""
+    c = (2.0 / (n - 1.0)) - 1.0
+    w = np.empty(n, dtype=np.float64)
+    half = n >> 1
+    i = np.arange(half, dtype=np.float64)
+    wi = 1.0 - ((c - i) * (c - i))
+    w[:half] = wi
+    w[n - 1 - np.arange(half)] = wi
+    if n & 1:
+        w[half] = 1.0 - ((c - half) * (c - half))
+    return w
+
+
+def welch_window_on(n: int, device: torch.device) -> torch.Tensor:
+    """:func:`welch_window` as a float64 tensor on ``device``, copied
+    from pinned memory without blocking the host."""
+    w = torch.from_numpy(welch_window(n))
+    if device.type == "cuda":
+        return w.pin_memory().to(device, non_blocking=True)
+    return w.to(device)
+
+
+def autocorr(x: torch.Tensor, max_order: int,
+             window: torch.Tensor) -> torch.Tensor:
+    """Windowed autocorrelation for lags 0..max_order in float64
+    (lpc.c:46-71), with the reference's +2.0 bias per lag.
+
+    ``x`` int32 [..., B]; ``window`` float64 [B]. Returns float64
+    [..., max_order+1]."""
+    n = x.shape[-1]
+    d = x.to(torch.float64) * window
+    cols = [(d[..., lag:] * d[..., :n - lag]).sum(dim=-1) + 2.0
+            for lag in range(max_order + 1)]
+    return torch.stack(cols, dim=-1)
+
+
+def levinson_all_orders(autoc: torch.Tensor):
+    """Levinson-Durbin producing coefficients for every order at once
+    (lpc.c:77-117), vectorised over the batch.
+
+    Returns (lpc [..., max_order, max_order], refs [..., max_order]): row
+    o-1 of ``lpc`` holds the negated coefficients of order o, zero beyond
+    tap o; ``refs`` the reflection coefficient of each step."""
+    max_order = autoc.shape[-1] - 1
+    batch = autoc.shape[:-1]
+    W = max_order
+    tiny = torch.finfo(autoc.dtype).tiny
+    zeros = autoc.new_zeros(batch + (W,))
+    taps = torch.arange(W, device=autoc.device)
+
+    def shift_in(vec, head):
+        """[head, vec[0], ..., vec[W-2]]."""
+        return torch.cat([head[..., None], vec[..., :-1]], dim=-1)
+
+    # rev[j] = tmp[i-1-j] and ac_rev[j] = autoc[i-j], kept incrementally
+    tmp, rev = zeros, zeros
+    ac_rev = shift_in(zeros, autoc[..., 0])
+    err = autoc[..., 0]
+    rows, refs = [], []
+    for i in range(max_order):
+        a_next = autoc[..., i + 1]
+        prods = tmp * ac_rev
+        acc = torch.zeros_like(a_next)
+        for j in range(i):               # the JAX reduction's order
+            acc = acc + prods[..., j]
+        r = -a_next - acc
+        r = r / torch.where(err == 0.0, tiny, err)  # NaN guard only
+        err = err * torch.addcmul(torch.ones_like(r), -r, r)
+        rb = r[..., None]
+        new_tmp = torch.where(taps < i, torch.addcmul(tmp, rb, rev), tmp)
+        new_tmp = torch.where(taps == i, rb, new_tmp)
+        rev = shift_in(torch.addcmul(rev, rb, tmp), r)
+        ac_rev = shift_in(ac_rev, a_next)
+        tmp = new_tmp
+        rows.append(torch.where(taps <= i, -tmp, 0.0))
+        refs.append(r)
+    return torch.stack(rows, dim=-2), torch.stack(refs, dim=-1)
+
+
+def _exp2i(s: torch.Tensor) -> torch.Tensor:
+    """2.0**s for integer s in [-1022, 1023], exact, from the bits."""
+    return ((s.to(torch.int64) + 1023) << 52).view(torch.float64)
+
+
+def quantize_lpc_coefs(lpc: torch.Tensor, precision: int):
+    """Quantize per-order coefficient rows (lpc.c:167-219).
+
+    ``lpc`` float64 [..., n_orders, W], row o-1 using taps [:o]. Returns
+    (coefs int32 same shape, shift int32 [..., n_orders])."""
+    n_orders, W = lpc.shape[-2], lpc.shape[-1]
+    dev = lpc.device
+    qmax = (1 << (precision - 1)) - 1
+    taps = torch.arange(W, device=dev)
+    valid = taps[None, :] < torch.arange(1, n_orders + 1,
+                                         device=dev)[:, None]
+    cmax = torch.where(valid, lpc.abs(), 0.0).amax(dim=-1)
+    zero_out = cmax * (1 << 15) < 1.0
+
+    # closed form of the downward shift scan (lpc.c:193-206): the largest
+    # sh in [0, 15] with cmax * 2^sh <= qmax, resolved exactly in a +-2
+    # window around the exponent of cmax's float32 image
+    f32bits = cmax.to(torch.float32).view(torch.int32)
+    s0 = (precision - 1) - (((f32bits >> 23) & 0xFF) - 126)
+    sh = torch.full_like(s0, -(1 << 20))
+    for d in (-2, -1, 0, 1):
+        s = s0 + d
+        ok = cmax * _exp2i(s) <= qmax
+        sh = torch.where(ok, torch.maximum(sh, s), sh)
+    sh = torch.clamp(sh, 0, 15)
+
+    scale_down = (sh == 0) & (cmax > qmax)
+    lpc_s = torch.where(
+        scale_down[..., None],
+        lpc * (qmax / torch.where(cmax == 0, 1.0, cmax))[..., None], lpc)
+
+    mult = _exp2i(sh)
+    error = torch.zeros_like(cmax)
+    qs = []
+    for t in range(W):
+        tap_valid = valid[:, t]
+        e2 = error + lpc_s[..., t] * mult
+        q = torch.trunc(e2 + 0.5)
+        q = torch.where(q <= -qmax, float(-qmax + 1), q)
+        q = torch.where(q > qmax, float(qmax), q)
+        q = torch.where(tap_valid, q, 0.0)
+        error = torch.where(tap_valid, e2 - q, error)
+        qs.append(q.to(torch.int32))
+    coefs = torch.stack(qs, dim=-1)
+    coefs = torch.where(zero_out[..., None], 0, coefs)
+    shift = torch.where(zero_out, 0, sh).to(torch.int32)
+    return coefs, shift

@@ -1,0 +1,256 @@
+"""Batched Rice partition-order and parameter search (port of
+``flake_tpu/ops/rice.py``, rice.c).
+
+Every serial scan of the reference is a dense reduction: partition sums
+are a reshape-sum plus pairwise folds (rice.c:76-103), the k scan a
+31-wide argmin (rice.c:30-45), the partition-order scan a select per
+level (rice.c:105-139). Unsigned counts are int64 here; where the
+reference truncates to uint32 the port masks with ``& U32_MASK``. For
+``k <= 31`` the low 32 bits of ``t >> k`` do not depend on whether the
+shift is arithmetic or logical, so the int64 forms are exact.
+
+Shapes: ``res`` is [..., B] with arbitrary leading batch dims.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from flake_tpu_torch import params as P
+from flake_tpu_torch.ops.common import U32_MASK, u32
+
+MAX_K = P.MAX_RICE_PARAM  # 30
+
+
+def log2i(v: int) -> int:
+    return v.bit_length() - 1 if v > 0 else 0
+
+
+def limit_max_partition_order(max_porder: int, n: int, order: int) -> int:
+    """Static version of rice.c:148-155 (n and order are static here)."""
+    porder = min(max_porder, log2i(n ^ (n - 1)))
+    if order > 0:
+        porder = min(porder, log2i(n // order))
+    return porder
+
+
+def zigzag_u32(res: torch.Tensor) -> torch.Tensor:
+    """(2*r) ^ (r >> 31) stored in a uint32_t, wrapping for |r| >= 2^30
+    exactly like rice.c:120-123; returned as int64 in [0, 2^32)."""
+    d = res.to(torch.int64)
+    return ((2 * d) ^ (d >> 63)) & U32_MASK
+
+
+def _rice_count(sums, cnt, ks):
+    """rice_encode_count (rice.h:48) with uint32 truncation."""
+    return u32(cnt * (ks + 1) + ((sums - (cnt >> 1)) >> ks))
+
+
+def find_optimal_k(sums: torch.Tensor, cnt: int):
+    """k = 0..30 scan (rice.c:30-45). Returns (k int32 [...], bits int64
+    [...]); the first minimum wins ties, like the reference's strict <."""
+    ks = torch.arange(MAX_K + 1, dtype=torch.int64, device=sums.device)
+    nbits = _rice_count(sums[..., None], cnt, ks)
+    best, k_opt = torch.min(nbits, dim=-1)
+    return k_opt.to(torch.int32), best
+
+
+def find_optimal_k_u32(sums: torch.Tensor, cnt):
+    """The JAX package's limb form of :func:`find_optimal_k`: the half
+    count is truncated to 32 bits before the subtraction and the count
+    multiplies mod 2^32. ``cnt`` is an int or an int64 tensor broadcast
+    against ``sums`` (per-partition counts)."""
+    ks = torch.arange(MAX_K + 1, dtype=torch.int64, device=sums.device)
+    if isinstance(cnt, int):
+        cnt2, cnt32 = (cnt >> 1) & U32_MASK, cnt & U32_MASK
+    else:
+        cnt2 = ((cnt >> 1) & U32_MASK)
+        cnt32 = (cnt & U32_MASK)[..., None]
+    t = (sums - cnt2)[..., None]
+    nbits = u32(cnt32 * (ks + 1) + ((t >> ks) & U32_MASK))
+    best, k_opt = torch.min(nbits, dim=-1)
+    return k_opt.to(torch.int32), best
+
+
+def _partition_sums(z: torch.Tensor, parts: int, psize: int):
+    """Exact int64 partition sums of [..., parts * psize] zigzag data."""
+    return z.reshape(z.shape[:-1] + (parts, psize)).sum(dim=-1)
+
+
+def _fold_pyramid(levels: list, pmax_static: int) -> list:
+    """Fill levels[p] for p < pmax_static by pairwise adds
+    (rice.c:96-102)."""
+    for p in range(pmax_static - 1, -1, -1):
+        prev = levels[p + 1]
+        levels[p] = prev[..., 0::2] + prev[..., 1::2]
+    return levels
+
+
+def partition_pyramid(z32: torch.Tensor, n: int, order: int, pmax: int):
+    """Partition sums for every level 0..pmax (rice.c:76-103), warm-up
+    samples (the first ``order``) excluded."""
+    if order > 0:
+        z32 = torch.where(torch.arange(n, device=z32.device) >= order,
+                          z32, 0)
+    sums = [None] * (pmax + 1)
+    sums[pmax] = _partition_sums(z32, 1 << pmax, n >> pmax)
+    return _fold_pyramid(sums, pmax)
+
+
+def calc_rice_params(res: torch.Tensor, n: int, order: int, pmin: int,
+                     pmax: int):
+    """Partition-order + k search for one static predictor order
+    (rice.c:105-139), ties preferring the higher partition order
+    (rice.c:131). Returns (bits, method) of the best partition order:
+    the FIXED order search needs only the estimate."""
+    pmin = limit_max_partition_order(pmin, n, order)
+    pmax = limit_max_partition_order(pmax, n, order)
+    sums = partition_pyramid(zigzag_u32(res), n, order, pmax)
+    best = None
+    for p in range(pmin, pmax + 1):
+        parts = 1 << p
+        cnts = torch.full((parts,), n >> p, dtype=torch.int64,
+                          device=res.device)
+        cnts[0] = (n >> p) - order
+        k, kb = find_optimal_k_u32(sums[p], cnts)
+        bits = u32(kb.sum(dim=-1) + 4 * parts)
+        method = (k > P.MAX_RICE_PARAM_4BIT).any(dim=-1).to(torch.int32)
+        if best is None:
+            best = (bits, method)
+            continue
+        take = bits <= best[0]
+        best = (torch.where(take, bits, best[0]),
+                torch.where(take, method, best[1]))
+    return best
+
+
+def _ilog2(x: torch.Tensor) -> torch.Tensor:
+    """floor(log2(x)) for positive int64 x (log2i, common.h:53-65)."""
+    r = torch.zeros_like(x)
+    v = x
+    for s in (32, 16, 8, 4, 2, 1):
+        big = v >= (1 << s)
+        r = torch.where(big, r + s, r)
+        v = torch.where(big, v >> s, v)
+    return r.to(torch.int32)
+
+
+def _dynamic_porder_scan(sums: list, n: int, order: torch.Tensor,
+                         pmin: int, pmax: int, pmax_static: int,
+                         want_kgrid: bool = False):
+    """Partition-order scan with per-element predictor ``order``: the
+    pmin/pmax clamps by log2(n/order) (rice.c:148-155,163-164), the k
+    search per level and the tie-to-higher-porder rule (rice.c:131).
+
+    ``sums[p]`` is int64 [..., 2^p]. Returns (bits, porder, method,
+    params[..., 2^pmax_static], kgrid) — kgrid is the winning k spread
+    onto the pmax_static grid (None unless requested)."""
+    batch = order.shape
+    dev = order.device
+    ub = log2i(n ^ (n - 1))
+    log2_no = _ilog2(n // torch.clamp(order.to(torch.int64), min=1))
+    pmax_eff = torch.minimum(torch.full_like(log2_no, min(pmax, ub)),
+                             torch.where(order > 0, log2_no, pmax))
+    pmin_eff = torch.minimum(torch.full_like(log2_no, min(pmin, ub)),
+                             torch.where(order > 0, log2_no, pmin))
+
+    parts_max = 1 << pmax_static
+    best_bits = torch.full(batch, U32_MASK, dtype=torch.int64, device=dev)
+    best_porder = torch.zeros(batch, dtype=torch.int32, device=dev)
+    best_method = torch.zeros(batch, dtype=torch.int32, device=dev)
+    best_params = torch.zeros(batch + (parts_max,), dtype=torch.int32,
+                              device=dev)
+    best_kgrid = best_params.clone() if want_kgrid else None
+    order64 = order.to(torch.int64)
+
+    for p in range(pmax_static + 1):
+        parts = 1 << p
+        cnts = torch.full(batch + (parts,), n >> p, dtype=torch.int64,
+                          device=dev)
+        cnts[..., 0] = (n >> p) - order64
+        k, kb = find_optimal_k_u32(sums[p], cnts)
+        bits = u32(kb.sum(dim=-1) + 4 * parts)
+        method = (k > P.MAX_RICE_PARAM_4BIT).any(dim=-1).to(torch.int32)
+        params = torch.nn.functional.pad(k, (0, parts_max - parts))
+
+        take = (p >= pmin_eff) & (p <= pmax_eff) & (bits <= best_bits)
+        best_bits = torch.where(take, bits, best_bits)
+        best_porder = torch.where(take, p, best_porder)
+        best_method = torch.where(take, method, best_method)
+        best_params = torch.where(take[..., None], params, best_params)
+        if want_kgrid:
+            kgrid = k.repeat_interleave(parts_max // parts, dim=-1)
+            best_kgrid = torch.where(take[..., None], kgrid, best_kgrid)
+
+    return best_bits, best_porder, best_method, best_params, best_kgrid
+
+
+def _overhead_bits(bits, method, order, obits, precision: int,
+                   is_lpc: bool):
+    """Estimated subframe bits from the Rice section's estimate: warm-up,
+    coefficient and header fields (rice.c:157-171), uint32-truncated."""
+    o64 = order.to(torch.int64) if torch.is_tensor(order) else order
+    ob64 = obits.to(torch.int64) if torch.is_tensor(obits) else obits
+    overhead = o64 * ob64 + 2
+    if is_lpc:
+        overhead = overhead + (4 + 5 + o64 * precision)
+    return u32(bits + overhead + method.to(torch.int64) + 4)
+
+
+def subframe_bits_from_sums(sums: torch.Tensor, n: int, order, obits,
+                            pmin: int, pmax: int, precision: int,
+                            is_lpc: bool) -> torch.Tensor:
+    """Estimated subframe bits from partition sums at the pmax_static
+    level (K2's int64 output) instead of residuals:
+    ``subframe_bits_from_limbs`` (``flake_tpu/ops/rice.py:280-311``)
+    without the limb fold. ``sums`` int64 [..., 2^pmax_static]."""
+    pmax_static = limit_max_partition_order(pmax, n, 1)
+    levels = [None] * (pmax_static + 1)
+    levels[pmax_static] = sums
+    _fold_pyramid(levels, pmax_static)
+    bits, _, method, _, _ = _dynamic_porder_scan(
+        levels, n, order, pmin, pmax, pmax_static)
+    return _overhead_bits(bits, method, order, obits, precision, is_lpc)
+
+
+def calc_rice_params_dynamic(res: torch.Tensor, n: int,
+                             order: torch.Tensor, pmin: int,
+                             pmax: int) -> dict:
+    """Partition search with a per-element predictor order (int32 [...]):
+    the final pass after order selection. Also returns the exact emitted
+    Rice bits (sum of (v>>k)+1+k per sample plus parameter fields), which
+    the selection cost model only approximates (rice.h:48)."""
+    pmax_static = limit_max_partition_order(pmax, n, 1)
+    parts_max = 1 << pmax_static
+    psize = n >> pmax_static
+    valid = torch.arange(n, device=res.device) \
+        >= order[..., None].to(torch.int64)
+    z32 = torch.where(valid, zigzag_u32(res), 0)
+
+    levels = [None] * (pmax_static + 1)
+    levels[pmax_static] = _partition_sums(z32, parts_max, psize)
+    _fold_pyramid(levels, pmax_static)
+    bits, porder, method, params, kgrid = _dynamic_porder_scan(
+        levels, n, order, pmin, pmax, pmax_static, want_kgrid=True)
+
+    k_samp = kgrid.to(torch.int64).repeat_interleave(psize, dim=-1)
+    quotient = (z32 >> k_samp).sum(dim=-1)        # warm-up already 0
+    ovh = torch.where(valid, 1 + k_samp, 0).sum(dim=-1)
+    parts_dyn = 1 << porder.to(torch.int64)
+    return {
+        "bits": bits,
+        "porder": porder,
+        "method": method,
+        "params": params,
+        # residual-section bits excluding the 2+4 method/porder fields
+        "exact_rice_bits": quotient + ovh
+        + (4 + method.to(torch.int64)) * parts_dyn,
+    }
+
+
+def subframe_bits(res: torch.Tensor, n: int, order: int, obits,
+                  pmin: int, pmax: int, precision: int,
+                  is_lpc: bool) -> torch.Tensor:
+    """Estimated subframe bits for one static order (rice.c:157-171)."""
+    bits, method = calc_rice_params(res, n, order, pmin, pmax)
+    return _overhead_bits(bits, method, order, obits, precision, is_lpc)
