@@ -1,15 +1,17 @@
 """The port's CUDA kernels: nvcc build at first use, bound with ctypes.
 
-Every ``csrc/*.cu`` file is compiled for ``sm_90a`` (Hopper) into one
-shared library with a plain C interface in the port's build directory.
-Each entry point takes its pointers and the CUDA stream as
-``ctypes.c_void_p``, launches on that stream, and returns
-``cudaGetLastError()``; :func:`launch` raises when it is not 0. Nothing
-is built or loaded at import, so the CPU tests import every module.
+Every ``csrc/*.cu`` file is compiled for ``sm_90a`` (Hopper), each by
+its own nvcc process and all at once, and linked into one shared library
+with a plain C interface in the port's build directory. Each entry point
+takes its pointers and the CUDA stream as ``ctypes.c_void_p``, launches
+on that stream, and returns ``cudaGetLastError()``; :func:`launch`
+raises when it is not 0. Nothing is built or loaded at import, so the
+CPU tests import every module.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import os
 import pathlib
@@ -34,6 +36,8 @@ SIGNATURES = {
     "flake_autocorr": [_P, _P, _P, _I, _I, _I],
     # x, coefs, shifts, out, N, B, max_order, pmax_static
     "flake_sweep_sums": [_P, _P, _P, _P, _I, _I, _I, _I],
+    # x, coefs, shifts, out, N, B, max_order, gs_log2
+    "flake_sweep_granules": [_P, _P, _P, _P, _I, _I, _I, _I],
     # lengths, leading, payload, words, total_bits, F, M, W
     "flake_merge_words": [_P, _P, _P, _P, _P, _I, _I, _I],
 }
@@ -54,12 +58,19 @@ def nvcc() -> str:
 
 
 def build() -> str:
-    """Compile the kernels if the library is missing or stale; returns
-    the compiler's report (registers, shared memory, spills per kernel),
+    """Compile the kernels if the library is missing or stale: one nvcc
+    per stale source, all started together, then one link. Returns the
+    compilers' report (registers, shared memory, spills per kernel),
     empty when the library was up to date."""
-    cmd = [nvcc(), *ARCH, "-std=c++17", "-O3", "-shared",
-           "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-    return _build.build(cmd, SOURCES, LIB)
+    compile_cmd = [nvcc(), *ARCH, "-std=c++17", "-O3", "-Xcompiler",
+                   "-fPIC", "-Xptxas", "-v", "-c"]
+    objs = [_build.BUILD_DIR / f"{src.stem}.o" for src in SOURCES]
+    with concurrent.futures.ThreadPoolExecutor(len(SOURCES)) as pool:
+        reports = list(pool.map(
+            lambda src, obj: _build.build(compile_cmd, [src], obj),
+            SOURCES, objs))
+    reports.append(_build.build([nvcc(), *ARCH, "-shared"], objs, LIB))
+    return "".join(reports)
 
 
 def get_lib() -> ctypes.CDLL:

@@ -2,19 +2,26 @@
 
 The stream is cut into fixed-size frames; a batch of up to
 ``batch_frames`` frames is uploaded as int16, analysed on the device
-(:func:`~flake_tpu_torch.ops.frame.analyze_frames`, kernels K1 and K2)
-and emitted as FLAC bytes on the device
+(:func:`~flake_tpu_torch.ops.frame.analyze_frames`, kernels K1, and K2
+or K4) and emitted as FLAC bytes on the device
 (:func:`~flake_tpu_torch.ops.bitpack.pack_frames_device`, kernel K3).
 The host fetches only the compacted frame bytes and patches their CRCs,
 while MD5 runs over the raw input on a worker thread. Batches run two
 deep: batch i+1 is enqueued before batch i is copied back. The final
 partial frame takes the same device path as a batch of one frame.
 
+Variable block sizes (levels 9-12, ``encoder.py:520-571`` of the JAX
+package): each block is a superblock of eight sections whose
+second-difference sums are taken on the device
+(:func:`vbs_section_sums`); the split layout and the bucketing of
+sub-frames by size stay on the host in numpy (:func:`vbs_layout`), and
+each bucket is encoded as batches of its own block size. Under
+``allow_vbs`` frames are numbered by their first sample.
+
 API lifecycle mirrors the reference (flake.h:217-234): construct ->
 header() -> encode chunks -> streaminfo() rewrite. Not ported yet, and
-refused: variable block sizes (levels 9-12), the EST and 2/4/8-LEVEL
-order methods (levels 3-7), a device mesh, host packing and
-save/load of encoder state.
+refused: the EST and 2/4/8-LEVEL order methods (levels 3-7), a device
+mesh, host packing and save/load of encoder state.
 """
 
 from __future__ import annotations
@@ -34,6 +41,42 @@ from flake_tpu_torch.ops.frame import FrameConfig, analyze_frames
 
 PORTED_ORDER_METHODS = (P.OrderMethod.MAX, P.OrderMethod.SEARCH,
                         P.OrderMethod.LOG)
+SPLIT_THRESHOLD = 50    # vbs.c:26
+
+
+def vbs_section_sums(frames: torch.Tensor, sec: int) -> torch.Tensor:
+    """Channel-averaged abs-sum of the 2nd-order residual per section
+    (vbs.c:47-63), in int64 on the frames' device; each section's
+    difference starts at its own third sample. frames int32 [F, bs, C];
+    returns int64 [F, VBS_MAX_FRAMES], the +1 bias included."""
+    F, bs, C = frames.shape
+    s = frames.permute(0, 2, 1).to(torch.int64) \
+        .reshape(F, C, P.VBS_MAX_FRAMES, sec)
+    d = s[..., 2:] - 2 * s[..., 1:-1] + s[..., :-2]
+    return d.abs().sum(dim=(-1, 1)) // C + 1
+
+
+def vbs_layout(res: np.ndarray, sec: int):
+    """Sub-frames of a batch of superblocks from their section sums
+    (vbs.c:65-83): a section starts a sub-frame when its sum differs from
+    the previous section's by more than SPLIT_THRESHOLD/200 of it; each
+    sub-frame runs to the next start. Returns (superblock index, first
+    sample, size) int64 [S], in stream order."""
+    F, S = res.shape
+    layout = np.zeros((F, S), dtype=bool)
+    layout[:, 0] = True
+    layout[:, 1:] = (np.abs(res[:, :-1] - res[:, 1:]) * 200 // res[:, :-1]
+                     > SPLIT_THRESHOLD)
+    # next start after each section: a reversed running minimum of the
+    # start indices
+    sec_idx = np.broadcast_to(np.arange(S), (F, S))
+    marked = np.where(layout, sec_idx, S)
+    nxt = np.concatenate([marked[:, 1:], np.full((F, 1), S)], axis=1)
+    next_mark = np.minimum.accumulate(nxt[:, ::-1], axis=1)[:, ::-1]
+    nsec = np.where(layout, next_mark - sec_idx, 0)
+    sel = np.flatnonzero(layout.reshape(-1))   # row-major == stream order
+    return (sel // S).astype(np.int64), (sel % S).astype(np.int64) * sec, \
+        nsec.reshape(-1)[sel].astype(np.int64) * sec
 
 
 def _device(device) -> torch.device:
@@ -60,9 +103,6 @@ class Encoder:
         self.device = _device(device)
         P.validate_params(cfg)
         p = cfg.params
-        if p.variable_block_size or p.allow_vbs:
-            raise NotImplementedError(
-                "variable block sizes (levels 9-12) are not ported yet")
         if (p.prediction_type == P.Prediction.LEVINSON
                 and p.order_method not in PORTED_ORDER_METHODS):
             raise NotImplementedError(
@@ -86,7 +126,7 @@ class Encoder:
         self.sr_code = P.samplerate_code(cfg.sample_rate)
         self.max_frame_size = P.max_frame_size(p.block_size, self.channels,
                                                self.bps)
-        self.frame_count = 0
+        self.frame_count = 0          # frames, or samples when allow_vbs
         self.sample_count = cfg.samples
         self.md5 = hashlib.md5()
         self._pending = np.zeros((0, self.channels), dtype=np.int32)
@@ -96,8 +136,10 @@ class Encoder:
 
     def streaminfo(self) -> metadata.StreamInfo:
         p = self.params
+        min_bs = 16 if (p.variable_block_size or p.allow_vbs) \
+            else p.block_size
         return metadata.StreamInfo(
-            min_block_size=p.block_size, max_block_size=p.block_size,
+            min_block_size=min_bs, max_block_size=p.block_size,
             min_frame_size=0, max_frame_size=self.max_frame_size,
             sample_rate=self.sample_rate, channels=self.channels,
             bits_per_sample=self.bps, samples=self.sample_count,
@@ -140,11 +182,8 @@ class Encoder:
             md5_t = threading.Thread(target=md5_work)
             md5_t.start()
             try:
-                frames = pcm[:n_full * bs].reshape(n_full, bs,
-                                                   self.channels)
-                nums = self.frame_count + np.arange(n_full, dtype=np.int64)
-                out += self._run_batches(frames, bs, nums)
-                self.frame_count += n_full
+                out += self._encode_full_frames(
+                    pcm[:n_full * bs].reshape(n_full, bs, self.channels))
             finally:
                 md5_t.join()
                 if md5_err:
@@ -155,7 +194,9 @@ class Encoder:
 
     def finish(self) -> bytes:
         """Flush the final partial frame (if any) through the device path
-        as a batch of one frame of its own block size."""
+        as a batch of one frame of its own block size; under variable
+        block sizes a tail that could be a superblock is split as one,
+        as the reference's encode_frame does (vbs.c:36-119)."""
         if self._finished:
             return b""
         self._finished = True
@@ -163,10 +204,7 @@ class Encoder:
         if not tail.shape[0]:
             return b""
         self._pending = np.zeros((0, self.channels), dtype=np.int32)
-        out = self._run_batches(tail[None], tail.shape[0],
-                                np.array([self.frame_count], np.int64),
-                                quantize=False)
-        self.frame_count += 1
+        out = self._encode_full_frames(tail[None], quantize=False)
         self._md5_update(tail)
         return out
 
@@ -199,9 +237,59 @@ class Encoder:
             return t.pin_memory().to(self.device, non_blocking=True)
         return t
 
+    def _upload_samples(self, frames: np.ndarray) -> torch.Tensor:
+        """Samples to the device as int32; bps <= 16 samples travel as
+        int16 (exact, half the bytes), guarded by a range check so
+        out-of-range input keeps int32."""
+        up = frames
+        if self.bps <= 16 and frames.size \
+                and frames.min() >= -32768 and frames.max() < 32768:
+            up = frames.astype(np.int16)
+        return self._upload(up).to(torch.int32)
+
+    def _encode_full_frames(self, frames: np.ndarray,
+                            quantize: bool = True) -> bytes:
+        """Encode [F, bs, C] frames of one block size: as superblocks
+        under variable block sizes, else as they are
+        (``encoder.py:274-289``)."""
+        F, bs, _ = frames.shape
+        p = self.params
+        if (p.variable_block_size and bs % P.VBS_MAX_FRAMES == 0
+                and bs >= P.VBS_MIN_BLOCK_SIZE):
+            return self._encode_vbs_superblocks(frames, quantize)
+        step = bs if p.allow_vbs else 1
+        nums = self.frame_count + step * np.arange(F, dtype=np.int64)
+        out, _ = self._run_batches(frames, bs, nums, quantize)
+        self.frame_count += step * F
+        return out
+
+    def _encode_vbs_superblocks(self, frames: np.ndarray,
+                                quantize: bool) -> bytes:
+        """Split each [bs, C] superblock into sub-frames and encode them
+        bucketed by size, one run of batches per size, in stream order
+        (``encoder.py:520-571``)."""
+        F, bs, _ = frames.shape
+        sec = bs // P.VBS_MAX_FRAMES
+        res = vbs_section_sums(self._upload_samples(frames), sec)
+        f_idx, starts, sizes = vbs_layout(res.cpu().numpy(), sec)
+        nums = self.frame_count + f_idx * bs + starts
+        pieces: list = [None] * sizes.size
+        for size in np.unique(sizes):
+            idxs = np.flatnonzero(sizes == size)
+            take = starts[idxs, None] + np.arange(size)[None, :]
+            blob, lengths = self._run_batches(
+                frames[f_idx[idxs, None], take], int(size), nums[idxs],
+                quantize)
+            bounds = np.concatenate([[0], np.cumsum(lengths)])
+            for j, i in enumerate(idxs):
+                pieces[i] = blob[bounds[j]:bounds[j + 1]]
+        self.frame_count += F * bs
+        return b"".join(pieces)
+
     def _run_batches(self, frames: np.ndarray, block_size: int,
-                     nums: np.ndarray, quantize: bool = True) -> bytes:
-        """Encode [F, block_size, C] frames in device batches, two deep."""
+                     nums: np.ndarray, quantize: bool = True):
+        """Encode [F, block_size, C] frames in device batches, two deep.
+        Returns (bytes, int64 [F] frame lengths)."""
         cfg = FrameConfig.from_params(self.params, self.channels, self.bps,
                                       block_size=block_size)
         bs_code = P.blocksize_code(block_size)
@@ -212,6 +300,7 @@ class Encoder:
         # full batch_frames pass
         allowed = sorted({max(1, bsz // 64), max(1, bsz // 8), bsz})
         out = bytearray()
+        all_lengths = []
 
         def dispatch(start):
             """Enqueue one batch; returns device tensors still computing."""
@@ -226,14 +315,9 @@ class Encoder:
                 cnums = np.concatenate(
                     [cnums, np.zeros(shape - n, cnums.dtype)])
             hdr_bytes, hdr_nb = bitpack.frame_header_bytes(
-                cnums, bs_code=bs_code, sr_code=self.sr_code, allow_vbs=0)
-            # bps <= 16 samples upload as int16 (exact, half the bytes),
-            # guarded by a range check so out-of-range input keeps int32
-            up = chunk
-            if self.bps <= 16 and chunk.size \
-                    and chunk.min() >= -32768 and chunk.max() < 32768:
-                up = chunk.astype(np.int16)
-            samples = self._upload(up).to(torch.int32)
+                cnums, bs_code=bs_code, sr_code=self.sr_code,
+                allow_vbs=self.params.allow_vbs)
+            samples = self._upload_samples(chunk)
             # frame headers are whole bytes, CRC-8 included
             analysis = analyze_frames(samples, cfg, self._upload(hdr_nb * 8))
             words, total_bits = bitpack.pack_frames_device(
@@ -260,6 +344,7 @@ class Encoder:
             self.max_frame_size = max(self.max_frame_size,
                                       int(lengths.max(initial=0)))
             out.extend(buf.tobytes())
+            all_lengths.append(lengths)
             self.stats["frames"] += n
             self.stats["batches"] += 1
             self.stats["device_wait_seconds"] += t_ready - t0
@@ -274,4 +359,4 @@ class Encoder:
                 drain(inflight.pop(0))
         for item in inflight:
             drain(item)
-        return bytes(out)
+        return bytes(out), np.concatenate(all_lengths)

@@ -3,10 +3,15 @@
 Everything the reference does per frame, channel and candidate order
 runs as dense tensor ops over a [F, C, B] batch: stereo-mode estimation,
 wasted-bit removal, LPC analysis, order selection (optimize.c:196-261)
-and the Rice partition search. The LPC path runs the two kernels of the
-analysis: K1 for the windowed autocorrelation and K2 for the
-candidate-order sweep. The output dict has the JAX package's keys, so the
-tests compare key by key.
+and the Rice partition search. The LPC path runs K1 for the windowed
+autocorrelation and one of two kernels for the candidate-order sweep,
+chosen by the shape alone as the JAX package chooses its Pallas sweep
+under ``use_pallas="force"`` (``flake_tpu/ops/frame.py:413-437``): K4
+(granule sums) where the v2 kernel fits and v3 does not, which is
+B = 4096 and 8192 at order 32 with 256 partitions (levels 11-12), and K2
+(partition sums) everywhere else, including the shapes where the JAX
+package falls back to its XLA sweep. The output dict has the JAX
+package's keys, so the tests compare key by key.
 
 Order methods: MAX, LOG and SEARCH are ported; EST (level 5, Schur) and
 the 2/4/8-LEVEL methods raise ``NotImplementedError``.
@@ -26,7 +31,8 @@ from flake_tpu_torch.ops.common import U32_MASK
 from flake_tpu_torch.ops.rice import (calc_rice_params_dynamic,
                                       limit_max_partition_order,
                                       subframe_bits, subframe_bits_from_sums)
-from flake_tpu_torch.ops.sweep import sweep_sums
+from flake_tpu_torch.ops.sweep import (sweep_granules, sweep_sums,
+                                       uses_granule_kernel)
 
 SF_CONSTANT = 0
 SF_VERBATIM = 1
@@ -111,8 +117,9 @@ def select_order(cfg: FrameConfig, bits_all, batch,
         return torch.full(batch, cfg.max_prediction_order,
                           dtype=torch.int32, device=device)
     if method == P.OrderMethod.SEARCH:
-        idx = torch.min(bits_all[..., :cfg.max_prediction_order],
-                        dim=-1).indices
+        # torch.argmin, like jnp.argmin, takes the first (lowest) order
+        # among equal minima on every device
+        idx = torch.argmin(bits_all[..., :cfg.max_prediction_order], dim=-1)
         return (idx + 1).to(torch.int32)
     if method == P.OrderMethod.LOG:
         return _select_order_log(bits_all, cfg.min_prediction_order,
@@ -184,8 +191,8 @@ def finalize_analysis(cfg: FrameConfig, chans, obits, wasted_bits,
 
 def _lpc_search(cfg: FrameConfig, chans, obits):
     """The LPC path (optimize.c:192-275) on the flattened [N = F*C]
-    stream batch: K1, Levinson and quantization, K2 and the Rice scan
-    for every candidate order, order selection, the final residual and
+    stream batch: K1, Levinson and quantization, K2 or K4 and the Rice
+    scan for every candidate order, order selection, the final residual and
     its exact Rice parameters."""
     F, C, n = chans.shape
     N = F * C
@@ -203,8 +210,10 @@ def _lpc_search(cfg: FrameConfig, chans, obits):
     bits_all = None
     if cfg.order_method != P.OrderMethod.MAX:
         pmax_static = limit_max_partition_order(pmax, n, 1)
-        sums = sweep_sums(cN, qcoefs.contiguous(), shifts.contiguous(),
-                          max_o, pmax_static)                    # K2
+        sweep = sweep_granules if uses_granule_kernel(
+            n, cfg.bps, pmax_static, max_o) else sweep_sums      # K4 / K2
+        sums = sweep(cN, qcoefs.contiguous(), shifts.contiguous(), max_o,
+                     pmax_static)
         o_arr = torch.arange(1, max_o + 1, dtype=torch.int32, device=dev)
         bits_all = subframe_bits_from_sums(
             sums, n, o_arr.expand(N, max_o), obitsN[..., None], pmin, pmax,

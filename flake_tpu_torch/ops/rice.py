@@ -200,11 +200,17 @@ def _overhead_bits(bits, method, order, obits, precision: int,
 def subframe_bits_from_sums(sums: torch.Tensor, n: int, order, obits,
                             pmin: int, pmax: int, precision: int,
                             is_lpc: bool) -> torch.Tensor:
-    """Estimated subframe bits from partition sums at the pmax_static
-    level (K2's int64 output) instead of residuals:
-    ``subframe_bits_from_limbs`` (``flake_tpu/ops/rice.py:280-311``)
-    without the limb fold. ``sums`` int64 [..., 2^pmax_static]."""
+    """Estimated subframe bits from zigzag sums (K2's or K4's int64
+    output) instead of residuals: ``subframe_bits_from_limbs``
+    (``flake_tpu/ops/rice.py:280-311``) without the limbs. ``sums`` int64
+    [..., G] with G a multiple of 2^pmax_static; finer sums are folded
+    to the pmax_static level first (rice.py:289-296)."""
     pmax_static = limit_max_partition_order(pmax, n, 1)
+    parts_max = 1 << pmax_static
+    G = sums.shape[-1]
+    if G != parts_max:
+        sums = sums.reshape(sums.shape[:-1] + (parts_max, G // parts_max)) \
+            .sum(dim=-1)
     levels = [None] * (pmax_static + 1)
     levels[pmax_static] = sums
     _fold_pyramid(levels, pmax_static)

@@ -6,9 +6,12 @@ so they run on a machine that has only PyTorch with CUDA:
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 
 (``--noconftest`` keeps ``tests/conftest.py``, which imports JAX, out.)
-Shapes cover the level-8 main path and the edges: odd block sizes, a
-partition size of 253, order 32 with 256 partitions (more than 48 KiB
-of shared memory), 24-bit and 32-bit content, and blocks under 32.
+Shapes cover the level-8 main path, the level-11/12 sub-blocks of 4096
+and 8192 samples at order 32 with 256 partitions, and the edges: odd
+block sizes, a partition size of 253, K2 at order 32 with 256 partitions
+(more than 48 KiB of shared memory), K4 with partitions larger than its
+granule and with 300 streams, 24-bit and 32-bit content, and blocks
+under 32.
 """
 
 import numpy as np
@@ -21,6 +24,7 @@ from flake_tpu_torch.ops import autocorr as k1
 from flake_tpu_torch.ops import bitmerge as k3
 from flake_tpu_torch.ops import bitpack, frame, lpc
 from flake_tpu_torch.ops import sweep as k2
+from flake_tpu_torch.ops.sweep import sweep_granules as k4
 
 pytestmark = pytest.mark.cuda
 
@@ -34,19 +38,27 @@ def dev():
 
 def _tonal(N, B, bps, seed):
     """int32 [N, B] tonal streams with light noise; row 1 silent, row 2
-    constant (the autocorrelation's +2.0 bias cases)."""
+    constant (the autocorrelation's +2.0 bias cases) where N has them."""
     rng = np.random.default_rng(seed)
     t = np.arange(B)
     amp = (1 << (bps - 2))
     x = amp * np.sin(2 * np.pi * rng.uniform(40, 700, (N, 1)) * t / 44100) \
         + rng.normal(0, amp / 100, (N, B))
-    x[1] = 0
-    x[2] = 1234
+    x[1:2] = 0
+    x[2:3] = 1234
     return torch.from_numpy(x.astype(np.int32))
 
 
+def _coefs(x, max_order):
+    """Quantized LPC coefficients and shifts of every order."""
+    B = x.shape[1]
+    autoc = lpc.autocorr(x, max_order, lpc.welch_window_on(B, x.device))
+    rows, _ = lpc.levinson_all_orders(autoc)
+    return lpc.quantize_lpc_coefs(rows, 15)
+
+
 @pytest.mark.parametrize("B,max_order", [(4096, 12), (777, 32),
-                                         (65535, 8), (20, 12)])
+                                         (65535, 8), (20, 12), (8192, 32)])
 def test_autocorr_kernel(dev, B, max_order):
     x = _tonal(6, B, 16, seed=B).to(dev)
     w = lpc.welch_window_on(B, dev)
@@ -60,18 +72,40 @@ def test_autocorr_kernel(dev, B, max_order):
 
 @pytest.mark.parametrize("B,max_order,pmax_static,bps", [
     (4096, 12, 6, 16), (777, 32, 0, 16), (4048, 12, 4, 16),
-    (8192, 32, 8, 16), (4096, 32, 6, 24), (20, 12, 2, 16)])
+    (8192, 32, 8, 16), (4096, 32, 6, 24), (20, 12, 2, 16),
+    (1024, 32, 8, 16), (3072, 32, 8, 16)])
 def test_sweep_kernel(dev, B, max_order, pmax_static, bps):
     x = _tonal(9, B, bps, seed=B + bps)
     x[3] = torch.from_numpy(np.random.default_rng(3).integers(
         -(1 << (bps - 1)), 1 << (bps - 1), B).astype(np.int32))
     x = x.to(dev)
-    autoc = lpc.autocorr(x, max_order, lpc.welch_window_on(B, dev))
-    rows, _ = lpc.levinson_all_orders(autoc)
-    qc, sh = lpc.quantize_lpc_coefs(rows, 15)
+    qc, sh = _coefs(x, max_order)
     got = k2.sweep_sums(x, qc, sh, max_order, pmax_static)
     want = k2.sweep_sums_plain(x, qc, sh, max_order, pmax_static)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("N", [2, 300])
+@pytest.mark.parametrize("B,max_order,pmax_static", [
+    (8192, 32, 8), (4096, 32, 8), (4096, 32, 4), (1024, 8, 6)])
+def test_granule_kernel(dev, N, B, max_order, pmax_static):
+    """K4 against its plain version; (4096, 32, 4) has 256-sample
+    partitions summed as 128-sample granules."""
+    x = _tonal(N, B, 16, seed=B + N)
+    x[0] = torch.from_numpy(np.random.default_rng(N).integers(
+        -32768, 32768, B).astype(np.int32))
+    x = x.to(dev)
+    qc, sh = _coefs(x, max_order)
+    before = k4.launches
+    got = k4(x, qc, sh, max_order, pmax_static)
+    assert k4.launches == before + 1
+    want = k2.sweep_granules_plain(x, qc, sh, max_order, pmax_static)
+    assert got.shape == (N, max_order, B // min(B >> pmax_static, 128))
+    assert torch.equal(got, want)
+    # the same sums, folded to partitions, as K2 gives them
+    parts = 1 << pmax_static
+    assert torch.equal(got.reshape(N, max_order, parts, -1).sum(-1),
+                       k2.sweep_sums(x, qc, sh, max_order, pmax_static))
 
 
 @pytest.mark.parametrize("B,F,bps", [(4096, 8, 16), (20, 2, 16),
@@ -101,6 +135,44 @@ def test_merge_kernel(dev, B, F, bps):
                        analysis["frame_bytes"] * 8)
 
 
+def test_merge_kernel_level12(dev):
+    """K3 on a batch of 8192-sample level-12 frames (about 17k slots and
+    65 word rows per frame)."""
+    F, B = 6, 8192
+    frames = _tonal(2 * F, B, 16, seed=12).reshape(F, 2, B) \
+        .permute(0, 2, 1).contiguous()
+    cfg = frame.FrameConfig.from_params(P.set_defaults(12), 2, 16,
+                                        block_size=B)
+    nums = np.arange(F, dtype=np.int64) * B
+    hdr_bytes, hdr_nb = bitpack.frame_header_bytes(
+        nums, bs_code=P.blocksize_code(B),
+        sr_code=P.samplerate_code(44100), allow_vbs=1)
+    analysis = frame.analyze_frames(
+        frames.to(dev), cfg, torch.from_numpy(hdr_nb * 8).to(dev))
+    slots = bitpack.slot_layout(analysis, torch.from_numpy(hdr_bytes).to(dev),
+                                torch.from_numpy(hdr_nb).to(dev), cfg)
+    assert slots[0].shape[1] > 16000 and bitpack.word_rows(cfg) >= 64
+    words, total_bits = k3.merge_words(*slots, bitpack.word_rows(cfg))
+    words_p, total_p = k3.merge_words_plain(*slots, bitpack.word_rows(cfg))
+    assert torch.equal(words, words_p)
+    assert torch.equal(total_bits, total_p)
+    assert torch.equal(total_bits.to(torch.int64),
+                       analysis["frame_bytes"] * 8)
+
+
+def test_search_ties_on_the_card(dev):
+    """SEARCH on the card picks the order the CPU picks, ties included."""
+    rng = np.random.default_rng(5)
+    bits = torch.from_numpy(rng.integers(100, 103, (4096, 32)))
+    bits[0] = 7
+    bits[1, [4, 20, 31]] = 50
+    cfg = frame.FrameConfig.from_params(P.set_defaults(12), 2, 16)
+    got = frame.select_order(cfg, bits.to(dev), (4096,), dev)
+    want = frame.select_order(cfg, bits, (4096,), torch.device("cpu"))
+    assert torch.equal(got.cpu(), want)
+    assert want[0] == 1 and want[1] == 5
+
+
 def test_encoder_cuda_matches_cpu(dev):
     """The stream through the kernels equals the CPU path's bytes."""
     n = 40 * 1024 + 20
@@ -114,6 +186,30 @@ def test_encoder_cuda_matches_cpu(dev):
     cfg = P.StreamConfig(params=P.set_defaults(8))
     cfg.params.block_size = 1024
     counters = (k1.autocorr, k2.sweep_sums, k3.merge_words)
+    before = [c.launches for c in counters]
+    got = flake_tpu_torch.Encoder(cfg, device=dev,
+                                  batch_frames=16).encode_stream(pcm)
+    assert all(c.launches > b for c, b in zip(counters, before))
+    want = flake_tpu_torch.Encoder(cfg, device="cpu",
+                                   batch_frames=16).encode_stream(pcm)
+    assert got == want
+
+
+def test_encoder_vbs_cuda_matches_cpu(dev):
+    """Level 12 at full width (superblocks of 8192, order 32): the
+    stream through the kernels, K4 included, equals the CPU path's
+    bytes."""
+    n = 4 * 8192 + 700
+    t = np.arange(n)
+    rng = np.random.default_rng(12)
+    env = np.where((t // 4096) % 2, 1.0, 0.2)
+    pcm = env[:, None] * np.stack([9000 * np.sin(2 * np.pi * 220 * t / 44100),
+                                   7000 * np.sin(2 * np.pi * 330 * t / 44100)],
+                                  1) + rng.normal(0, 100, (n, 2))
+    pcm[3 * 8192:3 * 8192 + 6000] = 0
+    pcm = np.clip(np.rint(pcm), -32768, 32767).astype(np.int32)
+    cfg = P.StreamConfig(params=P.set_defaults(12))
+    counters = (k1.autocorr, k2.sweep_sums, k3.merge_words, k4)
     before = [c.launches for c in counters]
     got = flake_tpu_torch.Encoder(cfg, device=dev,
                                   batch_frames=16).encode_stream(pcm)
