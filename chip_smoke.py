@@ -1,26 +1,42 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA H100.
 
-Builds the port's four CUDA kernels (K1 autocorrelation, K2 and K4 order
-sweeps, K3 word merge) and the host CRC patcher from this checkout, and
-holds each kernel against its plain PyTorch version: K1-K3 on the inputs
-the first level-8 batch gives them, K4 (and K1 at 33 lags, K3 on
-8192-sample frames) on the inputs of a level-12 batch of 8192-sample
-sub-blocks, with K2 timed on K4's inputs beside it. K2 is held against
+Builds the port's CUDA kernels (K1 autocorrelation, K2 and K4 order
+sweeps, K3 word merge, K5 pre-aligned word merge, and U1, the four merge
+variants of the emission-profiling tool) and its host libraries (CRC
+patcher, decoder helpers) from this checkout, and holds each kernel
+against its plain PyTorch version: K1-K3 on the inputs the first level-8
+batch gives them, K4 (and K1 at 33 lags, K3 on 8192-sample frames) on the
+inputs of a level-12 batch of 8192-sample sub-blocks, with K2 timed on
+K4's inputs beside it; K5 and U1 on the aligned parts of the profiling
+tool's own level-8 batch, K5 also on the first level-5 batch and the
+level-12 8192 bucket, where its words must equal K3's. K2 is held against
 its plain version on every shape the level-12 path gives it (order 32,
 the sub-block sizes outside K4's domain and the tail), and timed beside
-K4 where K4 can sum the same shape. Three seconds of the level-12 stream
-that hold steady audio and noise bursts must give the same bytes through
+K4 where K4 can sum the same shape. Every kernel's time stands beside its
+plain version's, its bound (the least time the card could take: bytes
+over the memory rate or operations over the peak rate, whichever is
+larger) and, where one PyTorch call computes the same function, that
+call's time. The Schur and Levinson recursions of the EST order method
+must give the same float64 bits on the card and on the host.
+
+Three-second windows must give the same bytes through
 ``Encoder(device="cpu")`` (the plain versions) and
-``Encoder(device="cuda")``, reaching both K2 and K4. Then three
-main paths run through ``Encoder.encode_stream``, cold and warm, each
-with the launch counts set to 0 just before it and read just after: 180 s
-of deterministic 16-bit / 44.1 kHz stereo at level 8 (K1-K3 must
-launch), and a second deterministic stream with level jumps, bursts and
-silences at levels 12 and 11, whose variable block sizes must split into
-at least four sub-block sizes, 4096 and 8192 among them (K1-K4 must
-launch). Every stream is decoded with the JAX package's independent
-decoder (numpy only), MD5 included.
+``Encoder(device="cuda")``: 4-7 s of the level-12 stream (steady audio
+and noise bursts, reaching both K2 and K4) and 99-102 s of the fixed-block
+stream (tones around the full-scale noise second) at levels 5 and 7. Then
+the main paths run, each with the launch counts set to 0 just before it
+and read just after: the profiling tool
+(``flake_tpu_torch.util.prof_merge.main``; K1-K3, K5 and U1 must launch)
+and, through ``Encoder.encode_stream``, cold and warm, 180 s of
+deterministic 16-bit / 44.1 kHz stereo at level 8 (K1-K3 must launch) and
+at level 5 (EST: K1 and K3 must launch, K2 must not), 60 s of it at level
+7 (K1-K3), 30 s at levels 3 (K1, K3) and 2, 1, 0 (block 1152, K3 only),
+and a second deterministic stream with level jumps, bursts and silences
+at levels 12 and 11, whose variable block sizes must split into at least
+four sub-block sizes, 4096 and 8192 among them (K1-K4 must launch). Every
+stream is decoded with the port's independent decoder
+(``flake_tpu_torch.decoder``), MD5 included.
 
     python3 chip_smoke.py
 
@@ -36,7 +52,6 @@ import pathlib
 import subprocess
 import sys
 import time
-import types
 
 ROOT = pathlib.Path(__file__).resolve().parent
 SEED = 20260116
@@ -46,8 +61,18 @@ BLOCK = 4096
 BATCH = 512
 VBS_SECONDS = 60        # the level-12 and level-11 stream
 PARITY_WINDOW = (4, 7)  # seconds of it through the CPU and the CUDA encoder
+FIXED_PARITY_WINDOW = (99, 102)  # of the fixed-block stream, levels 5 and 7
+# seconds of the fixed-block stream per level below 8 (level 8 takes it all)
+LEVEL_SECONDS = {5: 180, 7: 60, 3: 30, 2: 30, 1: 30, 0: 30}
 SCENE = 10              # seconds per scene of that stream
 K1_REL_TOL = 5e-11      # tests/test_pallas_autocorr.py:55
+# Published peaks of one H100 SXM (NVIDIA's data sheet): 3.35 TB/s of HBM3;
+# 67 TFLOP/s float32 outside the tensor cores, float64 at half of it. An SM
+# has half as many int32 lanes as float32 lanes, so int32 operations peak
+# at half the float32 rate too.
+HBM_BYTES_PER_MS = 3.35e9
+FP64_OPS_PER_MS = 33.5e9
+INT32_OPS_PER_MS = 33.5e9
 
 
 def fail(msg: str) -> None:
@@ -108,38 +133,57 @@ def make_vbs_stream(seed: int, seconds: int) -> "np.ndarray":
     return np.clip(np.rint(pcm), -32768, 32767).astype(np.int32)
 
 
-def load_reference_decoder():
-    """``flake_tpu.decoder`` under a bare ``flake_tpu`` parent module, so
-    ``flake_tpu/__init__.py`` (which imports JAX) never runs."""
-    pkg = types.ModuleType("flake_tpu")
-    pkg.__path__ = [str(ROOT / "flake_tpu")]
-    sys.modules["flake_tpu"] = pkg
-    import flake_tpu.decoder as decoder
+def bound(bytes_moved: float, ops: float, ops_per_ms: float):
+    """The least ms the card could take for this much work, and which of
+    bytes or operations sets it."""
+    by_bytes = bytes_moved / HBM_BYTES_PER_MS
+    by_ops = ops / ops_per_ms
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                           "operations")
 
-    if "jax" in sys.modules:
-        fail("loading the reference decoder imported jax")
-    return decoder
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def time_turns(*fns, reps: int = 20):
+    """Mean ms on the card per call of each function (CUDA events; short
+    kernels enqueued behind a spinning kernel so that they run back to
+    back, see ``flake_tpu_torch.util.prof_merge.device_ms``), in turns
+    (first to last, then last to first) after one warm-up call each."""
+    import torch
+    from flake_tpu_torch.util.prof_merge import device_ms
+
+    dev = torch.device("cuda", 0)
+    for fn in fns:
+        fn()
+    forth = [device_ms(fn, dev, reps) for fn in fns]
+    back = [device_ms(fn, dev, reps) for fn in reversed(fns)][::-1]
+    return [(f + b) / 2 for f, b in zip(forth, back)]
+
+
+def loop_ms(fn, reps: int = 20) -> float:
+    """Mean ms per call of ``fn`` in a plain loop between two CUDA events,
+    launch gaps included: what the earlier smoke runs reported as a
+    kernel's time."""
+    import torch
+
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def time_pair(kernel, plain, reps: int = 20):
-    """Mean ms per call of ``kernel`` and ``plain`` with CUDA events, in
-    turns (plain, kernel, kernel, plain) after one warm-up call each."""
-    import torch
-
-    def run(fn):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / reps
-
-    kernel()
-    plain()
-    p1, k1, k2, p2 = run(plain), run(kernel), run(kernel), run(plain)
-    return (k1 + k2) / 2, (p1 + p2) / 2
+    """Mean ms per call of ``kernel`` and ``plain``, in turns (plain,
+    kernel, kernel, plain)."""
+    plain_ms, kernel_ms = time_turns(plain, kernel, reps=reps)
+    return kernel_ms, plain_ms
 
 
 def main() -> None:
@@ -169,13 +213,14 @@ def main() -> None:
         fail(f"need compute capability (9, 0), got {cap}")
     dev = torch.device("cuda", 0)
 
-    from flake_tpu_torch import _cuda, native
+    from flake_tpu_torch import _cuda, decoder, native
     from flake_tpu_torch import params as P
     from flake_tpu_torch.encoder import Encoder, vbs_layout, vbs_section_sums
     from flake_tpu_torch.ops import autocorr as k1_mod
     from flake_tpu_torch.ops import bitmerge as k3_mod
     from flake_tpu_torch.ops import bitpack, frame, lpc
     from flake_tpu_torch.ops import sweep as sweep_mod
+    from flake_tpu_torch.util import prof_merge as tool
 
     if "jax" in sys.modules:
         fail("importing flake_tpu_torch imported jax")
@@ -190,7 +235,9 @@ def main() -> None:
             print("  ptxas:", line.strip())
     t0 = time.perf_counter()
     native.build()
-    print(f"build packer.cpp: {time.perf_counter() - t0:.1f} s", flush=True)
+    native.get_verifier()
+    print(f"build crc_patch.cpp and verifier.cpp: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     def stream_config(level):
         return P.StreamConfig(channels=2, sample_rate=SAMPLE_RATE,
@@ -263,14 +310,41 @@ def main() -> None:
             fail(f"{name} disagrees with its plain version ({detail})")
         return err, detail
 
-    def phase(name, route_src, replaces, kern, plain, compare):
+    def phase(name, route_src, replaces, kern, plain, compare, reads, ops,
+              ops_per_ms, library=None):
+        """Hold one kernel against its plain version, time both (and the
+        library call, where there is one) in turns, and work out its
+        bound: ``reads`` are the tensors the function must read, each
+        once, its outputs are written once, ``ops`` the operations it
+        does on these inputs at ``ops_per_ms`` peak."""
         err, detail = check(name, kern, plain, compare)
-        ms, plain_ms = time_pair(kern, plain)
-        print(f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        out = kern()
+        moved = nbytes(*reads) + nbytes(*(out if isinstance(out, tuple)
+                                          else (out,)))
+        bound_ms, bound_by = bound(moved, ops, ops_per_ms)
+        library_ms = None
+        if library is None:
+            ms, plain_ms = time_pair(kern, plain)
+        else:
+            plain_ms, ms, library_ms = time_turns(plain, kern, library)
+        looped = loop_ms(kern)
+        print(f"{name}: kernel {ms:.4f} ms ({looped:.4f} ms a call in a plain "
+              f"launch loop), plain {plain_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms by {bound_by} ({moved / 1e6:.1f} MB, "
+              f"{ops / 1e9:.3f} G operations), library call "
+              f"{'none' if library_ms is None else f'{library_ms:.4f} ms'}, "
               f"{detail} -> ok", flush=True)
         kernels.append({"name": name, "route": "cuda", "source": route_src,
                         "replaces": replaces, "max_abs_err": err,
-                        "ms": ms, "plain_ms": plain_ms})
+                        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "bound_by": bound_by, "library_ms": library_ms,
+                        "ms_in_launch_loop": looped})
+
+    def sweep_ops(sx, order):
+        """Operations of an order sweep: one 32x32->64-bit multiply-add per
+        sample, candidate order and tap, each counted as four int32
+        operations (a multiply and an add on two 32-bit halves)."""
+        return 4 * sx.numel() * order * (order + 1) // 2
 
     def cmp_rel(name, a, b):
         abs_err = (a - b).abs()
@@ -292,24 +366,25 @@ def main() -> None:
     phase("autocorr", "flake_tpu_torch/csrc/autocorr.cu",
           "flake_tpu/ops/pallas_autocorr.py:158",
           lambda: k1_mod.autocorr(x, window, max_o),
-          lambda: lpc.autocorr(x, max_o, window), cmp_rel)
+          lambda: lpc.autocorr(x, max_o, window), cmp_rel,
+          # a window multiply per sample, a float64 multiply-add per sample
+          # and lag
+          (x, window), x.numel() * (1 + 2 * (max_o + 1)), FP64_OPS_PER_MS)
     kernels[-1]["max_rel_err"] = rel_err["autocorr"]
     kernels[-1]["tolerance"] = f"{K1_REL_TOL:g} relative per element"
     phase("sweep_sums", "flake_tpu_torch/csrc/sweep.cu",
           "flake_tpu/ops/pallas_sweep3.py:124",
           lambda: sweep_mod.sweep_sums(sx, scoefs, sshifts, s_mo, s_pmax),
           lambda: sweep_mod.sweep_sums_plain(sx, scoefs, sshifts, s_mo,
-                                          s_pmax), cmp_exact)
+                                          s_pmax), cmp_exact,
+          (sx, scoefs, sshifts), sweep_ops(sx, s_mo), INT32_OPS_PER_MS)
     phase("merge_words", "flake_tpu_torch/csrc/bitmerge.cu",
           "flake_tpu/ops/pallas_bitmerge.py:173",
           lambda: k3_mod.merge_words(ml, mlead, mpay, mwr),
-          lambda: k3_mod.merge_words_plain(ml, mlead, mpay, mwr), cmp_exact)
-
-    ac = lpc.autocorr(x, max_o, window)
-    lev_dev = lpc.levinson_all_orders(ac)[0].cpu()
-    lev_cpu = lpc.levinson_all_orders(ac.cpu())[0]
-    print(f"info: Levinson on the card == on the host: "
-          f"{torch.equal(lev_dev, lev_cpu)}", flush=True)
+          lambda: k3_mod.merge_words_plain(ml, mlead, mpay, mwr), cmp_exact,
+          # about 16 int32 operations per slot: the scan, the shifts and
+          # masks of its two word parts, two atomics
+          (ml, mlead, mpay), 16 * ml.numel(), INT32_OPS_PER_MS)
 
     # -- 4. K4 on a level-12 batch of 8192-sample sub-blocks ----------------
     vpcm = make_vbs_stream(SEED + 12, VBS_SECONDS)
@@ -351,7 +426,8 @@ def main() -> None:
     phase("sweep_granules", "flake_tpu_torch/csrc/sweep_granules.cu",
           "flake_tpu/ops/pallas_sweep.py:147", k4_run,
           lambda: sweep_mod.sweep_granules_plain(gx, gcoefs, gshifts, g_mo,
-                                              g_pmax), cmp_exact)
+                                              g_pmax), cmp_exact,
+          (gx, gcoefs, gshifts), sweep_ops(gx, g_mo), INT32_OPS_PER_MS)
     folded = k4_run().reshape(gx.shape[0], g_mo, 1 << g_pmax, -1).sum(-1)
     if not torch.equal(folded, k2_run()):
         fail("K4's granules, folded to partitions, differ from K2's sums")
@@ -373,6 +449,128 @@ def main() -> None:
                       cmp_exact)
     print(f"K3 on {vbs}-sample frames, slots {tuple(vl.shape)}, word_rows "
           f"{vwr}: {detail}", flush=True)
+
+    # -- 4b. K5 and U1 on the profiling tool's batch ---------------------------
+    tsamples, thb, thn, tcfg = tool.make_batch()
+    tF = tsamples.shape[0]
+    tanalysis = frame.analyze_frames(
+        torch.from_numpy(tsamples).to(dev), tcfg,
+        torch.full((tF,), 48, dtype=torch.int32, device=dev))
+    tslots = bitpack.slot_layout(tanalysis, torch.from_numpy(thb).to(dev),
+                                 torch.from_numpy(thn).to(dev), tcfg)
+    parts = bitpack.aligned_parts(*tslots)
+    twr = bitpack.word_rows(tcfg)
+    w0t, hit, lot, cbits = parts
+    nc = w0t.shape[-1]
+    print(f"K5 and U1 inputs: aligned parts {tuple(w0t.shape)} of slots "
+          f"{tuple(tslots[0].shape)}, chunk_bits {tuple(cbits.shape)}, "
+          f"word_rows {twr}", flush=True)
+    # the library yardstick: one scatter_add_ of every hi and lo word at its
+    # word index (prepared outside the timed call) computes K5's words
+    sc_idx = torch.cat([w0t, w0t + 1], dim=1).reshape(tF, -1).to(torch.int64)
+    sc_val = torch.cat([hit, lot], dim=1).reshape(tF, -1)
+    if int(sc_idx.min()) < 0 or int(sc_idx.max()) >= twr * 128:
+        fail("the tool's batch has a word index outside its block")
+
+    def k5_library():
+        return torch.zeros((tF, twr * 128), dtype=torch.int32, device=dev) \
+            .scatter_add_(1, sc_idx, sc_val).reshape(tF, twr, 128)
+
+    def k5_run():
+        return k3_mod.merge_aligned(*parts, twr)
+
+    if not torch.equal(k5_library(), k5_run()):
+        fail("scatter_add_ does not give K5's words")
+    # about 6 int32 operations per slot: bounds checks and two atomics
+    phase("merge_aligned", "flake_tpu_torch/csrc/bitmerge_aligned.cu",
+          "flake_tpu/ops/pallas_bitmerge.py:271", k5_run,
+          lambda: k3_mod.merge_aligned_plain(*parts, twr), cmp_exact,
+          (w0t, hit, lot), 6 * w0t.numel(), INT32_OPS_PER_MS,
+          library=k5_library)
+    if not torch.equal(k5_run(), k3_mod.merge_words(*tslots, twr)[0]):
+        fail("K5's words differ from K3's on the tool's slots")
+    k5_ms, prep_ms, k3_ms = time_turns(
+        k5_run, lambda: bitpack.aligned_parts(*tslots),
+        lambda: k3_mod.merge_words(*tslots, twr))
+    print(f"info: on the tool's slots K5 {k5_ms:.4f} ms after aligned_parts "
+          f"{prep_ms:.4f} ms, K3 {k3_ms:.4f} ms from the slots directly; the "
+          "words are equal", flush=True)
+
+    # what each variant must read: static2 and fixedrow everything, nowin
+    # the hi words and the chunk bounds, zero nothing
+    u1 = {"static2": (154, (cbits, w0t, hit, lot), 8 * w0t.numel()),
+          "fixedrow": (178, (cbits, w0t, hit, lot), 10 * w0t.numel()),
+          "nowin": (208, (cbits, hit), hit.numel()),
+          "zero": (228, (), 0)}
+    for name, (line, reads, ops) in u1.items():
+        kern, plain = tool.VARIANTS[name]
+        phase(f"prof_merge_{name}", "flake_tpu_torch/csrc/prof_merge.cu",
+              f"util/prof_merge.py:141 (k_{name} :{line})",
+              lambda kern=kern: kern(*parts, twr),
+              lambda plain=plain: plain(*parts, twr), cmp_exact, reads, ops,
+              INT32_OPS_PER_MS,
+              library=(lambda: torch.zeros((tF, twr, 128), dtype=torch.int32,
+                                           device=dev))
+              if name == "zero" else None)
+    print(f"static2_matches: "
+          f"{torch.equal(tool.merge_static2(*parts, twr), k5_run())}",
+          flush=True)
+
+    def k5_on(label, slots, wr):
+        """K5 against its plain version and against K3 on ``slots``."""
+        p5 = bitpack.aligned_parts(*slots)
+        got = k3_mod.merge_aligned(*p5, wr)
+        torch.cuda.synchronize()
+        if not torch.equal(got, k3_mod.merge_aligned_plain(*p5, wr)):
+            fail(f"K5 disagrees with its plain version on {label}")
+        if not torch.equal(got, k3_mod.merge_words(*slots, wr)[0]):
+            fail(f"K5's words differ from K3's on {label}")
+        print(f"K5 on {label}: aligned parts {tuple(p5[0].shape)}, word_rows "
+              f"{wr}: bit-exact against its plain version and K3", flush=True)
+
+    k5_on(f"the level-12 bucket of {vbs}-sample frames", (vl, vlead, vpay),
+          vwr)
+    cfg5 = stream_config(5)
+    fcfg5 = frame.FrameConfig.from_params(cfg5.params, 2, 16)
+    cap5 = capture(
+        [(frame, "autocorr"), (bitpack, "merge_words")],
+        lambda: analyze_and_pack(
+            torch.from_numpy(pcm[:BATCH * BLOCK].reshape(BATCH, BLOCK, 2))
+            .to(dev), fcfg5, np.arange(BATCH, dtype=np.int64), 0))
+    k5_on("the first level-5 batch", cap5["merge_words"][0][:3],
+          cap5["merge_words"][0][3])
+
+    # -- 4c. the EST recursions on the card and on the host --------------------
+    # XLA:CPU fuses every multiply-add of Schur and Levinson, and the port
+    # writes them as torch.addcmul; the card must round them the same way
+    gen = torch.Generator().manual_seed(SEED)
+    fa, fb, fc = (torch.randn(1 << 20, dtype=torch.float64, generator=gen)
+                  for _ in range(3))
+    on_card = torch.addcmul(fa.to(dev), fb.to(dev), fc.to(dev)).cpu()
+    print(f"addcmul on 2^20 float64 triples: {int((on_card != torch.addcmul(fa, fb, fc)).sum())} "
+          f"differ between card and host; {int((on_card != fa + fb * fc).sum())} "
+          "differ from the unfused a + b*c", flush=True)
+    ax5, awin5, a_mo5 = cap5["autocorr"][0]
+    ac5 = k1_mod.autocorr(ax5, awin5, a_mo5)
+    refs5 = lpc.schur_refs(ac5)
+    for label, on_dev, on_host in (
+            ("schur_refs", refs5, lpc.schur_refs(ac5.cpu())),
+            ("levinson_from_refs", lpc.levinson_from_refs(refs5),
+             lpc.levinson_from_refs(refs5.cpu())),
+            ("levinson_all_orders", lpc.levinson_all_orders(ac5)[0],
+             lpc.levinson_all_orders(ac5.cpu())[0])):
+        on_dev = on_dev.cpu()
+        differ = int(((on_dev != on_host)
+                      & ~(on_dev.isnan() & on_host.isnan())).sum())
+        print(f"{label} on {tuple(ac5.shape)} autocorrelations: {differ} of "
+              f"{on_host.numel()} float64 values differ between card and "
+              "host", flush=True)
+        if differ:
+            fail(f"{label} rounds differently on the card and on the host")
+    est = lpc.estimate_order(refs5, a_mo5)
+    print(f"EST orders of the first level-5 batch: "
+          f"{ {int(k): int(v) for k, v in zip(*torch.unique(est, return_counts=True))} }",
+          flush=True)
 
     # -- 5. K2 on every shape the level-12 path gives it ---------------------
     # the sub-block sizes outside K4's domain and the tail, at order 32 with
@@ -428,33 +626,68 @@ def main() -> None:
           f"equal {on_card == on_host}", flush=True)
     if on_card != on_host:
         fail("the CPU and CUDA encoders disagree on the level-12 segment")
+    fseg = pcm[FIXED_PARITY_WINDOW[0] * SAMPLE_RATE:
+               FIXED_PARITY_WINDOW[1] * SAMPLE_RATE]
+    for level in (5, 7):
+        on_card = Encoder(stream_config(level),
+                          device="cuda").encode_stream(fseg)
+        on_host = Encoder(stream_config(level),
+                          device="cpu").encode_stream(fseg)
+        print(f"parity: {FIXED_PARITY_WINDOW[0]}-{FIXED_PARITY_WINDOW[1]} s "
+              f"of the fixed-block stream at level {level}, {len(on_card)} "
+              f"bytes, equal {on_card == on_host}", flush=True)
+        if on_card != on_host:
+            fail(f"the CPU and CUDA encoders disagree at level {level}")
 
     # -- 7. the main paths through Encoder.encode_stream ---------------------
     counted = {"autocorr": k1_mod.autocorr, "sweep_sums": sweep_mod.sweep_sums,
                "merge_words": k3_mod.merge_words,
-               "sweep_granules": sweep_mod.sweep_granules}
+               "sweep_granules": sweep_mod.sweep_granules,
+               "merge_aligned": k3_mod.merge_aligned,
+               **{f"prof_merge_{name}": kern
+                  for name, (kern, _) in tool.VARIANTS.items()}}
     launched = dict.fromkeys(counted, 0)
-    decoder = load_reference_decoder()
 
-    def drive(label, cfg, stream, needs):
-        """One main path, cold then warm; the counts are set to 0 just
-        before the cold run and read just after it."""
+    def count_launches(label, run, needs, never=()):
+        """Run one main path with every count set to 0 just before it and
+        read just after; ``needs`` must have launched, ``never`` not."""
         for fn in counted.values():
             fn.launches = 0
-        torch.cuda.reset_peak_memory_stats(dev)
-        enc = Encoder(cfg, device="cuda")
-        t0 = time.perf_counter()
-        blob = enc.encode_stream(stream)
+        result = run()
         torch.cuda.synchronize()
-        cold = time.perf_counter() - t0
         counts = {name: fn.launches for name, fn in counted.items()}
-        peak = torch.cuda.max_memory_allocated(dev)
-        print(f"{label}: launches {counts}", flush=True)
+        print(f"{label}: launches { {k: v for k, v in counts.items() if v} }",
+              flush=True)
         missing = [name for name in needs if counts[name] < 1]
         if missing:
             fail(f"{label}: {missing} never launched on the main path")
+        unwanted = [name for name in never if counts[name]]
+        if unwanted:
+            fail(f"{label}: {unwanted} launched, and this path has no use "
+                 "for them")
         for name, n in counts.items():
             launched[name] += n
+        return result
+
+    # the emission-profiling tool: K5 and U1's main path
+    k123 = ("autocorr", "sweep_sums", "merge_words")
+    res = count_launches(
+        "profiling tool", lambda: tool.main(device="cuda"),
+        k123 + tuple(n for n in counted if n.startswith(("merge_a", "prof_"))))
+    if not res["static2_matches"] or (res["F"], res["nc"], res["wr"]) \
+            != (tF, nc, twr):
+        fail(f"the profiling tool's result is off: {res}")
+
+    def drive(label, cfg, stream, needs, never=()):
+        """One main path through the encoder, cold then warm; the counts
+        are those of the cold run."""
+        torch.cuda.reset_peak_memory_stats(dev)
+        enc = Encoder(cfg, device="cuda")
+        t0 = time.perf_counter()
+        blob = count_launches(label, lambda: enc.encode_stream(stream),
+                              needs, never)
+        cold = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev)
         print(f"{label}: batches {enc.stats['batches']}, frames "
               f"{enc.stats['frames']}: total_bits == 8*frame_bytes held for "
               "every batch", flush=True)
@@ -485,7 +718,6 @@ def main() -> None:
               f"({time.perf_counter() - t0:.1f} s)", flush=True)
         return dec
 
-    k123 = ("autocorr", "sweep_sums", "merge_words")
     dec8 = drive("level 8", cfg8, pcm, k123)
     if dec8.streaminfo.min_block_size != BLOCK:
         fail("level 8: STREAMINFO min block is not the block size")
@@ -504,9 +736,27 @@ def main() -> None:
         if want not in kinds:
             fail(f"the {label} did not reach subframe type {want}")
 
+    # levels 0-7: EST needs no sweep, the FIXED levels no autocorrelation
+    # either; every stream here ends in a partial block
+    sweeps = ("sweep_sums", "sweep_granules")
+    for level, needs, never in (
+            (5, ("autocorr", "merge_words"), sweeps),
+            (7, k123, ("sweep_granules",)),
+            (3, ("autocorr", "merge_words"), sweeps),
+            (2, ("merge_words",), ("autocorr",) + sweeps),
+            (1, ("merge_words",), ("autocorr",) + sweeps),
+            (0, ("merge_words",), ("autocorr",) + sweeps)):
+        cfg = stream_config(level)
+        stream = pcm[:LEVEL_SECONDS[level] * SAMPLE_RATE]
+        if stream.shape[0] % cfg.params.block_size == 0:
+            fail(f"level {level}: the stream has no partial last block")
+        dec = drive(f"level {level}", cfg, stream, needs, never)
+        if dec.streaminfo.min_block_size != cfg.params.block_size:
+            fail(f"level {level}: STREAMINFO min block is not the block size")
+
     for level in (12, 11):
         dec = drive(f"level {level}", stream_config(level), vpcm,
-                    tuple(counted))
+                    k123 + ("sweep_granules",))
         if dec.streaminfo.min_block_size != 16:
             fail(f"level {level}: STREAMINFO min block is not 16")
 

@@ -2,7 +2,7 @@
 
 A port of :mod:`flake_tpu` (JAX on a TPU), which stays beside it as the
 reference. The port imports ``torch`` and numpy and never JAX or the JAX
-package; its three device kernels are CUDA C++ written for Hopper
+package; its device kernels are CUDA C++ written for Hopper
 (``csrc/``), each with a plain PyTorch version that a CPU tensor takes.
 
 Lifecycle as in the reference (flake.h): build a

@@ -40,6 +40,11 @@ SIGNATURES = {
     "flake_sweep_granules": [_P, _P, _P, _P, _I, _I, _I, _I],
     # lengths, leading, payload, words, total_bits, F, M, W
     "flake_merge_words": [_P, _P, _P, _P, _P, _I, _I, _I],
+    # w0t, hit, lot, words, F, S, W
+    "flake_merge_aligned": [_P, _P, _P, _P, _I, _I, _I],
+    # chunk_bits, w0t, hit, lot, words, F, nc, W
+    **{f"flake_prof_merge_{variant}": [_P, _P, _P, _P, _P, _I, _I, _I]
+       for variant in ("static2", "fixedrow", "nowin", "zero")},
 }
 
 _lock = threading.Lock()

@@ -19,9 +19,10 @@ each bucket is encoded as batches of its own block size. Under
 ``allow_vbs`` frames are numbered by their first sample.
 
 API lifecycle mirrors the reference (flake.h:217-234): construct ->
-header() -> encode chunks -> streaminfo() rewrite. Not ported yet, and
-refused: the EST and 2/4/8-LEVEL order methods (levels 3-7), a device
-mesh, host packing and save/load of encoder state.
+header() -> encode chunks -> streaminfo() rewrite. Every preset level
+0-12 encodes. The port has no device mesh, no host packing, no
+save/load of encoder state and no Vorbis comment entries: its
+constructor takes no such argument.
 """
 
 from __future__ import annotations
@@ -39,8 +40,6 @@ from flake_tpu_torch.native import crc_patch
 from flake_tpu_torch.ops import bitpack
 from flake_tpu_torch.ops.frame import FrameConfig, analyze_frames
 
-PORTED_ORDER_METHODS = (P.OrderMethod.MAX, P.OrderMethod.SEARCH,
-                        P.OrderMethod.LOG)
 SPLIT_THRESHOLD = 50    # vbs.c:26
 
 
@@ -79,7 +78,7 @@ def vbs_layout(res: np.ndarray, sec: int):
         nsec.reshape(-1)[sel].astype(np.int64) * sec
 
 
-def _device(device) -> torch.device:
+def resolve_device(device) -> torch.device:
     """The device the caller asked for; CUDA must be present when asked
     for (there is no fallback to the CPU)."""
     dev = torch.device(device)
@@ -100,14 +99,9 @@ class Encoder:
     def __init__(self, cfg: P.StreamConfig, *, device,
                  batch_frames: int = 512,
                  vendor_string: str | None = None):
-        self.device = _device(device)
+        self.device = resolve_device(device)
         P.validate_params(cfg)
         p = cfg.params
-        if (p.prediction_type == P.Prediction.LEVINSON
-                and p.order_method not in PORTED_ORDER_METHODS):
-            raise NotImplementedError(
-                f"order method {P.OrderMethod(p.order_method).name} is "
-                "not ported yet")
         if batch_frames < 1:
             raise ValueError("batch_frames must be >= 1")
         # device_wait_seconds: blocked on device results (device work not

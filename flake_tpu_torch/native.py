@@ -1,9 +1,13 @@
-"""Host CRC patch: the repository's C++ packer, bound with ctypes.
+"""The port's host-side native code, built with g++ and bound with ctypes.
 
-Builds ``flake_tpu/native/packer.cpp`` (read by path, not copied) with the
-same g++ flags as ``flake_tpu/native/__init__.py:31-34`` into the port's
-build directory, and binds only ``flake_crc_patch``: the port emits frame
-bytes on the device and the host fills the CRC-8/CRC-16 placeholders.
+Two small libraries, each from one source of ``flake_tpu_torch/csrc/`` and
+built at first use into the port's build directory:
+
+- ``crc_patch.cpp``: ``flake_crc_patch``. The port emits frame bytes on
+  the device and the host fills the CRC-8/CRC-16 placeholders.
+- ``verifier.cpp``: the inner loops of the verification decoder
+  (:mod:`flake_tpu_torch.decoder`), kept apart from the encoder's
+  library so the decoder stays an independent check.
 """
 
 from __future__ import annotations
@@ -15,17 +19,25 @@ import numpy as np
 
 from flake_tpu_torch import _build
 
-SRC = _build.ROOT / "flake_tpu" / "native" / "packer.cpp"
-LIB = _build.BUILD_DIR / "libflake_packer.so"
+CSRC = _build.ROOT / "flake_tpu_torch" / "csrc"
+SRC = CSRC / "crc_patch.cpp"
+LIB = _build.BUILD_DIR / "libflake_crc_patch.so"
+VERIFIER_SRC = CSRC / "verifier.cpp"
+VERIFIER_LIB = _build.BUILD_DIR / "libflake_verifier.so"
 GXX = ["g++", "-O3", "-std=c++17", "-shared", "-fPIC", "-fopenmp",
        "-march=native"]
 
 _lock = threading.Lock()
 _lib = None
+_verifier = None
+
+_u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
+_i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
+_i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
 
 
 def build() -> str:
-    """Build the packer library if it is missing or stale."""
+    """Build the CRC patch library if it is missing or stale."""
     return _build.build(GXX, [SRC], LIB)
 
 
@@ -35,14 +47,32 @@ def get_lib() -> ctypes.CDLL:
         if _lib is None:
             build()
             lib = ctypes.CDLL(str(LIB))
-            u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
-            i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
-            i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
-            lib.flake_crc_patch.argtypes = [u8p, ctypes.c_int64,
-                                            ctypes.c_int, i64p, i64p, i32p]
+            lib.flake_crc_patch.argtypes = [_u8p, ctypes.c_int64,
+                                            ctypes.c_int, _i64p, _i64p,
+                                            _i32p]
             lib.flake_crc_patch.restype = ctypes.c_int64
             _lib = lib
         return _lib
+
+
+def get_verifier() -> ctypes.CDLL:
+    """The verification decoder's helper library (built if missing or
+    stale)."""
+    global _verifier
+    with _lock:
+        if _verifier is None:
+            _build.build(GXX, [VERIFIER_SRC], VERIFIER_LIB)
+            lib = ctypes.CDLL(str(VERIFIER_LIB))
+            lib.flake_verify_subframe.argtypes = [
+                _u8p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int32,
+                ctypes.c_int32, _i32p, ctypes.c_int32, _i64p]
+            lib.flake_verify_subframe.restype = ctypes.c_int64
+            lib.flake_verify_raw.argtypes = [
+                _u8p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+                ctypes.c_int32, _i64p]
+            lib.flake_verify_raw.restype = ctypes.c_int64
+            _verifier = lib
+        return _verifier
 
 
 def crc_patch(buf: np.ndarray, lengths: np.ndarray,

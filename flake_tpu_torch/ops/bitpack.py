@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from flake_tpu_torch import params as P
-from flake_tpu_torch.ops.bitmerge import merge_words
+from flake_tpu_torch.ops.bitmerge import LANE, merge_words, slot_words
 from flake_tpu_torch.ops.common import U32_MASK, wrap_int32
 from flake_tpu_torch.ops.frame import (SF_CONSTANT, SF_FIXED, SF_LPC,
                                        SF_VERBATIM, FrameConfig)
@@ -269,6 +269,34 @@ def pack_frames_device(analysis: dict, hdr_bytes: torch.Tensor,
     lengths, leading, payload = slot_layout(analysis, hdr_bytes,
                                             hdr_nbytes, cfg)
     return merge_words(lengths, leading, payload, word_rows(cfg))
+
+
+def aligned_parts(lengths: torch.Tensor, leading: torch.Tensor,
+                  payload: torch.Tensor):
+    """The pre-aligned form of a batch's slots that K5
+    (:func:`~flake_tpu_torch.ops.bitmerge.merge_aligned`) takes, from the
+    :func:`slot_layout` tables (``util/prof_merge.py:95-127`` of the JAX
+    package): every slot's first word index and the two 32-bit words its
+    payload spans, cut into chunks of 128 slots.
+
+    Returns (w0t, hit, lot) int32 [F, 128, nc], slot ``c * 128 + s`` at
+    [f, s, c], hit/lot the int32 images of the uint32 words and pad slots
+    0, and chunk_bits int32 [F, nc + 1], the bit offset of each chunk's
+    first slot with the frame's total bits last. The offsets are a plain
+    running sum; the JAX package's hierarchical one works around the
+    TPU's scan."""
+    F, M = lengths.shape
+    offsets, w0, hi, lo = slot_words(lengths, leading, payload)
+    nc = -(-M // LANE)
+
+    def to_chunks(x):
+        x = torch.nn.functional.pad(wrap_int32(x), (0, nc * LANE - M))
+        return x.reshape(F, nc, LANE).permute(0, 2, 1).contiguous()
+
+    total_bits = lengths.sum(dim=-1, dtype=torch.int64)
+    chunk_bits = torch.cat([offsets[:, ::LANE], total_bits[:, None]],
+                           dim=-1).to(torch.int32)
+    return to_chunks(w0), to_chunks(hi), to_chunks(lo), chunk_bits
 
 
 def words_to_slot_bytes(words: torch.Tensor) -> torch.Tensor:

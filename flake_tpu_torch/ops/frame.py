@@ -13,8 +13,10 @@ B = 4096 and 8192 at order 32 with 256 partitions (levels 11-12), and K2
 package falls back to its XLA sweep. The output dict has the JAX
 package's keys, so the tests compare key by key.
 
-Order methods: MAX, LOG and SEARCH are ported; EST (level 5, Schur) and
-the 2/4/8-LEVEL methods raise ``NotImplementedError``.
+Every order method is ported. EST (levels 3-6) takes its reflection
+coefficients from the Schur recursion and seeds Levinson with them, and
+runs no sweep; the 2/4/8-LEVEL methods (level 7) run the sweep and read
+only their candidates' columns of the per-order bit counts.
 """
 
 from __future__ import annotations
@@ -107,15 +109,40 @@ def _select_order_log(bits_all: torch.Tensor, min_order: int,
     return (opt + 1).to(torch.int32)
 
 
-def select_order(cfg: FrameConfig, bits_all, batch,
+def _select_order_level(bits_all: torch.Tensor,
+                        cand: list[int]) -> torch.Tensor:
+    """2/4/8-LEVEL selection (optimize.c:202-223): scan the candidates
+    (0-based orders, highest first; they may repeat) with strict <, so a
+    tie keeps the earlier, higher candidate. Returns the order (1-based)
+    int32 [...]."""
+    best_bits = bits_all[..., cand[0]]
+    best_order = torch.full_like(best_bits, cand[0], dtype=torch.int32)
+    for o in cand[1:]:
+        take = bits_all[..., o] < best_bits
+        best_bits = torch.where(take, bits_all[..., o], best_bits)
+        best_order = torch.where(take, o, best_order)
+    return best_order + 1
+
+
+def select_order(cfg: FrameConfig, bits_all, refs, batch,
                  device: torch.device) -> torch.Tensor:
     """Order-method dispatch (optimize.c:196-261). bits_all int64
-    [..., max_order] (None for MAX). Returns the order (1-based) int32
-    [batch]."""
+    [..., max_order] (None for MAX and EST); refs float64
+    [..., max_order], the reflection coefficients (read by EST only).
+    Returns the order (1-based) int32 [batch]."""
     method = cfg.order_method
+    min_o = cfg.min_prediction_order
+    max_o = cfg.max_prediction_order
     if method == P.OrderMethod.MAX:
-        return torch.full(batch, cfg.max_prediction_order,
-                          dtype=torch.int32, device=device)
+        return torch.full(batch, max_o, dtype=torch.int32, device=device)
+    if method == P.OrderMethod.EST:
+        return lpc_ops.estimate_order(refs, max_o)
+    if method in (P.OrderMethod.LEVEL2, P.OrderMethod.LEVEL4,
+                  P.OrderMethod.LEVEL8):
+        levels = 1 << (method - 1)
+        cand = [max(min_o + ((max_o - min_o + 1) * (i + 1)) // levels - 2, 0)
+                for i in range(levels - 1, -1, -1)]
+        return _select_order_level(bits_all, cand)
     if method == P.OrderMethod.SEARCH:
         # torch.argmin, like jnp.argmin, takes the first (lowest) order
         # among equal minima on every device
@@ -124,8 +151,7 @@ def select_order(cfg: FrameConfig, bits_all, batch,
     if method == P.OrderMethod.LOG:
         return _select_order_log(bits_all, cfg.min_prediction_order,
                                  cfg.max_prediction_order)
-    raise NotImplementedError(
-        f"order method {P.OrderMethod(method).name} is not ported yet")
+    raise ValueError(f"bad order method {method}")
 
 
 def finalize_analysis(cfg: FrameConfig, chans, obits, wasted_bits,
@@ -191,9 +217,11 @@ def finalize_analysis(cfg: FrameConfig, chans, obits, wasted_bits,
 
 def _lpc_search(cfg: FrameConfig, chans, obits):
     """The LPC path (optimize.c:192-275) on the flattened [N = F*C]
-    stream batch: K1, Levinson and quantization, K2 or K4 and the Rice
-    scan for every candidate order, order selection, the final residual and
-    its exact Rice parameters."""
+    stream batch: K1, Levinson (under EST: Schur, then Levinson seeded
+    with its reflection coefficients, lpc.c:125-162) and quantization, K2
+    or K4 and the Rice scan for every candidate order where the order
+    method reads bit counts, order selection, the final residual and its
+    exact Rice parameters."""
     F, C, n = chans.shape
     N = F * C
     max_o = cfg.max_prediction_order
@@ -204,11 +232,15 @@ def _lpc_search(cfg: FrameConfig, chans, obits):
     window = lpc_ops.welch_window_on(n, dev)
 
     autoc = autocorr(cN, window, max_o)                          # K1
-    lpc_rows, _ = lpc_ops.levinson_all_orders(autoc)
+    if cfg.order_method == P.OrderMethod.EST:
+        refs = lpc_ops.schur_refs(autoc)
+        lpc_rows = lpc_ops.levinson_from_refs(refs)
+    else:
+        lpc_rows, refs = lpc_ops.levinson_all_orders(autoc)
     qcoefs, shifts = lpc_ops.quantize_lpc_coefs(lpc_rows, cfg.precision)
 
     bits_all = None
-    if cfg.order_method != P.OrderMethod.MAX:
+    if cfg.order_method not in (P.OrderMethod.MAX, P.OrderMethod.EST):
         pmax_static = limit_max_partition_order(pmax, n, 1)
         sweep = sweep_granules if uses_granule_kernel(
             n, cfg.bps, pmax_static, max_o) else sweep_sums      # K4 / K2
@@ -218,7 +250,7 @@ def _lpc_search(cfg: FrameConfig, chans, obits):
         bits_all = subframe_bits_from_sums(
             sums, n, o_arr.expand(N, max_o), obitsN[..., None], pmin, pmax,
             cfg.precision, True)
-    order = select_order(cfg, bits_all, (N,), dev)
+    order = select_order(cfg, bits_all, refs, (N,), dev)
 
     sel = (order.to(torch.int64) - 1).clamp(0, max_o - 1)
     coefs = torch.gather(qcoefs, 1,

@@ -18,8 +18,15 @@ coefficient quantization (port of ``flake_tpu/ops/lpc.py``, lpc.c).
   only when ``error + tap * 2^shift + 0.5`` lies within an ulp of an
   integer.
 
-Schur, ``levinson_from_refs`` and ``estimate_order`` serve the EST order
-method (level 5), which the port does not run yet.
+- :func:`schur_refs`, :func:`levinson_from_refs` and
+  :func:`estimate_order` are the EST order method's float path (levels
+  3-6, lpc.c:125-162). XLA:CPU contracts every multiply-add of both
+  recursions into a fused multiply-add (found by holding the eight
+  fused/unfused combinations of Schur and the four of the seeded Levinson
+  against the jitted JAX functions: only the all-fused ones agree bit
+  for bit), so each is a ``torch.addcmul`` here. EST reads
+  ``|ref| > 0.10`` and the quantizer truncates, so one ulp can move an
+  order or a coefficient.
 """
 
 from __future__ import annotations
@@ -106,6 +113,65 @@ def levinson_all_orders(autoc: torch.Tensor):
         rows.append(torch.where(taps <= i, -tmp, 0.0))
         refs.append(r)
     return torch.stack(rows, dim=-2), torch.stack(refs, dim=-1)
+
+
+def schur_refs(autoc: torch.Tensor) -> torch.Tensor:
+    """Schur recursion for the reflection coefficients (lpc.c:136-147),
+    vectorised over the batch: the float path the reference's EST order
+    method runs (Levinson's reflection coefficients are only
+    algebraically equal; their rounding differs).
+
+    ``autoc`` float64 [..., max_order+1]. Returns [..., max_order]."""
+    max_order = autoc.shape[-1] - 1
+    gen0 = autoc[..., 1:]
+    gen1 = gen0
+    error = autoc[..., 0]
+    r = -gen1[..., 0] / error
+    error = torch.addcmul(error, gen1[..., 0], r)
+    refs = [r]
+    zero_tail = torch.zeros_like(autoc[..., :1])
+    for _ in range(1, max_order):
+        g1s = torch.cat([gen1[..., 1:], zero_tail], dim=-1)
+        rb = r[..., None]
+        gen1 = torch.addcmul(g1s, rb, gen0)
+        gen0 = torch.addcmul(gen0, g1s, rb)
+        r = -gen1[..., 0] / error
+        error = torch.addcmul(error, gen1[..., 0], r)
+        refs.append(r)
+    return torch.stack(refs, dim=-1)
+
+
+def levinson_from_refs(refs: torch.Tensor) -> torch.Tensor:
+    """The Levinson symmetric update seeded with given reflection
+    coefficients, compute_lpc_coefs(NULL, order, ref, lpc) (lpc.c:77-117
+    with the ``ref`` branch), as EST runs it after Schur. Row o-1 depends
+    only on refs[..., :o], so all rows are produced and the estimated
+    order's row is gathered.
+
+    ``refs`` float64 [..., m]. Returns rows [..., m, m], negated like
+    :func:`levinson_all_orders`'s."""
+    m = refs.shape[-1]
+    taps = torch.arange(m, device=refs.device)
+    tmp = refs.new_zeros(refs.shape)
+    rev = tmp
+    rows = []
+    for i in range(m):
+        r = refs[..., i:i + 1]
+        new_tmp = torch.where(taps < i, torch.addcmul(tmp, r, rev), tmp)
+        new_tmp = torch.where(taps == i, r, new_tmp)
+        rev = torch.cat([r, torch.addcmul(rev, r, tmp)[..., :-1]], dim=-1)
+        tmp = new_tmp
+        rows.append(torch.where(taps <= i, -tmp, 0.0))
+    return torch.stack(rows, dim=-2)
+
+
+def estimate_order(refs: torch.Tensor, max_order: int) -> torch.Tensor:
+    """The EST order rule: the highest step with |ref| > 0.10, at least 1
+    (lpc.c:149-156). Returns int32 [...]."""
+    idx = torch.arange(1, max_order + 1, dtype=torch.int32,
+                       device=refs.device)
+    above = torch.where(refs.abs() > 0.10, idx, 0)
+    return above.amax(dim=-1).clamp_min(1)
 
 
 def _exp2i(s: torch.Tensor) -> torch.Tensor:

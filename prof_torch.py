@@ -2,14 +2,15 @@
 """Where the device time goes in ``Encoder.encode_stream`` on one GPU.
 
 For each level asked for, encodes ``chip_smoke.py``'s deterministic stream
-(180 s at level 8; the 60 s stream with level jumps, bursts and silences
-at levels 9-12) once to warm up, three times timed on the host clock, and
+(180 s at levels 0-8, the encoder's default level 5 among them; the 60 s
+stream with level jumps, bursts and silences at levels 9-12) once to warm
+up, three times timed on the host clock, and
 once under ``torch.profiler``. Prints the warm walls, the profiled wall,
 the device's busy time (the union of its kernel and copy intervals), the
 idle share of the median warm wall that this leaves, and the operators
 with the most device time.
 
-    python3 prof_torch.py [--levels 8 12 11] [--rows 14]
+    python3 prof_torch.py [--levels 8 5 12 11] [--rows 14]
 
 Needs one CUDA device.
 """
@@ -43,7 +44,7 @@ def busy_ms(events) -> tuple[float, int]:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--levels", type=int, nargs="+", default=[8, 12, 11])
+    ap.add_argument("--levels", type=int, nargs="+", default=[8, 5, 12, 11])
     ap.add_argument("--rows", type=int, default=14)
     args = ap.parse_args()
 

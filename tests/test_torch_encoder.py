@@ -83,7 +83,19 @@ def test_refuses_what_is_not_ported():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             flake_tpu_torch.Encoder(cfg, device="cuda")
-    for level in (5, 7):             # EST, LEVEL4
-        cfg = TP.StreamConfig(params=TP.set_defaults(level))
-        with pytest.raises(NotImplementedError):
-            flake_tpu_torch.Encoder(cfg, device="cpu")
+    for level in range(13):          # every preset constructs
+        flake_tpu_torch.Encoder(
+            TP.StreamConfig(params=TP.set_defaults(level)), device="cpu")
+    # what the JAX Encoder takes and the port does not have
+    for kwargs in ({"mesh": object()}, {"pack_backend": "host"},
+                   {"vorbis_entries": ["TITLE=x"]}):
+        flake_tpu.Encoder(_level8(), **{k: v for k, v in kwargs.items()
+                                        if k != "mesh"})
+        with pytest.raises(TypeError):
+            flake_tpu_torch.Encoder(cfg, device="cpu", **kwargs)
+    enc = flake_tpu_torch.Encoder(cfg, device="cpu")
+    assert hasattr(flake_tpu.Encoder, "save_state")
+    assert not hasattr(enc, "save_state")
+    assert not hasattr(enc, "load_state")
+    with pytest.raises(ValueError):
+        flake_tpu_torch.Encoder(cfg, device="meta")

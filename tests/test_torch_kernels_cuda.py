@@ -11,7 +11,9 @@ and 8192 samples at order 32 with 256 partitions, and the edges: odd
 block sizes, a partition size of 253, K2 at order 32 with 256 partitions
 (more than 48 KiB of shared memory), K4 with partitions larger than its
 granule and with 300 streams, 24-bit and 32-bit content, and blocks
-under 32.
+under 32; K5 and the four U1 variants on encoder slots, on random slot
+tables whose chunks span three word rows, and on a word block above
+48 KiB of shared memory.
 """
 
 import numpy as np
@@ -25,6 +27,7 @@ from flake_tpu_torch.ops import bitmerge as k3
 from flake_tpu_torch.ops import bitpack, frame, lpc
 from flake_tpu_torch.ops import sweep as k2
 from flake_tpu_torch.ops.sweep import sweep_granules as k4
+from flake_tpu_torch.util import prof_merge
 
 pytestmark = pytest.mark.cuda
 
@@ -160,6 +163,110 @@ def test_merge_kernel_level12(dev):
                        analysis["frame_bytes"] * 8)
 
 
+def _random_slots(F, M, seed):
+    """Random slot tables: short fields, a few Rice quotients of up to
+    9,000 zero bits (a chunk then spans three word rows), empty slots."""
+    rng = np.random.default_rng(seed)
+    paylen = rng.integers(0, 33, (F, M))
+    leading = np.where(rng.random((F, M)) < 0.01,
+                       rng.integers(1, 9000, (F, M)), 0)
+    leading[paylen == 0] = 0
+    payload = rng.integers(0, 1 << 32, (F, M)) & ((1 << paylen) - 1)
+    lengths = paylen + leading
+    wr = int(-(-lengths.sum(-1).max() // 4096)) + 1
+    return tuple(torch.from_numpy(a.astype(np.int64)).to(torch.int32)
+                 for a in (lengths, leading,
+                           payload.astype(np.uint32).view(np.int32))), wr
+
+
+def _level8_slots(dev, F=8, B=4096):
+    frames = _tonal(2 * F, B, 16, seed=5).reshape(F, 2, B) \
+        .permute(0, 2, 1).contiguous()
+    cfg = frame.FrameConfig.from_params(P.set_defaults(8), 2, 16,
+                                        block_size=B)
+    hdr_bytes, hdr_nb = bitpack.frame_header_bytes(
+        np.arange(F, dtype=np.int64), bs_code=P.blocksize_code(B),
+        sr_code=P.samplerate_code(44100), allow_vbs=0)
+    analysis = frame.analyze_frames(
+        frames.to(dev), cfg, torch.from_numpy(hdr_nb * 8).to(dev))
+    return bitpack.slot_layout(
+        analysis, torch.from_numpy(hdr_bytes).to(dev),
+        torch.from_numpy(hdr_nb).to(dev), cfg), bitpack.word_rows(cfg)
+
+
+@pytest.mark.parametrize("case", ["level8", "random", "random_120_rows"])
+def test_aligned_merge_kernel(dev, case):
+    """K5 against its plain version and against K3's words."""
+    if case == "level8":
+        slots, wr = _level8_slots(dev)
+    else:
+        slots, wr = _random_slots(5, 3000, seed=7)
+        slots = tuple(t.to(dev) for t in slots)
+        if case == "random_120_rows":      # 60 KiB of shared words
+            wr = 120
+    parts = bitpack.aligned_parts(*slots)
+    before = k3.merge_aligned.launches
+    got = k3.merge_aligned(*parts, wr)
+    assert k3.merge_aligned.launches == before + 1
+    assert torch.equal(got, k3.merge_aligned_plain(*parts, wr))
+    assert torch.equal(got, k3.merge_words(*slots, wr)[0])
+
+
+@pytest.mark.parametrize("case", ["level8", "random", "random_120_rows"])
+@pytest.mark.parametrize("variant", list(prof_merge.VARIANTS))
+def test_prof_merge_kernels(dev, variant, case):
+    """Each U1 kernel against its plain version."""
+    if case == "level8":
+        slots, wr = _level8_slots(dev)
+    else:
+        slots, wr = _random_slots(5, 3000, seed=9)
+        slots = tuple(t.to(dev) for t in slots)
+        if case == "random_120_rows":
+            wr = 120
+    parts = bitpack.aligned_parts(*slots)
+    kernel, plain = prof_merge.VARIANTS[variant]
+    before = kernel.launches
+    got = kernel(*parts, wr)
+    assert kernel.launches == before + 1
+    assert torch.equal(got, plain(*parts, wr))
+    if variant == "static2":
+        k5 = k3.merge_aligned(*parts, wr)
+        assert torch.equal(got, k5) == (case == "level8")
+
+
+def test_est_recursions_on_the_card(dev):
+    """Schur and the seeded Levinson round on the card as on the host
+    (the silent row's NaNs count as equal)."""
+    x = _tonal(64, 4096, 16, seed=3).to(dev)
+    autoc = lpc.autocorr(x, 8, lpc.welch_window_on(4096, dev))
+    refs = lpc.schur_refs(autoc)
+    np.testing.assert_array_equal(refs.cpu().numpy(),
+                                  lpc.schur_refs(autoc.cpu()).numpy())
+    np.testing.assert_array_equal(
+        lpc.levinson_from_refs(refs).cpu().numpy(),
+        lpc.levinson_from_refs(refs.cpu()).numpy())
+    assert torch.equal(lpc.estimate_order(refs, 8).cpu(),
+                       lpc.estimate_order(refs.cpu(), 8))
+
+
+@pytest.mark.parametrize("level", [5, 7, 3, 0])
+def test_encoder_low_levels_cuda_matches_cpu(dev, level):
+    """Levels below 8 at their own widths: CUDA bytes equal CPU bytes."""
+    cfg = P.StreamConfig(params=P.set_defaults(level))
+    n = 6 * cfg.params.block_size + 777
+    t = np.arange(n)
+    rng = np.random.default_rng(level)
+    pcm = np.stack([9000 * np.sin(2 * np.pi * 220 * t / 44100),
+                    7000 * np.sin(2 * np.pi * 330 * t / 44100)], 1) \
+        + rng.normal(0, 200, (n, 2))
+    pcm = np.clip(np.rint(pcm), -32768, 32767).astype(np.int32)
+    got = flake_tpu_torch.Encoder(cfg, device=dev,
+                                  batch_frames=4).encode_stream(pcm)
+    want = flake_tpu_torch.Encoder(cfg, device="cpu",
+                                   batch_frames=4).encode_stream(pcm)
+    assert got == want
+
+
 def test_search_ties_on_the_card(dev):
     """SEARCH on the card picks the order the CPU picks, ties included."""
     rng = np.random.default_rng(5)
@@ -167,8 +274,9 @@ def test_search_ties_on_the_card(dev):
     bits[0] = 7
     bits[1, [4, 20, 31]] = 50
     cfg = frame.FrameConfig.from_params(P.set_defaults(12), 2, 16)
-    got = frame.select_order(cfg, bits.to(dev), (4096,), dev)
-    want = frame.select_order(cfg, bits, (4096,), torch.device("cpu"))
+    got = frame.select_order(cfg, bits.to(dev), None, (4096,), dev)
+    want = frame.select_order(cfg, bits, None, (4096,),
+                              torch.device("cpu"))
     assert torch.equal(got.cpu(), want)
     assert want[0] == 1 and want[1] == 5
 

@@ -175,7 +175,7 @@ def test_search_picks_the_lowest_order_on_ties():
     bits[1, [2, 9]] = 50                                  # two minima
     p = JP.set_defaults(10)
     cfg = TP.from_reference(FrameConfig.from_params(p, 2, 16))
-    got = tframe.select_order(cfg, torch.from_numpy(bits), (64,),
+    got = tframe.select_order(cfg, torch.from_numpy(bits), None, (64,),
                               torch.device("cpu"))
     want = np.asarray(jnp.argmin(jnp.asarray(bits), axis=-1)) + 1
     np.testing.assert_array_equal(got.numpy(), want)
