@@ -24,8 +24,12 @@ Three-second windows must give the same bytes through
 ``Encoder(device="cpu")`` (the plain versions) and
 ``Encoder(device="cuda")``: 4-7 s of the level-12 stream (steady audio
 and noise bursts, reaching both K2 and K4) and 99-102 s of the fixed-block
-stream (tones around the full-scale noise second) at levels 5 and 7. Then
-the main paths run, each with the launch counts set to 0 just before it
+stream (tones around the full-scale noise second) at levels 5, 7, 3, 2, 1
+and 0. Each fixed-block stream (levels 8, 5, 7, 3, 2, 1, 0) is encoded
+once with K1, K2 and K3 recorded, and every call they got, each 512-frame
+batch and the partial last block, is held against the plain version again
+(K1 at 13, 9 and 7 lags, K2 at orders 12 and 8, K3 on 4096- and
+1152-sample frames). Then the main paths run, each with the launch counts set to 0 just before it
 and read just after: the profiling tool
 (``flake_tpu_torch.util.prof_merge.main``; K1-K3, K5 and U1 must launch)
 and, through ``Encoder.encode_stream``, cold and warm, 180 s of
@@ -146,44 +150,24 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def time_turns(*fns, reps: int = 20):
-    """Mean ms on the card per call of each function (CUDA events; short
-    kernels enqueued behind a spinning kernel so that they run back to
-    back, see ``flake_tpu_torch.util.prof_merge.device_ms``), in turns
-    (first to last, then last to first) after one warm-up call each."""
+def time_turns(*fns, loop=(), reps: int = 20):
+    """Mean ms per call of each function between two CUDA events, in turns
+    (first to last, then last to first) after one warm-up call each. A
+    function in ``loop`` (a plain version, a program of many launches) is
+    timed in a plain loop, as its caller sees it; every other is one
+    short kernel and is timed back to back, enqueued behind a spinning
+    kernel, so that the card's time is read and not the host's launch
+    rate (``flake_tpu_torch.util.prof_merge.device_ms``)."""
     import torch
     from flake_tpu_torch.util.prof_merge import device_ms
 
     dev = torch.device("cuda", 0)
     for fn in fns:
         fn()
-    forth = [device_ms(fn, dev, reps) for fn in fns]
-    back = [device_ms(fn, dev, reps) for fn in reversed(fns)][::-1]
+    forth = [device_ms(fn, dev, reps, fn not in loop) for fn in fns]
+    back = [device_ms(fn, dev, reps, fn not in loop)
+            for fn in reversed(fns)][::-1]
     return [(f + b) / 2 for f, b in zip(forth, back)]
-
-
-def loop_ms(fn, reps: int = 20) -> float:
-    """Mean ms per call of ``fn`` in a plain loop between two CUDA events,
-    launch gaps included: what the earlier smoke runs reported as a
-    kernel's time."""
-    import torch
-
-    fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def time_pair(kernel, plain, reps: int = 20):
-    """Mean ms per call of ``kernel`` and ``plain``, in turns (plain,
-    kernel, kernel, plain)."""
-    plain_ms, kernel_ms = time_turns(plain, kernel, reps=reps)
-    return kernel_ms, plain_ms
 
 
 def main() -> None:
@@ -311,34 +295,35 @@ def main() -> None:
         return err, detail
 
     def phase(name, route_src, replaces, kern, plain, compare, reads, ops,
-              ops_per_ms, library=None):
+              ops_per_ms, library=None, plain_is_one_kernel=False):
         """Hold one kernel against its plain version, time both (and the
         library call, where there is one) in turns, and work out its
         bound: ``reads`` are the tensors the function must read, each
         once, its outputs are written once, ``ops`` the operations it
-        does on these inputs at ``ops_per_ms`` peak."""
+        does on these inputs at ``ops_per_ms`` peak. The kernel and the
+        library call are timed back to back, the plain version in a plain
+        loop unless it is one kernel too."""
         err, detail = check(name, kern, plain, compare)
         out = kern()
         moved = nbytes(*reads) + nbytes(*(out if isinstance(out, tuple)
                                           else (out,)))
         bound_ms, bound_by = bound(moved, ops, ops_per_ms)
-        library_ms = None
-        if library is None:
-            ms, plain_ms = time_pair(kern, plain)
-        else:
-            plain_ms, ms, library_ms = time_turns(plain, kern, library)
-        looped = loop_ms(kern)
-        print(f"{name}: kernel {ms:.4f} ms ({looped:.4f} ms a call in a plain "
-              f"launch loop), plain {plain_ms:.4f} ms, bound "
+        fns = (plain, kern) if library is None else (plain, kern, library)
+        plain_ms, ms, *rest = time_turns(
+            *fns, loop=() if plain_is_one_kernel else (plain,))
+        library_ms = rest[0] if rest else None
+        timed = {"ms": "back_to_back", "plain_ms": "back_to_back"
+                 if plain_is_one_kernel else "loop"}
+        print(f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
               f"{bound_ms:.4f} ms by {bound_by} ({moved / 1e6:.1f} MB, "
               f"{ops / 1e9:.3f} G operations), library call "
               f"{'none' if library_ms is None else f'{library_ms:.4f} ms'}, "
-              f"{detail} -> ok", flush=True)
+              f"timed {timed}, {detail} -> ok", flush=True)
         kernels.append({"name": name, "route": "cuda", "source": route_src,
                         "replaces": replaces, "max_abs_err": err,
                         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                         "bound_by": bound_by, "library_ms": library_ms,
-                        "ms_in_launch_loop": looped})
+                        "timed": timed})
 
     def sweep_ops(sx, order):
         """Operations of an order sweep: one 32x32->64-bit multiply-add per
@@ -431,7 +416,7 @@ def main() -> None:
     folded = k4_run().reshape(gx.shape[0], g_mo, 1 << g_pmax, -1).sum(-1)
     if not torch.equal(folded, k2_run()):
         fail("K4's granules, folded to partitions, differ from K2's sums")
-    k4_ms, k2_ms = time_pair(k4_run, k2_run)
+    k2_ms, k4_ms = time_turns(k2_run, k4_run)
     kernels[-1]["k2_ms_same_inputs"] = k2_ms
     kernels[-1]["ms_beside_k2"] = k4_ms
     print(f"info: on K4's inputs K4 {k4_ms:.4f} ms, K2 {k2_ms:.4f} ms "
@@ -489,12 +474,15 @@ def main() -> None:
           library=k5_library)
     if not torch.equal(k5_run(), k3_mod.merge_words(*tslots, twr)[0]):
         fail("K5's words differ from K3's on the tool's slots")
+    def prep_run():
+        return bitpack.aligned_parts(*tslots)
+
     k5_ms, prep_ms, k3_ms = time_turns(
-        k5_run, lambda: bitpack.aligned_parts(*tslots),
-        lambda: k3_mod.merge_words(*tslots, twr))
+        k5_run, prep_run, lambda: k3_mod.merge_words(*tslots, twr),
+        loop=(prep_run,))
     print(f"info: on the tool's slots K5 {k5_ms:.4f} ms after aligned_parts "
-          f"{prep_ms:.4f} ms, K3 {k3_ms:.4f} ms from the slots directly; the "
-          "words are equal", flush=True)
+          f"{prep_ms:.4f} ms (in a plain loop), K3 {k3_ms:.4f} ms from the "
+          "slots directly; the words are equal", flush=True)
 
     # what each variant must read: static2 and fixedrow everything, nowin
     # the hi words and the chunk bounds, zero nothing
@@ -511,7 +499,8 @@ def main() -> None:
               INT32_OPS_PER_MS,
               library=(lambda: torch.zeros((tF, twr, 128), dtype=torch.int32,
                                            device=dev))
-              if name == "zero" else None)
+              if name == "zero" else None,
+              plain_is_one_kernel=name == "zero")
     print(f"static2_matches: "
           f"{torch.equal(tool.merge_static2(*parts, twr), k5_run())}",
           flush=True)
@@ -597,7 +586,7 @@ def main() -> None:
             folded = k4c().reshape(cx.shape[0], c_mo, 1 << c_pmax, -1).sum(-1)
             if not torch.equal(folded, k2c()):
                 fail(f"K4 folded differs from K2 on x {tuple(cx.shape)}")
-            k4_ms, k2_ms = time_pair(k4c, k2c)
+            k2_ms, k4_ms = time_turns(k2c, k4c)
             line += (f"; info: K4 {k4_ms:.4f} ms (granule "
                      f"{sweep_mod.granule_size(cx.shape[1], c_pmax)}, same "
                      f"sums folded), K2 {k2_ms:.4f} ms")
@@ -628,7 +617,7 @@ def main() -> None:
         fail("the CPU and CUDA encoders disagree on the level-12 segment")
     fseg = pcm[FIXED_PARITY_WINDOW[0] * SAMPLE_RATE:
                FIXED_PARITY_WINDOW[1] * SAMPLE_RATE]
-    for level in (5, 7):
+    for level in LEVEL_SECONDS:
         on_card = Encoder(stream_config(level),
                           device="cuda").encode_stream(fseg)
         on_host = Encoder(stream_config(level),
@@ -639,6 +628,60 @@ def main() -> None:
         if on_card != on_host:
             fail(f"the CPU and CUDA encoders disagree at level {level}")
 
+    # -- 6b. K1-K3 on every call of the fixed-block levels' main paths -------
+    # levels 0-7: EST needs no sweep, the FIXED levels no autocorrelation
+    # either; every stream here ends in a partial block
+    k123 = ("autocorr", "sweep_sums", "merge_words")
+    sweeps = ("sweep_sums", "sweep_granules")
+    low_levels = ((5, ("autocorr", "merge_words"), sweeps),
+                  (7, k123, ("sweep_granules",)),
+                  (3, ("autocorr", "merge_words"), sweeps),
+                  (2, ("merge_words",), ("autocorr",) + sweeps),
+                  (1, ("merge_words",), ("autocorr",) + sweeps),
+                  (0, ("merge_words",), ("autocorr",) + sweeps))
+
+    def level_stream(level):
+        return pcm[:LEVEL_SECONDS.get(level, SECONDS) * SAMPLE_RATE]
+
+    # each stream is encoded once with the three wrappers recorded, and every
+    # call they got (each batch and the partial last block) goes through the
+    # kernel and its plain version again: the whole width and every shape of
+    # the main path, which the 3 s parity windows above do not reach
+    held = {"autocorr": (k1_mod.autocorr,
+                         lambda cx, cw, mo: lpc.autocorr(cx, mo, cw), cmp_rel),
+            "sweep_sums": (sweep_mod.sweep_sums, sweep_mod.sweep_sums_plain,
+                           cmp_exact),
+            "merge_words": (k3_mod.merge_words, k3_mod.merge_words_plain,
+                            cmp_exact)}
+    for level, needs, _ in ((8, k123, ()),) + low_levels:
+        calls = capture(
+            [(frame, "autocorr"), (frame, "sweep_sums"),
+             (bitpack, "merge_words")],
+            lambda: Encoder(stream_config(level), device="cuda")
+            .encode_stream(level_stream(level)))
+        if set(calls) != set(needs):
+            fail(f"level {level} called {sorted(calls)}, expected "
+                 f"{sorted(needs)}")
+        for name, args_of_calls in calls.items():
+            kern, plain, compare = held[name]
+            worst = 0.0
+            for args in args_of_calls:
+                err, _ = check(f"{name} at level {level}",
+                               lambda: kern(*args), lambda: plain(*args),
+                               compare)
+                worst = max(worst, rel_err.pop(f"{name} at level {level}",
+                                               err))
+            shapes = sorted({tuple(args[0].shape) for args in args_of_calls})
+            what = (f", {args_of_calls[0][2] + 1} lags" if name == "autocorr"
+                    else f", order {args_of_calls[0][3]}"
+                    if name == "sweep_sums" else "")
+            how = (f"max rel err {worst:.3e} (tolerance {K1_REL_TOL:g})"
+                   if compare is cmp_rel else "bit-exact")
+            print(f"level {level}: {name} on {len(args_of_calls)} calls, "
+                  f"first-argument shapes {shapes}{what}: {how} against the "
+                  "plain version", flush=True)
+        del calls
+
     # -- 7. the main paths through Encoder.encode_stream ---------------------
     counted = {"autocorr": k1_mod.autocorr, "sweep_sums": sweep_mod.sweep_sums,
                "merge_words": k3_mod.merge_words,
@@ -646,7 +689,7 @@ def main() -> None:
                "merge_aligned": k3_mod.merge_aligned,
                **{f"prof_merge_{name}": kern
                   for name, (kern, _) in tool.VARIANTS.items()}}
-    launched = dict.fromkeys(counted, 0)
+    launched = {name: {} for name in counted}   # name -> {path: count}
 
     def count_launches(label, run, needs, never=()):
         """Run one main path with every count set to 0 just before it and
@@ -666,11 +709,13 @@ def main() -> None:
             fail(f"{label}: {unwanted} launched, and this path has no use "
                  "for them")
         for name, n in counts.items():
-            launched[name] += n
+            if n:
+                launched[name][label] = n
         return result
 
-    # the emission-profiling tool: K5 and U1's main path
-    k123 = ("autocorr", "sweep_sums", "merge_words")
+    # the emission-profiling tool: K5 and U1's main path; its counts are
+    # those of its fixed timing passes (two warm-up calls and three times
+    # one or two passes of 20, by how the stage is timed)
     res = count_launches(
         "profiling tool", lambda: tool.main(device="cuda"),
         k123 + tuple(n for n in counted if n.startswith(("merge_a", "prof_"))))
@@ -736,18 +781,9 @@ def main() -> None:
         if want not in kinds:
             fail(f"the {label} did not reach subframe type {want}")
 
-    # levels 0-7: EST needs no sweep, the FIXED levels no autocorrelation
-    # either; every stream here ends in a partial block
-    sweeps = ("sweep_sums", "sweep_granules")
-    for level, needs, never in (
-            (5, ("autocorr", "merge_words"), sweeps),
-            (7, k123, ("sweep_granules",)),
-            (3, ("autocorr", "merge_words"), sweeps),
-            (2, ("merge_words",), ("autocorr",) + sweeps),
-            (1, ("merge_words",), ("autocorr",) + sweeps),
-            (0, ("merge_words",), ("autocorr",) + sweeps)):
+    for level, needs, never in low_levels:
         cfg = stream_config(level)
-        stream = pcm[:LEVEL_SECONDS[level] * SAMPLE_RATE]
+        stream = level_stream(level)
         if stream.shape[0] % cfg.params.block_size == 0:
             fail(f"level {level}: the stream has no partial last block")
         dec = drive(f"level {level}", cfg, stream, needs, never)
@@ -762,7 +798,8 @@ def main() -> None:
 
     # -- 8. results -----------------------------------------------------------
     for k in kernels:
-        k["launches"] = launched[k["name"]]
+        k["launches"] = sum(launched[k["name"]].values())
+        k["launches_by_path"] = launched[k["name"]]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -45,6 +45,8 @@ SIGNATURES = {
     # chunk_bits, w0t, hit, lot, words, F, nc, W
     **{f"flake_prof_merge_{variant}": [_P, _P, _P, _P, _P, _I, _I, _I]
        for variant in ("static2", "fixedrow", "nowin", "zero")},
+    # microseconds (a timing aid, see csrc/prof_merge.cu)
+    "flake_spin_us": [_I],
 }
 
 _lock = threading.Lock()

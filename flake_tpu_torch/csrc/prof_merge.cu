@@ -27,6 +27,10 @@
 // order (the chunk of element j of a frame's [128, nc] array is j % nc),
 // shared-memory atomicAdd on int, whose wraparound is int32 addition in
 // any order, one coalesced store.
+//
+// The file also holds flake_spin_us, a timing aid and no part of U1: one
+// thread that keeps the stream busy for a given time, behind which the
+// tool enqueues short kernels so that they run back to back.
 
 #include <cuda_runtime.h>
 
@@ -148,6 +152,18 @@ zero_kernel(const int* __restrict__ chunk_bits, const int* __restrict__ w0t,
   for (int w = threadIdx.x; w < W; w += kThreads) words[f * W + w] = 0;
 }
 
+// Busy-wait on the nanosecond timer; the cycle counter ends the wait too
+// (the SM clock stays under 4 GHz), should the timer stand still.
+__global__ void spin_kernel(unsigned long long ns) {
+  unsigned long long t0, t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t0));
+  const long long c0 = clock64();
+  do {
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  } while (t - t0 < ns &&
+           static_cast<unsigned long long>(clock64() - c0) < 4 * ns);
+}
+
 typedef void (*Variant)(const int*, const int*, const int*, const int*, int*,
                         int, int);
 
@@ -197,4 +213,11 @@ extern "C" int flake_prof_merge_zero(
     int* words, int F, int nc, int W, cudaStream_t stream) {
   return launch(zero_kernel, 0, chunk_bits, w0t, hit, lot, words, F, nc, W,
                 stream);
+}
+
+// keeps the stream busy for `us` microseconds
+extern "C" int flake_spin_us(int us, cudaStream_t stream) {
+  if (us <= 0) return 0;
+  spin_kernel<<<1, 1, 0, stream>>>(1000ull * static_cast<unsigned>(us));
+  return static_cast<int>(cudaGetLastError());
 }

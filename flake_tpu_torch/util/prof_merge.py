@@ -4,9 +4,11 @@ The port of the JAX package's ``util/prof_merge.py``: the same batch (512
 frames of 4096 samples, 16-bit stereo, a 440 Hz tone plus noise from
 ``default_rng(0)``, level 8), the same stages and the same JSON keys,
 each stage timed alone with CUDA events (the least of three means over
-20 calls; a stage shorter than the host's launch time is enqueued behind
-a spinning kernel, so that its kernels run back to back and the events
-time the card, not the host):
+20 calls). The stages of many launches (``analysis_ms``, ``emit_full_ms``,
+``prep_ms``) are timed in a plain loop, as their caller sees them; each
+single kernel (the ``merge_*_ms`` keys), which the host cannot enqueue as
+fast as the card runs it, back to back behind a spinning kernel, so that
+the events time the card and not the host (:func:`device_ms`):
 
   analysis_ms         the batched analysis alone
   emit_full_ms        analysis + device pack through K3 (the pipeline
@@ -42,7 +44,6 @@ are the plain versions, timed on the host clock.
 from __future__ import annotations
 
 import argparse
-import functools
 import json
 import time
 
@@ -176,34 +177,34 @@ def make_batch(frames: int = FRAMES):
     return samples, hdr_bytes, hdr_nb, cfg
 
 
-@functools.lru_cache(maxsize=None)
-def _spin_cycles_per_ms(device_index: int) -> float:
-    """How many cycles ``torch.cuda._sleep`` spins per ms on this card."""
-    cycles = 20_000_000
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    with torch.cuda.device(device_index):
-        torch.cuda._sleep(cycles)
-        start.record()
-        torch.cuda._sleep(cycles)
-        end.record()
-        end.synchronize()
-    return cycles / start.elapsed_time(end)
+MAX_SPIN_US = 2_000_000
 
 
-def device_ms(fn, device: torch.device, iters: int = 20) -> float:
-    """Mean ms on the card per call of ``fn``, over ``iters`` calls between
-    two CUDA events. A short kernel runs faster than the host can enqueue
-    it, and the events would then time the host's launch rate; so where the
-    host needed most of the measured time (and under 50 ms in all), the
-    calls are enqueued again behind a spinning kernel that keeps the card
-    busy until the last one is in the queue, and run back to back."""
+def spin(device: torch.device, ms: float) -> None:
+    """Keep ``device``'s current stream busy for ``ms`` (at most 2 s): the
+    timing aid ``flake_spin_us`` of ``csrc/prof_merge.cu``, which is no
+    kernel of the encoder and replaces none."""
+    _cuda.launch("flake_spin_us", device,
+                 min(max(int(ms * 1e3), 1), MAX_SPIN_US))
+
+
+def device_ms(fn, device: torch.device, iters: int = 20,
+              back_to_back: bool = False) -> float:
+    """Mean ms per call of ``fn`` over ``iters`` calls between two CUDA
+    events. By default a plain loop: the stage as its caller sees it, the
+    host's launch gaps included. ``back_to_back`` is for a single short
+    kernel, which the card finishes sooner than the host can enqueue the
+    next, so that the loop would time the host's launch rate: after the
+    loop, which then only tells how long the host needs, the calls are
+    enqueued again behind a spinning kernel that outlasts the enqueueing
+    and run with no gap, and the reading is the card's time alone. The
+    caller chooses; nothing is decided from a measurement. Back to back,
+    the same inputs and outputs may stay in the card's L2 between calls."""
     def run(spin_ms):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         if spin_ms:
-            torch.cuda._sleep(int(spin_ms * _spin_cycles_per_ms(
-                device.index or 0)))
+            spin(device, spin_ms)
         t0 = time.perf_counter()
         start.record()
         for _ in range(iters):
@@ -215,12 +216,13 @@ def device_ms(fn, device: torch.device, iters: int = 20) -> float:
 
     with torch.cuda.device(device):
         total_ms, host_ms = run(0)
-        if host_ms < 50 and host_ms > 0.5 * total_ms:
+        if back_to_back:
             total_ms, _ = run(2 * host_ms + 0.5)
     return total_ms / iters
 
 
-def time_ms(fn, device: torch.device, iters: int = 20) -> float:
+def time_ms(fn, device: torch.device, iters: int = 20,
+            back_to_back: bool = False) -> float:
     """The least of three means of ``iters`` calls of ``fn``, in ms, after
     two warm-up calls: :func:`device_ms` on a GPU, the host clock on the
     CPU."""
@@ -229,7 +231,7 @@ def time_ms(fn, device: torch.device, iters: int = 20) -> float:
     best = None
     for _ in range(3):
         if device.type == "cuda":
-            ms = device_ms(fn, device, iters)
+            ms = device_ms(fn, device, iters, back_to_back)
         else:
             t0 = time.perf_counter()
             for _ in range(iters):
@@ -255,18 +257,20 @@ def main(device="cuda", frames: int = FRAMES, iters: int = 20) -> dict:
     parts = bitpack.aligned_parts(*slots)
     res = {"F": frames, "nc": parts[0].shape[-1], "wr": wr}
 
-    def ms(fn):
-        return round(time_ms(fn, dev, iters), 3)
+    def ms(fn, back_to_back=False):
+        return round(time_ms(fn, dev, iters, back_to_back), 3)
 
+    # the stages of many launches in a plain loop, each single kernel back
+    # to back
     res["analysis_ms"] = ms(lambda: analyze_frames(x, cfg, hdr_bits))
     res["emit_full_ms"] = ms(lambda: bitpack.pack_frames_device(
         analyze_frames(x, cfg, hdr_bits), hb, hn, cfg))
     res["prep_ms"] = ms(lambda: bitpack.aligned_parts(
         *bitpack.slot_layout(analysis, hb, hn, cfg)))
-    res["merge_now_ms"] = ms(lambda: merge_aligned(*parts, wr))
+    res["merge_now_ms"] = ms(lambda: merge_aligned(*parts, wr), True)
     for name, (kernel, _) in VARIANTS.items():
-        res[f"merge_{name}_ms"] = ms(lambda: kernel(*parts, wr))
-    res["merge_k3_ms"] = ms(lambda: merge_words(*slots, wr))
+        res[f"merge_{name}_ms"] = ms(lambda: kernel(*parts, wr), True)
+    res["merge_k3_ms"] = ms(lambda: merge_words(*slots, wr), True)
 
     # correctness spot check for static2 on this content
     res["static2_matches"] = torch.equal(merge_aligned(*parts, wr),

@@ -234,6 +234,26 @@ def test_prof_merge_kernels(dev, variant, case):
         assert torch.equal(got, k5) == (case == "level8")
 
 
+def test_spin_and_device_ms(dev):
+    """The tool's spinning kernel holds the stream for the time asked, and
+    a single short kernel is timed back to back behind it."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    prof_merge.spin(dev, 1.0)
+    start.record()
+    prof_merge.spin(dev, 5.0)
+    end.record()
+    end.synchronize()
+    assert 5.0 <= start.elapsed_time(end) < 8.0
+    slots, wr = _level8_slots(dev)
+    parts = bitpack.aligned_parts(*slots)
+    def run():
+        return k3.merge_aligned(*parts, wr)
+
+    ms = prof_merge.device_ms(run, dev, back_to_back=True)
+    assert 0 < ms <= prof_merge.device_ms(run, dev) + 0.005
+
+
 def test_est_recursions_on_the_card(dev):
     """Schur and the seeded Levinson round on the card as on the host
     (the silent row's NaNs count as equal)."""
