@@ -2,8 +2,10 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA H100.
 
 Builds the port's CUDA kernels (K1 autocorrelation, K2 and K4 order
-sweeps, K3 word merge, K5 pre-aligned word merge, and U1, the four merge
-variants of the emission-profiling tool) and its host libraries (CRC
+sweeps, K3 word merge, K5 pre-aligned word merge, U1, the four merge
+variants of the emission-profiling tool, U2, the merge prototypes
+``merge_v2`` and ``merge_v3``, and U3a/U3b, the combined-node merges
+``merge_v5a`` and ``merge_v5b``) and its host libraries (CRC
 patcher, decoder helpers) from this checkout, and holds each kernel
 against its plain PyTorch version: K1-K3 on the inputs the first level-8
 batch gives them, K4 (and K1 at 33 lags, K3 on 8192-sample frames) on the
@@ -17,7 +19,15 @@ K4 where K4 can sum the same shape. Every kernel's time stands beside its
 plain version's, its bound (the least time the card could take: bytes
 over the memory rate or operations over the peak rate, whichever is
 larger) and, where one PyTorch call computes the same function, that
-call's time. The Schur and Levinson recursions of the EST order method
+call's time. U2 and U3 are held against their plain versions bit for bit
+on the ``music`` and ``noise`` batches of their tools (512 frames of 4096;
+the noise frames are verbatim, in chunks of 68 words, past the first
+window of ``merge_v2``) and on a made-up slot table with unary runs of
+thousands of bits, where ``merge_v2`` drops and misplaces parts,
+``merge_v3`` drops rows and both spill sets of the combined nodes are
+flagged; ``merge_v5a``, ``merge_v5b``, K5 and K3 must give the same words
+on all three, and K5 is held against its plain version and K3 on the noise
+batch too. The Schur and Levinson recursions of the EST order method
 must give the same float64 bits on the card and on the host.
 
 Three-second windows must give the same bytes through
@@ -31,9 +41,11 @@ batch and the partial last block, is held against the plain version again
 (K1 at 13, 9 and 7 lags, K2 at orders 12 and 8, K3 on 4096- and
 1152-sample frames). Then the main paths run, each with the launch counts set to 0 just before it
 and read just after: the profiling tool
-(``flake_tpu_torch.util.prof_merge.main``; K1-K3, K5 and U1 must launch)
-and, through ``Encoder.encode_stream``, cold and warm, 180 s of
-deterministic 16-bit / 44.1 kHz stereo at level 8 (K1-K3 must launch) and
+(``flake_tpu_torch.util.prof_merge.main``; K1-K3, K5 and U1 must launch),
+the merge-prototype tools (``prof_merge2.main`` and ``main_v3``: K5 and
+``merge_v2``, ``merge_v3``; ``prof_merge3.main``: K5, ``merge_v5a``,
+``merge_v5b``) and, through ``Encoder.encode_stream``, cold and warm,
+180 s of deterministic 16-bit / 44.1 kHz stereo at level 8 (K1-K3 must launch) and
 at level 5 (EST: K1 and K3 must launch, K2 must not), 60 s of it at level
 7 (K1-K3), 30 s at levels 3 (K1, K3) and 2, 1, 0 (block 1152, K3 only),
 and a second deterministic stream with level jumps, bursts and silences
@@ -137,6 +149,26 @@ def make_vbs_stream(seed: int, seconds: int) -> "np.ndarray":
     return np.clip(np.rint(pcm), -32768, 32767).astype(np.int32)
 
 
+def make_slot_table(seed: int, frames: int, slots: int):
+    """A made-up slot table, int32 numpy [frames, slots] x 3 (lengths,
+    leading zero bits, payload) and the word rows that hold its longest
+    frame: fields of 0-32 payload bits, one in a hundred behind a unary run
+    of up to 9,000 zero bits. Chunks of 128 slots then pass 256 words and
+    four word rows, and neighbours do not fit a 64-bit node."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    paylen = rng.integers(0, 33, (frames, slots))
+    leading = np.where(rng.random((frames, slots)) < 0.01,
+                       rng.integers(1, 9000, (frames, slots)), 0)
+    leading[paylen == 0] = 0
+    payload = rng.integers(0, 1 << 32, (frames, slots)) & ((1 << paylen) - 1)
+    lengths = paylen + leading
+    word_rows = int(-(-lengths.sum(-1).max() // 4096)) + 1
+    return (lengths.astype(np.int32), leading.astype(np.int32),
+            payload.astype(np.uint32).view(np.int32)), word_rows
+
+
 def bound(bytes_moved: float, ops: float, ops_per_ms: float):
     """The least ms the card could take for this much work, and which of
     bytes or operations sets it."""
@@ -205,6 +237,8 @@ def main() -> None:
     from flake_tpu_torch.ops import bitpack, frame, lpc
     from flake_tpu_torch.ops import sweep as sweep_mod
     from flake_tpu_torch.util import prof_merge as tool
+    from flake_tpu_torch.util import prof_merge2 as tool2
+    from flake_tpu_torch.util import prof_merge3 as tool3
 
     if "jax" in sys.modules:
         fail("importing flake_tpu_torch imported jax")
@@ -295,18 +329,21 @@ def main() -> None:
         return err, detail
 
     def phase(name, route_src, replaces, kern, plain, compare, reads, ops,
-              ops_per_ms, library=None, plain_is_one_kernel=False):
+              ops_per_ms, library=None, plain_is_one_kernel=False,
+              read_bytes=None):
         """Hold one kernel against its plain version, time both (and the
         library call, where there is one) in turns, and work out its
         bound: ``reads`` are the tensors the function must read, each
         once, its outputs are written once, ``ops`` the operations it
-        does on these inputs at ``ops_per_ms`` peak. The kernel and the
+        does on these inputs at ``ops_per_ms`` peak; ``read_bytes`` stands
+        in for the size of ``reads`` where the data decides how much of
+        them is needed. The kernel and the
         library call are timed back to back, the plain version in a plain
         loop unless it is one kernel too."""
         err, detail = check(name, kern, plain, compare)
         out = kern()
-        moved = nbytes(*reads) + nbytes(*(out if isinstance(out, tuple)
-                                          else (out,)))
+        moved = (nbytes(*reads) if read_bytes is None else read_bytes) \
+            + nbytes(*(out if isinstance(out, tuple) else (out,)))
         bound_ms, bound_by = bound(moved, ops, ops_per_ms)
         fns = (plain, kern) if library is None else (plain, kern, library)
         plain_ms, ms, *rest = time_turns(
@@ -436,13 +473,8 @@ def main() -> None:
           f"{vwr}: {detail}", flush=True)
 
     # -- 4b. K5 and U1 on the profiling tool's batch ---------------------------
-    tsamples, thb, thn, tcfg = tool.make_batch()
-    tF = tsamples.shape[0]
-    tanalysis = frame.analyze_frames(
-        torch.from_numpy(tsamples).to(dev), tcfg,
-        torch.full((tF,), 48, dtype=torch.int32, device=dev))
-    tslots = bitpack.slot_layout(tanalysis, torch.from_numpy(thb).to(dev),
-                                 torch.from_numpy(thn).to(dev), tcfg)
+    tF = tool.FRAMES
+    tslots, tcfg = tool.batch_slots("music", tF, dev)
     parts = bitpack.aligned_parts(*tslots)
     twr = bitpack.word_rows(tcfg)
     w0t, hit, lot, cbits = parts
@@ -528,6 +560,113 @@ def main() -> None:
             .to(dev), fcfg5, np.arange(BATCH, dtype=np.int64), 0))
     k5_on("the first level-5 batch", cap5["merge_words"][0][:3],
           cap5["merge_words"][0][3])
+
+    # -- 4b2. U2 and U3 on the music and noise batches and a made-up table -----
+    nslots, _ = tool.batch_slots("noise", tF, dev)
+    k5_on("the tools' noise batch", nslots, twr)
+    made_up, mwr2 = make_slot_table(SEED + 4, 64, tslots[0].shape[1])
+    content = {"music": (tslots, twr), "noise": (nslots, twr),
+               "made-up table": (tuple(torch.from_numpy(a).to(dev)
+                                       for a in made_up), mwr2)}
+    aligned = {k: bitpack.aligned_parts(*sl) for k, (sl, _) in content.items()}
+    combined = {k: tool3.v5_parts(*sl) for k, (sl, _) in content.items()}
+    for label, (slots_c, wr_c) in content.items():
+        al, v5 = aligned[label], combined[label]
+        k5_words = k3_mod.merge_aligned(*al, wr_c)
+        if label == "made-up table":
+            k5_on(f"the made-up table ({wr_c} word rows, "
+                  f"{wr_c * 512 / 1024:.0f} KiB of shared words)", slots_c,
+                  wr_c)
+        same = {}
+        for name, kern, plain in (("v2", tool2.merge_v2,
+                                   tool2.merge_v2_plain),
+                                  ("v3", tool2.merge_v3,
+                                   tool2.merge_v3_plain)):
+            want = plain(*al, wr_c)
+            for fb in (1, 8):
+                got = kern(*al, wr_c, fb)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    fail(f"merge_{name} at fb {fb} disagrees with its plain "
+                         f"version on {label}")
+            same[name] = torch.equal(want, k5_words)
+        want = tool3.merge_v5_plain(*v5, wr_c)
+        for name, kern in (("v5a", tool3.merge_v5a), ("v5b", tool3.merge_v5b)):
+            got = kern(*v5, wr_c)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                fail(f"merge_{name} disagrees with its plain version on "
+                     f"{label}")
+        if not torch.equal(want, k5_words) or not torch.equal(
+                want, k3_mod.merge_words(*slots_c, wr_c)[0]):
+            fail(f"the combined nodes' words differ from K5's or K3's on "
+                 f"{label}")
+        ext = int(tool2.chunk_ext_words(al[3]).max())
+        flagged = [float((cb[:, :-1] < 0).double().mean()) for cb in v5[3:]]
+        print(f"U2, U3 on {label}: merge_v2, merge_v3 (fb 1, 8), merge_v5a, "
+              f"merge_v5b bit-exact against their plain versions; v5a = v5b "
+              f"= K5 = K3 words; widest chunk {ext} words; v2 gives K5's "
+              f"words {same['v2']}, v3 {same['v3']}; flagged chunks sp2 "
+              f"{flagged[0]:.4f}, sp1 {flagged[1]:.4f}", flush=True)
+        in_domain = label != "made-up table"
+        if same["v2"] != in_domain or same["v3"] != in_domain:
+            fail(f"merge_v2 / merge_v3 against K5 on {label}: expected "
+                 f"{in_domain}")
+        if (flagged[0] > 0, flagged[1] > 0) != (True, not in_domain):
+            fail(f"unexpected spill flags on {label}: {flagged}")
+
+    # times and bounds on the music batch, the shapes the tools time; v2 and
+    # v3 at fb = 8, the JAX tool's default. One scatter_add_ gives their
+    # words too, since they equal K5's there.
+    for name, line, body, ops in (("v2", 224, "k_v2 :193", 12),
+                                  ("v3", 353, "k_v3 :328", 10)):
+        kern = getattr(tool2, f"merge_{name}")
+        plain = getattr(tool2, f"merge_{name}_plain")
+        phase(f"prof_merge_{name}", "flake_tpu_torch/csrc/prof_merge2.cu",
+              f"util/prof_merge2.py:{line} ({body})",
+              lambda kern=kern: kern(*parts, twr, 8),
+              lambda plain=plain: plain(*parts, twr), cmp_exact,
+              (cbits, w0t, hit, lot), ops * w0t.numel(), INT32_OPS_PER_MS,
+              library=k5_library)
+        kernels[-1]["fb"] = 8
+
+    def v5_read_bytes(v5):
+        """What the v5 kernels must read of ``v5``: both cb tables, the
+        main set, and the nodes of the flagged spill chunks."""
+        main_p, _, _, cb2, cb1 = v5
+        flagged2 = int((cb2[:, :-1] < 0).sum())
+        flagged1 = int((cb1[:, :-1] < 0).sum())
+        return nbytes(cb2, cb1, *main_p) + 128 * 4 * (4 * flagged2
+                                                      + 3 * flagged1)
+
+    for name, line, body in (("v5a", 344, "k_v5a :307"),
+                             ("v5b", 440, "k_v5b :403")):
+        kern = getattr(tool3, f"merge_{name}")
+        v5 = combined["music"]
+        # about 8 int32 operations per node: bounds checks and three atomics
+        phase(f"prof_merge_{name}", "flake_tpu_torch/csrc/prof_merge3.cu",
+              f"util/prof_merge3.py:{line} ({body})",
+              lambda kern=kern, v5=v5: kern(*v5, twr),
+              lambda v5=v5: tool3.merge_v5_plain(*v5, twr), cmp_exact, (),
+              8 * v5[0][0].numel(), INT32_OPS_PER_MS,
+              read_bytes=v5_read_bytes(v5))
+        # the noise batch, every sp2 chunk flagged, beside it
+        v5n = combined["noise"]
+        noise_ms, = time_turns(lambda kern=kern, v5n=v5n: kern(*v5n, twr))
+        noise_bound, _ = bound(v5_read_bytes(v5n) + tF * twr * 512, 0,
+                               INT32_OPS_PER_MS)
+        kernels[-1].update(noise_ms=noise_ms, noise_bound_ms=noise_bound)
+        print(f"info: prof_merge_{name} on the noise batch {noise_ms:.4f} ms, "
+              f"bound {noise_bound:.4f} ms by bytes", flush=True)
+
+    def v5_prep_run():
+        return tool3.v5_parts(*tslots)
+
+    v5_prep, al_prep = time_turns(v5_prep_run, prep_run,
+                                  loop=(v5_prep_run, prep_run))
+    print(f"info: on the tool's slots v5_parts {v5_prep:.4f} ms beside "
+          f"aligned_parts {al_prep:.4f} ms (both in a plain loop)",
+          flush=True)
 
     # -- 4c. the EST recursions on the card and on the host --------------------
     # XLA:CPU fuses every multiply-add of Schur and Levinson, and the port
@@ -688,7 +827,10 @@ def main() -> None:
                "sweep_granules": sweep_mod.sweep_granules,
                "merge_aligned": k3_mod.merge_aligned,
                **{f"prof_merge_{name}": kern
-                  for name, (kern, _) in tool.VARIANTS.items()}}
+                  for name, (kern, _) in tool.VARIANTS.items()},
+               "prof_merge_v2": tool2.merge_v2, "prof_merge_v3": tool2.merge_v3,
+               "prof_merge_v5a": tool3.merge_v5a,
+               "prof_merge_v5b": tool3.merge_v5b}
     launched = {name: {} for name in counted}   # name -> {path: count}
 
     def count_launches(label, run, needs, never=()):
@@ -718,10 +860,25 @@ def main() -> None:
     # one or two passes of 20, by how the stage is timed)
     res = count_launches(
         "profiling tool", lambda: tool.main(device="cuda"),
-        k123 + tuple(n for n in counted if n.startswith(("merge_a", "prof_"))))
+        k123 + ("merge_aligned",)
+        + tuple(f"prof_merge_{name}" for name in tool.VARIANTS))
     if not res["static2_matches"] or (res["F"], res["nc"], res["wr"]) \
             != (tF, nc, twr):
         fail(f"the profiling tool's result is off: {res}")
+    # the merge-prototype tools: U2's and U3's main paths. Their match keys
+    # must hold on both batches: the widest noise chunk stays inside
+    # merge_v2's 256 words and merge_v3's four rows
+    analysis_k5 = ("autocorr", "sweep_sums", "merge_aligned")
+    for label, run, needs in (
+            ("prototype tool v2", tool2.main, ("prof_merge_v2",)),
+            ("prototype tool v3", tool2.main_v3, ("prof_merge_v3",)),
+            ("combined-node tool", tool3.main,
+             ("prof_merge_v5a", "prof_merge_v5b"))):
+        res = count_launches(label, lambda: run(device="cuda"),
+                             analysis_k5 + needs)
+        wrong = [k for k, v in res.items() if "match" in k and v is not True]
+        if wrong or any(k.endswith("first_bad") for k in res):
+            fail(f"{label}: {wrong} not true in {res}")
 
     def drive(label, cfg, stream, needs, never=()):
         """One main path through the encoder, cold then warm; the counts

@@ -45,6 +45,12 @@ SIGNATURES = {
     # chunk_bits, w0t, hit, lot, words, F, nc, W
     **{f"flake_prof_merge_{variant}": [_P, _P, _P, _P, _P, _I, _I, _I]
        for variant in ("static2", "fixedrow", "nowin", "zero")},
+    # chunk_bits, w0t, hit, lot, words, F, nc, W, fb
+    **{f"flake_prof_merge_{proto}": [_P, _P, _P, _P, _P, _I, _I, _I, _I]
+       for proto in ("v2", "v3")},
+    # cb2, cb1, main x4, sp2 x4, sp1 x3, words, F, nc2, nc1, W
+    **{f"flake_prof_merge_{proto}": [_P] * 14 + [_I] * 4
+       for proto in ("v5a", "v5b")},
     # microseconds (a timing aid, see csrc/prof_merge.cu)
     "flake_spin_us": [_I],
 }

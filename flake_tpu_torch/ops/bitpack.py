@@ -8,13 +8,16 @@ K3 (:mod:`flake_tpu_torch.ops.bitmerge`) places the payloads into each
 frame's big-endian 32-bit words. CRC-8/CRC-16 placeholders are emitted
 as zeros and patched on the host.
 
-The JAX package's slot combining, ``kmax_for``, 4 KiB granules and
-overflow re-pack (``bitpack.py:298-395,738-763``) exist only for the
-TPU's matrix-unit merge and tile-aligned DMA; they are not ported. One
-difference from the JAX layout code: the warm-up view ``res[..., :32]``
-is padded to 32 columns, so blocks shorter than 32 samples (a stream's
-last frame) lay out instead of failing to broadcast
-(``bitpack.py:479-485``).
+The JAX package's ``kmax_for``, 4 KiB granules and overflow re-pack
+(``bitpack.py:298-395,738-763``) exist only for the TPU's matrix-unit
+merge and tile-aligned DMA; they are not ported. Its slot combining
+(``bitpack.py:192-295``) is: :func:`combine_level`, :func:`align3`,
+:func:`to_chunks` and :func:`to_rows` serve the merge-prototype tool
+(:mod:`flake_tpu_torch.util.prof_merge3`); K3 merges raw slots and no
+encoder path combines them. One difference from the JAX layout code: the
+warm-up view ``res[..., :32]`` is padded to 32 columns, so blocks shorter
+than 32 samples (a stream's last frame) lay out instead of failing to
+broadcast (``bitpack.py:479-485``).
 """
 
 from __future__ import annotations
@@ -271,6 +274,24 @@ def pack_frames_device(analysis: dict, hdr_bytes: torch.Tensor,
     return merge_words(lengths, leading, payload, word_rows(cfg))
 
 
+def to_rows(x: torch.Tensor) -> torch.Tensor:
+    """[F, M] -> int32 [F, nc, 128], zero-padded to nc = ceil(M / 128)
+    chunks of 128: element ``c * 128 + s`` at [f, c, s] (``_to_rows``,
+    ``bitpack.py:289``). Values wrap to their int32 images."""
+    F, M = x.shape
+    nc = -(-M // LANE)
+    x = torch.nn.functional.pad(wrap_int32(x.to(torch.int64)),
+                                (0, nc * LANE - M))
+    return x.reshape(F, nc, LANE)
+
+
+def to_chunks(x: torch.Tensor) -> torch.Tensor:
+    """[F, M] -> contiguous int32 [F, 128, nc]: element ``c * 128 + s`` at
+    [f, s, c], the column layout of K5's inputs and of the combined-node
+    sets."""
+    return to_rows(x).permute(0, 2, 1).contiguous()
+
+
 def aligned_parts(lengths: torch.Tensor, leading: torch.Tensor,
                   payload: torch.Tensor):
     """The pre-aligned form of a batch's slots that K5
@@ -285,14 +306,7 @@ def aligned_parts(lengths: torch.Tensor, leading: torch.Tensor,
     first slot with the frame's total bits last. The offsets are a plain
     running sum; the JAX package's hierarchical one works around the
     TPU's scan."""
-    F, M = lengths.shape
     offsets, w0, hi, lo = slot_words(lengths, leading, payload)
-    nc = -(-M // LANE)
-
-    def to_chunks(x):
-        x = torch.nn.functional.pad(wrap_int32(x), (0, nc * LANE - M))
-        return x.reshape(F, nc, LANE).permute(0, 2, 1).contiguous()
-
     total_bits = lengths.sum(dim=-1, dtype=torch.int64)
     chunk_bits = torch.cat([offsets[:, ::LANE], total_bits[:, None]],
                            dim=-1).to(torch.int32)
@@ -315,3 +329,80 @@ def compact(words: torch.Tensor, frame_bytes: torch.Tensor) -> torch.Tensor:
     slots = words_to_slot_bytes(words)
     pos = torch.arange(slots.shape[1], device=slots.device)
     return slots[pos < frame_bytes[:, None]]
+
+
+# -- slot combining ---------------------------------------------------------
+# A node is (ln, sw, g, pay): a string of ``ln`` bits whose nonzero bits lie
+# in [ln - g - sw, ln - g), held as the integer ``pay`` < 2^sw. The JAX
+# package splits ``pay`` into two uint32 words and shifts by 32 in two steps,
+# because the TPU has no 64-bit integers; here it is one int64, all 64 bits
+# of which a node may use (bit 63 is then the sign), so every right shift is
+# logical (:func:`shr64`).
+
+def shl64(pay: torch.Tensor, sh: torch.Tensor) -> torch.Tensor:
+    """``pay << sh`` on int64 bit patterns, ``sh`` clamped to [0, 63]; the
+    caller guarantees that no set bit leaves the 64 (``_shl64``,
+    ``bitpack.py:199``)."""
+    return pay << torch.clamp(sh, 0, 63)
+
+
+def shr64(pay: torch.Tensor, sh: torch.Tensor) -> torch.Tensor:
+    """Logical ``pay >> sh`` on int64 bit patterns for ``sh`` in [1, 64]
+    (64 gives 0; ``torch.int64 >>`` is arithmetic, so the sign bit is
+    cleared after a first shift by one)."""
+    return ((pay >> 1) & 0x7FFFFFFFFFFFFFFF) >> torch.clamp(sh - 1, 0, 63)
+
+
+def pad_even(x: torch.Tensor) -> torch.Tensor:
+    """Zero-pad the last axis to an even length."""
+    return torch.nn.functional.pad(x, (0, x.shape[-1] % 2))
+
+
+def combine_level(ln, sw, g, pay):
+    """One pairwise combining level along the last, even-length axis
+    (``_combine_level``, ``bitpack.py:220``). Neighbours A, B become one
+    node of ``lnA + lnB`` bits: B's payload is ORed under A's, shifted left
+    by ``sh = gA + lnB - gB``, where the result spans at most 64 bits;
+    otherwise the node keeps A alone and B spills whole.
+
+    int64 [.., M] each -> the combined nodes (ln, sw, g, pay) [.., M / 2]
+    and the spills (sw, rel, pay), ``rel`` the payload's first bit counted
+    from the pair's first bit, all 0 where nothing spilled."""
+    lnA, lnB = ln[..., 0::2], ln[..., 1::2]
+    swA, swB = sw[..., 0::2], sw[..., 1::2]
+    gA, gB = g[..., 0::2], g[..., 1::2]
+    payA, payB = pay[..., 0::2], pay[..., 1::2]
+
+    sh = gA + lnB - gB                 # >= swB: the ORed fields stay disjoint
+    sw_c = swA + sh
+    fits = sw_c <= 64
+    azero = swA == 0
+    bzero = swB == 0
+    keep_a = bzero | ~fits
+    sw_n = torch.where(azero, swB, torch.where(keep_a, swA, sw_c))
+    g_n = torch.where(azero, gB, torch.where(keep_a, gA + lnB, gB))
+    pay_n = torch.where(azero, payB, torch.where(
+        keep_a, payA, shl64(payA, torch.where(fits, sh, 0)) | payB))
+
+    spill = ~azero & ~bzero & ~fits
+    zero = torch.zeros_like(swB)
+    return (lnA + lnB, sw_n, g_n, pay_n), \
+        (torch.where(spill, swB, zero),
+         torch.where(spill, lnA + lnB - gB - swB, zero),
+         torch.where(spill, payB, zero))
+
+
+def align3(ps, sw, pay):
+    """The three 32-bit words of a payload of ``sw`` <= 64 bits whose first
+    bit is stream bit ``ps`` (``_align3``, ``bitpack.py:259``): int64 in;
+    (w0, A, B, C) out, ``w0 = ps >> 5`` int64 and A, B, C the int32 images
+    of the words to OR into w0, w0 + 1, w0 + 2. All 0 where ``sw == 0``."""
+    active = sw > 0
+    z = 96 - ((ps & 31) + sw)          # left shift inside the 96-bit window
+    low = shl64(pay, z)                # its low 64 bits, for z < 64
+    A = torch.where(z >= 64, shl64(pay, z - 64), shr64(pay, 64 - z))
+    B = torch.where(z >= 64, 0, low >> 32)     # masked to 32 bits below
+    C = torch.where(z >= 32, 0, low)
+    w0 = torch.where(active, ps >> 5, 0)
+    return (w0, *(wrap_int32(torch.where(active, w & U32_MASK, 0))
+                  for w in (A, B, C)))

@@ -80,17 +80,29 @@ def _parts(w0t, hit, lot):
             torch.stack([hit, lot], dim=1).to(torch.int64))
 
 
-def merge_static2_plain(w0t, hit, lot, chunk_bits, word_rows):
-    """Plain version of ``static2``: K5's sum over the parts whose word
-    row is the chunk's row0 or row0 + 1."""
+def merge_first_rows_plain(w0t, hit, lot, chunk_bits, word_rows, rows: int,
+                           reach: bool):
+    """K5's sum over the parts whose word row is one of the chunk's first
+    ``rows`` word rows, row0 to row0 + rows - 1. With ``reach`` a row after
+    row0 counts only where the chunk reaches it (row <= last_row)."""
     F = w0t.shape[0]
     W = word_rows * LANE
-    row0 = chunk_rows(chunk_bits)[0][:, None, None, :]
+    row0, last_row = (r[:, None, None, :] for r in chunk_rows(chunk_bits))
     word, val = _parts(w0t, hit, lot)
-    keep = ((word >> 7) == row0) | ((word >> 7) == row0 + 1)
+    row = word >> 7
+    keep = (row >= row0) & (row < row0 + rows)
+    if reach:
+        keep &= row <= last_row
     words = sum_at(word.reshape(F, -1),
                    torch.where(keep, val, 0).reshape(F, -1), W)
     return wrap_int32(words).reshape(F, word_rows, LANE)
+
+
+def merge_static2_plain(w0t, hit, lot, chunk_bits, word_rows):
+    """Plain version of ``static2``: K5's sum over the parts whose word
+    row is the chunk's row0 or row0 + 1."""
+    return merge_first_rows_plain(w0t, hit, lot, chunk_bits, word_rows,
+                                  rows=2, reach=False)
 
 
 def merge_fixedrow_plain(w0t, hit, lot, chunk_bits, word_rows):
@@ -159,22 +171,44 @@ VARIANTS = {"static2": (merge_static2, merge_static2_plain),
             "zero": (merge_zero, merge_zero_plain)}
 
 
-def make_batch(frames: int = FRAMES):
-    """The tool's batch (``util/prof_merge.py:38-55``): (samples int32
-    [frames, 4096, 2], header bytes, header byte counts, FrameConfig)."""
+def make_batch(frames: int = FRAMES, kind: str = "music"):
+    """The tools' batch: (samples int32 [frames, 4096, 2], header bytes,
+    header byte counts, FrameConfig). ``music`` is a 440 Hz tone plus
+    noise (``util/prof_merge.py:38-55``); ``noise`` is uniform int16 on
+    both channels, which the encoder emits verbatim, the left channel drawn
+    from ``default_rng(0)`` before the right (``util/prof_merge2.py:41-53``
+    and ``util/prof_merge3.py:52-63`` draw the same stream)."""
     p = P.set_defaults(8)
     cfg = FrameConfig.from_params(p, CHANNELS, BPS, block_size=BLOCK)
     rng = np.random.default_rng(0)
-    t = np.arange(frames * BLOCK)
-    sig = 12000 * np.sin(2 * np.pi * 440 * t / 44100) \
-        + 800 * rng.standard_normal(frames * BLOCK)
-    left = np.clip(sig, -32768, 32767).astype(np.int32)
-    right = np.clip(0.8 * sig, -32768, 32767).astype(np.int32)
+    n = frames * BLOCK
+    if kind == "music":
+        sig = 12000 * np.sin(2 * np.pi * 440 * np.arange(n) / 44100) \
+            + 800 * rng.standard_normal(n)
+        left = np.clip(sig, -32768, 32767).astype(np.int32)
+        right = np.clip(0.8 * sig, -32768, 32767).astype(np.int32)
+    elif kind == "noise":
+        left = rng.integers(-32768, 32767, n).astype(np.int32)
+        right = rng.integers(-32768, 32767, n).astype(np.int32)
+    else:
+        raise ValueError(f"make_batch: unknown kind {kind!r}")
     samples = np.stack([left, right], -1).reshape(frames, BLOCK, CHANNELS)
     hdr_bytes, hdr_nb = bitpack.frame_header_bytes(
         np.arange(frames, dtype=np.uint32), bs_code=P.blocksize_code(BLOCK),
         sr_code=P.samplerate_code(SAMPLE_RATE), allow_vbs=p.allow_vbs)
     return samples, hdr_bytes, hdr_nb, cfg
+
+
+def batch_slots(kind: str, frames: int, device: torch.device):
+    """The slot tables of the tools' ``kind`` batch, analysed at level 8
+    on ``device`` with 48 header bits a frame as the JAX tools analyse it:
+    ((lengths, leading, payload) int32 [frames, M], FrameConfig)."""
+    samples, hdr_bytes, hdr_nb, cfg = make_batch(frames, kind)
+    analysis = analyze_frames(
+        torch.from_numpy(samples).to(device), cfg,
+        torch.full((frames,), 48, dtype=torch.int32, device=device))
+    return bitpack.slot_layout(analysis, torch.from_numpy(hdr_bytes).to(device),
+                               torch.from_numpy(hdr_nb).to(device), cfg), cfg
 
 
 MAX_SPIN_US = 2_000_000

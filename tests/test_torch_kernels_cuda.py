@@ -13,7 +13,11 @@ block sizes, a partition size of 253, K2 at order 32 with 256 partitions
 granule and with 300 streams, 24-bit and 32-bit content, and blocks
 under 32; K5 and the four U1 variants on encoder slots, on random slot
 tables whose chunks span three word rows, and on a word block above
-48 KiB of shared memory.
+48 KiB of shared memory; the merge prototypes ``merge_v2`` and ``merge_v3``
+at fb = 1, 8 and 16 and the combined-node merges ``merge_v5a`` and
+``merge_v5b`` on the tools' ``music`` and ``noise`` batches at full frame
+width and on those random tables, where they leave K5's words or flag both
+spill sets.
 """
 
 import numpy as np
@@ -27,7 +31,7 @@ from flake_tpu_torch.ops import bitmerge as k3
 from flake_tpu_torch.ops import bitpack, frame, lpc
 from flake_tpu_torch.ops import sweep as k2
 from flake_tpu_torch.ops.sweep import sweep_granules as k4
-from flake_tpu_torch.util import prof_merge
+from flake_tpu_torch.util import prof_merge, prof_merge2, prof_merge3
 
 pytestmark = pytest.mark.cuda
 
@@ -232,6 +236,64 @@ def test_prof_merge_kernels(dev, variant, case):
     if variant == "static2":
         k5 = k3.merge_aligned(*parts, wr)
         assert torch.equal(got, k5) == (case == "level8")
+
+
+def _prototype_slots(dev, case):
+    """(slots, word rows) for the merge prototypes: 64 frames of a tool
+    batch, or random slot tables (``random_120_rows``: 60 KiB of words)."""
+    if case in prof_merge2.KINDS:
+        slots, cfg = prof_merge.batch_slots(case, 64, dev)
+        return slots, bitpack.word_rows(cfg)
+    slots, wr = _random_slots(64, 3000, seed=13)
+    return tuple(t.to(dev) for t in slots), \
+        120 if case == "random_120_rows" else wr
+
+
+PROTOTYPE_CASES = ["music", "noise", "random", "random_120_rows"]
+
+
+@pytest.mark.parametrize("case", PROTOTYPE_CASES)
+@pytest.mark.parametrize("proto", ["v2", "v3"])
+def test_merge_prototype_kernels(dev, proto, case):
+    """``merge_v2`` and ``merge_v3`` against their plain versions at every
+    fb; K5's words on the tools' batches, not on the random tables."""
+    slots, wr = _prototype_slots(dev, case)
+    parts = bitpack.aligned_parts(*slots)
+    kernel = getattr(prof_merge2, f"merge_{proto}")
+    want = getattr(prof_merge2, f"merge_{proto}_plain")(*parts, wr)
+    for fb in (1, 8, 16):
+        before = kernel.launches
+        got = kernel(*parts, wr, fb)
+        assert kernel.launches == before + 1
+        assert torch.equal(got, want), fb
+    assert torch.equal(want, k3.merge_aligned(*parts, wr)) \
+        == (case in prof_merge2.KINDS)
+    with pytest.raises(ValueError, match="multiple"):
+        kernel(*parts, wr, 5)
+
+
+@pytest.mark.parametrize("case", PROTOTYPE_CASES)
+def test_combined_merge_kernels(dev, case):
+    """``merge_v5a`` and ``merge_v5b`` against their plain version, K5 and
+    K3; the random tables flag both spill sets."""
+    slots, wr = _prototype_slots(dev, case)
+    parts = prof_merge3.v5_parts(*slots)
+    want = prof_merge3.merge_v5_plain(*parts, wr)
+    for kernel in (prof_merge3.merge_v5a, prof_merge3.merge_v5b):
+        before = kernel.launches
+        got = kernel(*parts, wr)
+        assert kernel.launches == before + 1
+        assert torch.equal(got, want)
+    assert torch.equal(want, k3.merge_aligned(*bitpack.aligned_parts(*slots),
+                                              wr))
+    assert torch.equal(want, k3.merge_words(*slots, wr)[0])
+    flagged = [bool((cb[:, :-1] < 0).any()) for cb in parts[3:]]
+    assert flagged == [True, case.startswith("random")]
+    # a spill node in an unflagged chunk must add nothing, in either kernel
+    cb2, cb1 = (cb & prof_merge3.MASK31 for cb in parts[3:])
+    want = prof_merge3.merge_v5_plain(*parts[:3], cb2, cb1, wr)
+    for kernel in (prof_merge3.merge_v5a, prof_merge3.merge_v5b):
+        assert torch.equal(kernel(*parts[:3], cb2, cb1, wr), want)
 
 
 def test_spin_and_device_ms(dev):

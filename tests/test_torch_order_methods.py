@@ -8,7 +8,7 @@ order for EST and LEVEL2/4/8 on random bit counts with ties and on
 order ranges whose candidates repeat or clamp to 0; ``analyze_frames``
 must equal ``analyze_frames_jit`` key by key at levels 5 and 7; and
 ``Encoder(device="cpu")`` bytes must equal ``flake_tpu.Encoder``'s at
-levels 0, 2, 3, 5 and 7, mono included, with tails that take the LPC
+levels 0 to 7, mono included, with tails that take the LPC
 path below 32 samples, FIXED and VERBATIM, decoded with MD5 by both
 decoders.
 """
@@ -141,7 +141,8 @@ def _stream_config(level, channels, block_size):
     (5, 2, 1024, 777), (5, 2, 1024, 20), (5, 2, 1024, 10), (5, 2, 1024, 3),
     (2, 2, 1152, 777), (2, 2, 1152, 20), (2, 2, 1152, 10), (2, 2, 1152, 3),
     (0, 2, 1152, 777), (3, 2, 1024, 20), (7, 2, 1024, 777),
-    (5, 1, 1024, 10), (0, 1, 1152, 3)])
+    (5, 1, 1024, 10), (0, 1, 1152, 3),
+    (1, 2, 1152, 20), (4, 2, 1024, 20), (6, 2, 1024, 20)])
 def test_encode_stream_matches_jax(level, channels, block_size, tail):
     n = 6 * block_size + tail
     pcm = make_test_signal(n, channels, 16, seed=level * 1000 + tail)
