@@ -4,8 +4,10 @@
 Builds the port's CUDA kernels (K1 autocorrelation, K2 and K4 order
 sweeps, K3 word merge, K5 pre-aligned word merge, U1, the four merge
 variants of the emission-profiling tool, U2, the merge prototypes
-``merge_v2`` and ``merge_v3``, and U3a/U3b, the combined-node merges
-``merge_v5a`` and ``merge_v5b``) and its host libraries (CRC
+``merge_v2`` and ``merge_v3``, U3a/U3b, the combined-node merges
+``merge_v5a`` and ``merge_v5b``, and U3c-U3f, their row-layout forms
+``merge_v5d`` and ``merge_v5c`` with the zero floors ``merge_zero_rows`` and
+``merge_zero_fb``) and its host libraries (CRC
 patcher, decoder helpers) from this checkout, and holds each kernel
 against its plain PyTorch version: K1-K3 on the inputs the first level-8
 batch gives them, K4 (and K1 at 33 lags, K3 on 8192-sample frames) on the
@@ -27,7 +29,11 @@ thousands of bits, where ``merge_v2`` drops and misplaces parts,
 ``merge_v3`` drops rows and both spill sets of the combined nodes are
 flagged; ``merge_v5a``, ``merge_v5b``, K5 and K3 must give the same words
 on all three, and K5 is held against its plain version and K3 on the noise
-batch too. The Schur and Levinson recursions of the EST order method
+batch too. ``merge_v5d`` and ``merge_v5c`` (at 1 and 8 frames a block) must
+equal their plain version on all three, K5's and K3's words on the two
+batches, where no frame may overflow the static rows, and K5's words on the
+frames of the made-up table that do not overflow them (some must); the zero
+floors must give ``torch.zeros``. The Schur and Levinson recursions of the EST order method
 must give the same float64 bits on the card and on the host.
 
 Three-second windows must give the same bytes through
@@ -44,7 +50,9 @@ and read just after: the profiling tool
 (``flake_tpu_torch.util.prof_merge.main``; K1-K3, K5 and U1 must launch),
 the merge-prototype tools (``prof_merge2.main`` and ``main_v3``: K5 and
 ``merge_v2``, ``merge_v3``; ``prof_merge3.main``: K5, ``merge_v5a``,
-``merge_v5b``) and, through ``Encoder.encode_stream``, cold and warm,
+``merge_v5b``; ``prof_merge3.main_v5d``: K5, ``merge_v5d``,
+``merge_zero_rows``; ``prof_merge3.main_v5c``: K5, ``merge_v5c``,
+``merge_zero_fb``) and, through ``Encoder.encode_stream``, cold and warm,
 180 s of deterministic 16-bit / 44.1 kHz stereo at level 8 (K1-K3 must launch) and
 at level 5 (EST: K1 and K3 must launch, K2 must not), 60 s of it at level
 7 (K1-K3), 30 s at levels 3 (K1, K3) and 2, 1, 0 (block 1152, K3 only),
@@ -570,6 +578,8 @@ def main() -> None:
                                        for a in made_up), mwr2)}
     aligned = {k: bitpack.aligned_parts(*sl) for k, (sl, _) in content.items()}
     combined = {k: tool3.v5_parts(*sl) for k, (sl, _) in content.items()}
+    in_rows = {k: tool3.v5d_parts(*sl) for k, (sl, _) in content.items()}
+    in_dual = {k: tool3.v5c_parts(*sl) for k, (sl, _) in content.items()}
     for label, (slots_c, wr_c) in content.items():
         al, v5 = aligned[label], combined[label]
         k5_words = k3_mod.merge_aligned(*al, wr_c)
@@ -614,6 +624,37 @@ def main() -> None:
                  f"{in_domain}")
         if (flagged[0] > 0, flagged[1] > 0) != (True, not in_domain):
             fail(f"unexpected spill flags on {label}: {flagged}")
+        # U3c-U3f: the same nodes in rows, placed over static rows
+        *rows, overflow = in_rows[label]
+        *dual, _ = in_dual[label]
+        want = tool3.merge_v5_rows_plain(*rows, wr_c)
+        zeros = torch.zeros_like(want)
+        for kern, floor, kin in (
+                (tool3.merge_v5d, tool3.merge_zero_rows, rows),
+                (tool3.merge_v5c, tool3.merge_zero_fb, dual)):
+            for fb in (1, 8):
+                got, nothing = kern(*kin, wr_c, fb), floor(*kin, wr_c, fb)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    fail(f"{kern.__name__} at fb {fb} disagrees with its "
+                         f"plain version on {label}")
+                if not torch.equal(nothing, zeros):
+                    fail(f"{floor.__name__} at fb {fb} does not give zeros "
+                         f"on {label}")
+        n_over = int(overflow.sum())
+        if bool(n_over) == in_domain:
+            fail(f"{n_over} frames overflow the static rows on {label}")
+        if not torch.equal(want[~overflow], k5_words[~overflow]) or (
+                in_domain and not torch.equal(
+                    want, k3_mod.merge_words(*slots_c, wr_c)[0])):
+            fail(f"the row-layout merges' words differ from K5's or K3's on "
+                 f"{label}")
+        changed = int((want != k5_words).flatten(1).any(-1).sum())
+        print(f"U3c-U3f on {label}: merge_v5d, merge_v5c (fb 1, 8) bit-exact "
+              f"against their plain version, merge_zero_rows, merge_zero_fb "
+              f"against torch.zeros; {n_over} of {want.shape[0]} frames "
+              f"overflow {tool3.KMAX} / {tool3.KMAX1} static rows, {changed} "
+              f"differ from K5's words, the others equal them", flush=True)
 
     # times and bounds on the music batch, the shapes the tools time; v2 and
     # v3 at fb = 8, the JAX tool's default. One scatter_add_ gives their
@@ -659,13 +700,64 @@ def main() -> None:
         print(f"info: prof_merge_{name} on the noise batch {noise_ms:.4f} ms, "
               f"bound {noise_bound:.4f} ms by bytes", flush=True)
 
+    def v5a_run():
+        return tool3.merge_v5a(*combined["music"], twr)
+
+    for name, line, body, parts_of in (("v5d", 653, "k_v5d :612", in_rows),
+                                       ("v5c", 714, "k_v5c :677", in_dual)):
+        kern = getattr(tool3, f"merge_{name}")
+        *kin, _ = parts_of["music"]
+        *rows, _ = in_rows["music"]
+        # v5a's nodes, bytes and operations, at fb = 8, the JAX tool's default
+        phase(f"prof_merge_{name}", "flake_tpu_torch/csrc/prof_merge3_rows.cu",
+              f"util/prof_merge3.py:{line} ({body})",
+              lambda kern=kern, kin=kin: kern(*kin, twr, 8),
+              lambda rows=rows: tool3.merge_v5_rows_plain(*rows, twr),
+              cmp_exact, (), 8 * kin[0].numel(), INT32_OPS_PER_MS,
+              read_bytes=v5_read_bytes(combined["music"]))
+        *kin_n, _ = parts_of["noise"]
+        noise_ms, fb1_ms, v5a_ms = time_turns(
+            lambda kern=kern, kin_n=kin_n: kern(*kin_n, twr, 8),
+            lambda kern=kern, kin=kin: kern(*kin, twr, 1), v5a_run)
+        noise_bound, _ = bound(v5_read_bytes(combined["noise"])
+                               + tF * twr * 512, 0, INT32_OPS_PER_MS)
+        kernels[-1].update(fb=8, noise_ms=noise_ms,
+                           noise_bound_ms=noise_bound, fb1_ms=fb1_ms,
+                           v5a_ms_same_batch=v5a_ms)
+        print(f"info: prof_merge_{name} at fb 8 on the noise batch "
+              f"{noise_ms:.4f} ms, bound {noise_bound:.4f} ms by bytes; at fb "
+              f"1 on the music batch {fb1_ms:.4f} ms beside merge_v5a "
+              f"{v5a_ms:.4f} ms on the same nodes in chunk layout",
+              flush=True)
+
+    def zeros_run():
+        return torch.zeros((tF, twr, 128), dtype=torch.int32, device=dev)
+
+    for name, line, parts_of in (("zero_fb", 847, in_dual),
+                                 ("zero_rows", 1019, in_rows)):
+        floor = getattr(tool3, f"merge_{name}")
+        *kin, _ = parts_of["music"]
+        phase(f"prof_merge_{name}", "flake_tpu_torch/csrc/prof_merge3_rows.cu",
+              f"util/prof_merge3.py:{line} (k_{name})",
+              lambda floor=floor, kin=kin: floor(*kin, twr, 8), zeros_run,
+              cmp_exact, (), 0, INT32_OPS_PER_MS, library=zeros_run,
+              plain_is_one_kernel=True)
+        kernels[-1]["fb"] = 8
+
     def v5_prep_run():
         return tool3.v5_parts(*tslots)
 
-    v5_prep, al_prep = time_turns(v5_prep_run, prep_run,
-                                  loop=(v5_prep_run, prep_run))
-    print(f"info: on the tool's slots v5_parts {v5_prep:.4f} ms beside "
-          f"aligned_parts {al_prep:.4f} ms (both in a plain loop)",
+    def v5d_prep_run():
+        return tool3.v5d_parts(*tslots)
+
+    def v5c_prep_run():
+        return tool3.v5c_parts(*tslots)
+
+    preps = (v5_prep_run, v5d_prep_run, v5c_prep_run, prep_run)
+    v5_prep, v5d_prep, v5c_prep, al_prep = time_turns(*preps, loop=preps)
+    print(f"info: on the tool's slots v5_parts {v5_prep:.4f} ms, v5d_parts "
+          f"{v5d_prep:.4f} ms, v5c_parts {v5c_prep:.4f} ms beside "
+          f"aligned_parts {al_prep:.4f} ms (all in a plain loop)",
           flush=True)
 
     # -- 4c. the EST recursions on the card and on the host --------------------
@@ -830,7 +922,11 @@ def main() -> None:
                   for name, (kern, _) in tool.VARIANTS.items()},
                "prof_merge_v2": tool2.merge_v2, "prof_merge_v3": tool2.merge_v3,
                "prof_merge_v5a": tool3.merge_v5a,
-               "prof_merge_v5b": tool3.merge_v5b}
+               "prof_merge_v5b": tool3.merge_v5b,
+               "prof_merge_v5d": tool3.merge_v5d,
+               "prof_merge_v5c": tool3.merge_v5c,
+               "prof_merge_zero_fb": tool3.merge_zero_fb,
+               "prof_merge_zero_rows": tool3.merge_zero_rows}
     launched = {name: {} for name in counted}   # name -> {path: count}
 
     def count_launches(label, run, needs, never=()):
@@ -873,12 +969,19 @@ def main() -> None:
             ("prototype tool v2", tool2.main, ("prof_merge_v2",)),
             ("prototype tool v3", tool2.main_v3, ("prof_merge_v3",)),
             ("combined-node tool", tool3.main,
-             ("prof_merge_v5a", "prof_merge_v5b"))):
+             ("prof_merge_v5a", "prof_merge_v5b")),
+            ("row-layout tool v5d", tool3.main_v5d,
+             ("prof_merge_v5d", "prof_merge_zero_rows")),
+            ("dual-layout tool v5c", tool3.main_v5c,
+             ("prof_merge_v5c", "prof_merge_zero_fb"))):
         res = count_launches(label, lambda: run(device="cuda"),
                              analysis_k5 + needs)
         wrong = [k for k, v in res.items() if "match" in k and v is not True]
         if wrong or any(k.endswith("first_bad") for k in res):
             fail(f"{label}: {wrong} not true in {res}")
+        if any(v for k, v in res.items() if k.endswith("overflow_frames")):
+            fail(f"{label}: frames of the tool's batches overflow the static "
+                 f"rows: {res}")
 
     def drive(label, cfg, stream, needs, never=()):
         """One main path through the encoder, cold then warm; the counts

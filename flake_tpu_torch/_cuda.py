@@ -51,6 +51,12 @@ SIGNATURES = {
     # cb2, cb1, main x4, sp2 x4, sp1 x3, words, F, nc2, nc1, W
     **{f"flake_prof_merge_{proto}": [_P] * 14 + [_I] * 4
        for proto in ("v5a", "v5b")},
+    # the same with w0 in rows (v5d) or chunks (v5c), then fb, kmax, kmax1
+    **{f"flake_prof_merge_{proto}": [_P] * 14 + [_I] * 7
+       for proto in ("v5d", "v5c")},
+    # their zero floors: the same operands, F, nc2, nc1, W, fb
+    **{f"flake_prof_merge_{floor}": [_P] * 14 + [_I] * 5
+       for floor in ("zero_fb", "zero_rows")},
     # microseconds (a timing aid, see csrc/prof_merge.cu)
     "flake_spin_us": [_I],
 }

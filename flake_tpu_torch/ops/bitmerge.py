@@ -9,8 +9,10 @@ kernel that is called ``merge_words`` there (:271, ``_merge_kernel``
 
 K3 takes the slot layout of
 :func:`flake_tpu_torch.ops.bitpack.slot_layout` directly, with no slot
-combining, kmax specialisation or overflow re-pack: those exist only
-for the TPU's matrix-unit merge. The kernel source is
+combining, kmax specialisation or overflow re-pack: the TPU's
+matrix-unit merge needs those, and in the port only the merge-prototype
+tool runs them (``ops/bitpack.combined_parts``, ``kmax_for``;
+:mod:`flake_tpu_torch.util.prof_merge3`). The kernel source is
 ``flake_tpu_torch/csrc/bitmerge.cu``; :func:`merge_words_plain` is the
 JAX package's ``backend="xla"`` formulation (``bitpack.py:669-705``) with
 ``torch.cumsum`` and ``torch.searchsorted``.

@@ -8,13 +8,16 @@ K3 (:mod:`flake_tpu_torch.ops.bitmerge`) places the payloads into each
 frame's big-endian 32-bit words. CRC-8/CRC-16 placeholders are emitted
 as zeros and patched on the host.
 
-The JAX package's ``kmax_for``, 4 KiB granules and overflow re-pack
-(``bitpack.py:298-395,738-763``) exist only for the TPU's matrix-unit
-merge and tile-aligned DMA; they are not ported. Its slot combining
-(``bitpack.py:192-295``) is: :func:`combine_level`, :func:`align3`,
-:func:`to_chunks` and :func:`to_rows` serve the merge-prototype tool
-(:mod:`flake_tpu_torch.util.prof_merge3`); K3 merges raw slots and no
-encoder path combines them. One difference from the JAX layout code: the
+The JAX package's slot combining, its static row spans and its overflow
+flag (``bitpack.py:192-396``) are ported for the merge-prototype tool
+(:mod:`flake_tpu_torch.util.prof_merge3`): :func:`combine_level`,
+:func:`align3`, :func:`combined_nodes` and its two layouts
+(:func:`to_chunks` for ``merge_v5a`` / ``merge_v5b``, :func:`to_rows` in
+:func:`combined_parts` for ``merge_v5d`` / ``merge_v5c``), :func:`kmax_for`
+and :func:`chunk_row_span`. K3 merges raw slots, so the encoder runs none
+of them and has no overflow re-pack; the 4 KiB granules
+(``bitpack.py:738-763``) exist only for the TPU's tile-aligned DMA and are
+not ported. One difference from the JAX layout code: the
 warm-up view ``res[..., :32]`` is padded to 32 columns, so blocks shorter
 than 32 samples (a stream's last frame) lay out instead of failing to
 broadcast (``bitpack.py:479-485``).
@@ -406,3 +409,105 @@ def align3(ps, sw, pay):
     w0 = torch.where(active, ps >> 5, 0)
     return (w0, *(wrap_int32(torch.where(active, w & U32_MASK, 0))
                   for w in (A, B, C)))
+
+
+# -- combined nodes ---------------------------------------------------------
+
+FLAG = -(1 << 31)       # bit 31 of a cb entry: the chunk has a spill
+MASK31 = (1 << 31) - 1
+
+
+def combined_nodes(lengths: torch.Tensor, leading: torch.Tensor,
+                   payload: torch.Tensor):
+    """A batch's slots combined twice, pairs then quads, and aligned (the
+    combining of ``build_combined_parts``, ``bitpack.py:319-341,350-371,
+    390-394``, which ``build_v5_parts`` and ``build_v5c_parts`` of
+    ``util/prof_merge3.py`` repeat), before any layout.
+
+    int32 [F, M] each -> ``main`` (w0, A, B, C) of the quad nodes and
+    ``sp2`` (w0, A, B, C) of the pairs that spilled at the second level,
+    [F, M4] each; ``sp1`` (w0, A, B) of the slots that spilled at the
+    first, [F, M2] (at most 32 bits: no C); w0 int64, the words int32.
+    ``cb2`` int32 [F, nc2 + 1] and ``cb1`` [F, nc1 + 1] hold the bit offset
+    of the first node of each chunk of 128, the frame's total bits last,
+    with bit 31 (:data:`FLAG`) set on a chunk whose spill set (sp2 for
+    cb2, sp1 for cb1) holds anything. Offsets are a plain running sum."""
+    ln = pad_even(lengths.to(torch.int64))
+    sw = ln - pad_even(leading.to(torch.int64))
+    pay = pad_even(payload.to(torch.int64) & U32_MASK)
+    total_bits = ln.sum(dim=-1, keepdim=True)
+
+    (ln1, *node1), (s1_sw, s1_rel, s1_pay) = combine_level(
+        ln, sw, torch.zeros_like(ln), pay)
+    ln1p = pad_even(ln1)
+    (ln2, sw2, g2, pay2), (s2_sw, s2_rel, s2_pay) = combine_level(
+        ln1p, *(pad_even(v) for v in node1))
+
+    # bit offsets of the quads, and of the pairs inside them
+    off2 = torch.cumsum(ln2, dim=-1) - ln2
+    off1 = torch.stack([off2, off2 + ln1p[:, 0::2]], dim=-1) \
+        .reshape(off2.shape[0], -1)[:, :ln1.shape[-1]]
+
+    main = align3(off2 + ln2 - g2 - sw2, sw2, pay2)
+    sp2 = align3(off2 + s2_rel, s2_sw, s2_pay)
+    sp1 = align3(off1 + s1_rel, s1_sw, s1_pay)[:3]
+
+    def bounds(off, spill_sw):
+        # a chunk's first node always exists (nc = ceil(M / 128)), so the
+        # reference's edge padding of ``off`` before the stride adds nothing
+        flagged = to_rows(spill_sw).any(dim=-1)
+        starts = off[:, ::LANE]
+        return torch.cat([torch.where(flagged, starts | FLAG, starts),
+                          total_bits], dim=-1).to(torch.int32)
+
+    return main, sp2, sp1, bounds(off2, s2_sw), bounds(off1, s1_sw)
+
+
+def kmax_for(cfg: FrameConfig) -> tuple[int, int]:
+    """The static word-row spans (kmax, kmax1) of a main / sp2 chunk and of
+    an sp1 chunk (``kmax_for``, ``bitpack.py:298``): a main chunk of 128
+    quads covers 512 slots, an sp1 chunk 256, and a slot of a frame that
+    beat verbatim averages under ``obits + 3`` bits. A chunk that spans
+    more trips :func:`combined_parts`' overflow flag."""
+    ob = cfg.bps + (1 if cfg.channels == 2 else 0)
+    return (-(-(512 * (ob + 3) + 95) // 4096) + 1,
+            -(-(256 * (ob + 3) + 95) // 4096) + 1)
+
+
+def chunk_row_span(cb: torch.Tensor) -> torch.Tensor:
+    """The word rows each chunk of a ``cb2`` / ``cb1`` table can touch,
+    int64 [F, nc] (``bitpack.py:373-376``): from the row of its first bit
+    to the row of the third word of a node that ends at its last bit. Bit
+    31 of an entry is a flag, not part of the offset."""
+    bits = cb.to(torch.int64) & MASK31
+    row0 = bits[:, :-1] >> 12
+    last = (((bits[:, 1:] - 1) >> 5) + 2) >> 7
+    return torch.maximum(last, row0) - row0 + 1
+
+
+def combined_parts(lengths: torch.Tensor, leading: torch.Tensor,
+                   payload: torch.Tensor, kmax: int, kmax1: int):
+    """The combined nodes in row layout, with the static-row bookkeeping
+    (``build_combined_parts``, ``bitpack.py:312``; the total bits are the
+    sum of ``lengths``).
+
+    Returns ``(mainw, (A, B, C), sp2w, (A, B, C), sp1w, (A, B), cb2, cb1)``,
+    every node array int32 [F, nc, 128] (:func:`to_rows`), then ``overflow``
+    bool [F]: the frame has a chunk that spans more than ``kmax`` word rows,
+    or a flagged sp1 chunk that spans more than ``kmax1``, so a merge over
+    that many static rows loses words of it; then ``need2`` and ``need1``,
+    int32 scalars: the widest span of the batch's chunks (of its flagged
+    sp1 chunks), clipped to [1, kmax] and [1, kmax1]."""
+    main, sp2, sp1, cb2, cb1 = combined_nodes(lengths, leading, payload)
+    mainw, *mainr = (to_rows(v) for v in main)
+    sp2w, *sp2r = (to_rows(v) for v in sp2)
+    sp1w, *sp1r = (to_rows(v) for v in sp1)
+    span2, span1 = chunk_row_span(cb2), chunk_row_span(cb1)
+    flagged1 = cb1[:, :-1] < 0
+    overflow = (span2 > kmax).any(dim=-1) \
+        | ((span1 > kmax1) & flagged1).any(dim=-1)
+    need2 = span2.max().clamp(1, kmax).to(torch.int32)
+    need1 = torch.where(flagged1, span1, 1).max().clamp(1, kmax1) \
+        .to(torch.int32)
+    return (mainw, tuple(mainr), sp2w, tuple(sp2r), sp1w, tuple(sp1r),
+            cb2, cb1), overflow, need2, need1

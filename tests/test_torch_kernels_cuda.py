@@ -17,7 +17,9 @@ tables whose chunks span three word rows, and on a word block above
 at fb = 1, 8 and 16 and the combined-node merges ``merge_v5a`` and
 ``merge_v5b`` on the tools' ``music`` and ``noise`` batches at full frame
 width and on those random tables, where they leave K5's words or flag both
-spill sets.
+spill sets; the row-layout merges ``merge_v5d`` and ``merge_v5c`` on the
+same four at fb = 1 and 8 and at four and two static rows (the random
+tables and two rows overflow), and their zero floors.
 """
 
 import numpy as np
@@ -294,6 +296,45 @@ def test_combined_merge_kernels(dev, case):
     want = prof_merge3.merge_v5_plain(*parts[:3], cb2, cb1, wr)
     for kernel in (prof_merge3.merge_v5a, prof_merge3.merge_v5b):
         assert torch.equal(kernel(*parts[:3], cb2, cb1, wr), want)
+
+
+@pytest.mark.parametrize("kmax", [4, 2])
+@pytest.mark.parametrize("case", PROTOTYPE_CASES)
+def test_row_layout_merge_kernels(dev, case, kmax):
+    """``merge_v5d`` and ``merge_v5c`` against their plain version at every
+    fb; K5's words on the frames that do not overflow the static rows; the
+    zero floors against ``torch.zeros``."""
+    slots, wr = _prototype_slots(dev, case)
+    *rows, overflow = prof_merge3.v5d_parts(*slots, kmax, kmax - 1)
+    *dual, _ = prof_merge3.v5c_parts(*slots, kmax, kmax - 1)
+    want = prof_merge3.merge_v5_rows_plain(*rows, wr, kmax, kmax - 1)
+    zeros = torch.zeros_like(want)
+    for kernel, floor, kin in (
+            (prof_merge3.merge_v5d, prof_merge3.merge_zero_rows, rows),
+            (prof_merge3.merge_v5c, prof_merge3.merge_zero_fb, dual)):
+        for fb in (1, 8):
+            before = kernel.launches, floor.launches
+            got = kernel(*kin, wr, fb, kmax, kmax - 1)
+            nothing = floor(*kin, wr, fb)
+            assert (kernel.launches, floor.launches) \
+                == (before[0] + 1, before[1] + 1)
+            assert torch.equal(got, want), (kernel.__name__, fb)
+            assert torch.equal(nothing, zeros), (floor.__name__, fb)
+        with pytest.raises(ValueError, match="multiple"):
+            kernel(*kin, wr, 5, kmax, kmax - 1)
+        with pytest.raises(ValueError, match="w0"):
+            kernel(*(dual if kin is rows else rows), wr, 8)
+    k5 = k3.merge_aligned(*bitpack.aligned_parts(*slots), wr)
+    assert torch.equal(want[~overflow], k5[~overflow])
+    assert bool(overflow.any()) == (case.startswith("random") or kmax == 2)
+    # a spill node in an unflagged chunk must add nothing
+    cb2, cb1 = (cb & prof_merge3.MASK31 for cb in rows[6:])
+    want = prof_merge3.merge_v5_rows_plain(*rows[:6], cb2, cb1, wr, kmax,
+                                           kmax - 1)
+    assert torch.equal(prof_merge3.merge_v5d(*rows[:6], cb2, cb1, wr, 8, kmax,
+                                             kmax - 1), want)
+    assert torch.equal(prof_merge3.merge_v5c(*dual[:6], cb2, cb1, wr, 8, kmax,
+                                             kmax - 1), want)
 
 
 def test_spin_and_device_ms(dev):

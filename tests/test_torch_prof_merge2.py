@@ -46,6 +46,19 @@ CASES = {
 }
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The tools' stages are thousands of small torch calls. With a thread
+    pool as wide as the machine in every test worker, the pools' spinning
+    waits take the cores from each other, and a tool run that takes two
+    seconds alone takes minutes; the shapes here gain nothing from
+    threads."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @functools.lru_cache(maxsize=None)
 def case(name):
     """(slots, aligned parts, word rows) of one case."""

@@ -14,8 +14,6 @@ table, with unary runs of thousands of bits, flags both spill sets.
 """
 
 import functools
-import subprocess
-import sys
 import types
 
 import numpy as np
@@ -38,8 +36,8 @@ from flake_tpu_torch.ops import frame as tframe
 from flake_tpu_torch.util import prof_merge3 as tprof3
 
 from test_torch_prof_merge import _frames
-from test_torch_prof_merge2 import (CASES, FRAMES, ROOT, case,
-                                     load_jax_tool)
+from test_torch_prof_merge2 import (CASES, FRAMES, case, load_jax_tool,
+                                     one_torch_thread)  # noqa: F401
 
 LANE = 128
 U32 = 0xFFFFFFFF
@@ -285,13 +283,3 @@ def test_tool_runs_on_the_cpu(capsys):
     assert capsys.readouterr().out.strip().startswith('{"music_match": true')
     with pytest.raises(ValueError, match="multiple of 16"):
         tprof3.main(device="cpu", frames=24)
-
-
-def test_tool_refuses_the_row_layout_flags():
-    for flag in ("--v5c", "--v5d"):
-        proc = subprocess.run(
-            [sys.executable, "-m", "flake_tpu_torch.util.prof_merge3",
-             "--device", "cpu", "--frames", "16", flag],
-            capture_output=True, text=True, timeout=120,
-            cwd=ROOT)
-        assert proc.returncode != 0 and "unrecognized" in proc.stderr
