@@ -16,12 +16,18 @@ K4's inputs beside it; K5 and U1 on the aligned parts of the profiling
 tool's own level-8 batch, K5 also on the first level-5 batch and the
 level-12 8192 bucket, where its words must equal K3's. K2 is held against
 its plain version on every shape the level-12 path gives it (order 32,
-the sub-block sizes outside K4's domain and the tail), and timed beside
-K4 where K4 can sum the same shape. Every kernel's time stands beside its
+every sub-block size and the tail). Every kernel's time stands beside its
 plain version's, its bound (the least time the card could take: bytes
 over the memory rate or operations over the peak rate, whichever is
 larger) and, where one PyTorch call computes the same function, that
-call's time. U2 and U3 are held against their plain versions bit for bit
+call's time. K1 and K2 are also timed beside their first designs
+(``flake_tpu_torch/csrc/yardsticks``, built into a library of their own
+and held against the plain versions too): on the level-8 batch, K1 on
+the level-12 8192 bucket, and K2 on every order-32 shape of the level-12
+stream, where K4 is timed beside them wherever it can sum the shape (the
+table of the K2/K4 route). Rate probes from the same folder measure the
+card's 32x32->64-bit integer multiply-add and float64 FMA rates. U2 and
+U3 are held against their plain versions bit for bit
 on the ``music`` and ``noise`` batches of their tools (512 frames of 4096;
 the noise frames are verbatim, in chunks of 68 words, past the first
 window of ``merge_v2``) and on a made-up slot table with unary runs of
@@ -93,7 +99,8 @@ K1_REL_TOL = 5e-11      # tests/test_pallas_autocorr.py:55
 # Published peaks of one H100 SXM (NVIDIA's data sheet): 3.35 TB/s of HBM3;
 # 67 TFLOP/s float32 outside the tensor cores, float64 at half of it. An SM
 # has half as many int32 lanes as float32 lanes, so int32 operations peak
-# at half the float32 rate too.
+# at half the float32 rate too. The rate probes (csrc/yardsticks/rates.cu,
+# printed by every run) measure both that the sweeps and K1 are made of.
 HBM_BYTES_PER_MS = 3.35e9
 FP64_OPS_PER_MS = 33.5e9
 INT32_OPS_PER_MS = 33.5e9
@@ -190,6 +197,64 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def build_yardsticks():
+    """Build ``flake_tpu_torch/csrc/yardsticks`` (the first designs of K1
+    and K2, and the card's rate probes) into a library of their own.
+    Returns (the compiler's report, a dict of functions): ``k1_before`` and
+    ``k2_before`` take the wrappers' arguments and launch the first
+    designs; ``mad_wide`` and ``dfma`` measure the card's rate of each
+    operation, in operations a ms."""
+    import ctypes
+
+    import torch
+    from flake_tpu_torch import _build, _cuda
+
+    srcs = sorted((ROOT / "flake_tpu_torch" / "csrc" / "yardsticks")
+                  .glob("*.cu"))
+    lib_path = _build.BUILD_DIR / "libflake_yardsticks.so"
+    report = _build.build([_cuda.nvcc(), *_cuda.ARCH, "-std=c++17", "-O3",
+                           "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+                           "-shared"], srcs, lib_path)
+    lib = ctypes.CDLL(str(lib_path))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.flake_autocorr_v1.argtypes = [P, P, P, I, I, I, P]
+    lib.flake_sweep_sums_v1.argtypes = [P, P, P, P, I, I, I, I, P]
+    lib.flake_rate_mad_wide.argtypes = [P, I, I, I, P]
+    lib.flake_rate_dfma.argtypes = [P, I, I, I, P]
+
+    def call(fn, *args):
+        rc = fn(*[P(a.data_ptr()) if isinstance(a, torch.Tensor) else a
+                  for a in args],
+                P(torch.cuda.current_stream().cuda_stream))
+        if rc:
+            raise RuntimeError(f"{fn.__name__}: CUDA error {rc}")
+
+    def k1_before(x, window, max_order):
+        out = torch.empty((x.shape[0], max_order + 1), dtype=torch.float64,
+                          device=x.device)
+        call(lib.flake_autocorr_v1, x, window, out, *x.shape, max_order)
+        return out
+
+    def k2_before(x, coefs, shifts, max_order, pmax_static):
+        out = torch.empty((x.shape[0], max_order, 1 << pmax_static),
+                          dtype=torch.int64, device=x.device)
+        call(lib.flake_sweep_sums_v1, x, coefs, shifts, out, *x.shape,
+             max_order, pmax_static)
+        return out
+
+    def rate(fn, dtype):
+        """Operations a ms of ``fn`` on 8 blocks of 256 threads an SM."""
+        blocks, threads, iters = 8 * 132, 256, 256
+        out = torch.empty(blocks * threads, dtype=dtype, device="cuda")
+        ms, = time_turns(lambda: call(fn, out, blocks, threads, iters))
+        return blocks * threads * iters * 8 * 16 / ms
+
+    return report, {
+        "k1_before": k1_before, "k2_before": k2_before,
+        "mad_wide": lambda: rate(lib.flake_rate_mad_wide, torch.int64),
+        "dfma": lambda: rate(lib.flake_rate_dfma, torch.float64)}
+
+
 def time_turns(*fns, loop=(), reps: int = 20):
     """Mean ms per call of each function between two CUDA events, in turns
     (first to last, then last to first) after one warm-up call each. A
@@ -259,6 +324,19 @@ def main() -> None:
     for line in report.splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             print("  ptxas:", line.strip())
+    report, yard = build_yardsticks()
+    print("build the first designs of K1 and K2 and the rate probes "
+          "(flake_tpu_torch/csrc/yardsticks)", flush=True)
+    for line in report.splitlines():
+        if "registers" in line or "spill" in line or "Compiling" in line:
+            print("  ptxas:", line.strip())
+    rates = {"mad_wide_per_ms": yard["mad_wide"](),
+             "dfma_per_ms": yard["dfma"]()}
+    print(f"rates on {card}: {rates['mad_wide_per_ms']:.4g} 32x32->64-bit "
+          f"integer multiply-adds a ms (the bound assumes "
+          f"{INT32_OPS_PER_MS / 2:.4g}: two int32 operations each), "
+          f"{rates['dfma_per_ms']:.4g} float64 FMAs a ms (the bound assumes "
+          f"{FP64_OPS_PER_MS / 2:.4g})", flush=True)
     t0 = time.perf_counter()
     native.build()
     native.get_verifier()
@@ -338,28 +416,34 @@ def main() -> None:
 
     def phase(name, route_src, replaces, kern, plain, compare, reads, ops,
               ops_per_ms, library=None, plain_is_one_kernel=False,
-              read_bytes=None):
+              read_bytes=None, before=None):
         """Hold one kernel against its plain version, time both (and the
-        library call, where there is one) in turns, and work out its
-        bound: ``reads`` are the tensors the function must read, each
-        once, its outputs are written once, ``ops`` the operations it
-        does on these inputs at ``ops_per_ms`` peak; ``read_bytes`` stands
-        in for the size of ``reads`` where the data decides how much of
-        them is needed. The kernel and the
-        library call are timed back to back, the plain version in a plain
-        loop unless it is one kernel too."""
+        library call, where there is one, and the kernel's first design,
+        ``before``, held against the plain version too) in turns, and
+        work out its bound: ``reads`` are the tensors the function must
+        read, each once, its outputs are written once, ``ops`` the
+        operations it does on these inputs at ``ops_per_ms`` peak;
+        ``read_bytes`` stands in for the size of ``reads`` where the data
+        decides how much of them is needed. The kernel, the first design
+        and the library call are timed back to back, the plain version in
+        a plain loop unless it is one kernel too."""
+        if before is not None:
+            check(name, before, plain, compare)
         err, detail = check(name, kern, plain, compare)
         out = kern()
         moved = (nbytes(*reads) if read_bytes is None else read_bytes) \
             + nbytes(*(out if isinstance(out, tuple) else (out,)))
         bound_ms, bound_by = bound(moved, ops, ops_per_ms)
-        fns = (plain, kern) if library is None else (plain, kern, library)
+        fns = (plain, kern, *(f for f in (library, before) if f))
         plain_ms, ms, *rest = time_turns(
             *fns, loop=() if plain_is_one_kernel else (plain,))
-        library_ms = rest[0] if rest else None
+        library_ms = rest.pop(0) if library else None
+        ms_before = rest.pop(0) if before else None
         timed = {"ms": "back_to_back", "plain_ms": "back_to_back"
                  if plain_is_one_kernel else "loop"}
-        print(f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        print(f"{name}: kernel {ms:.4f} ms"
+              f"{'' if before is None else f' (first design {ms_before:.4f} ms)'}"
+              f", plain {plain_ms:.4f} ms, bound "
               f"{bound_ms:.4f} ms by {bound_by} ({moved / 1e6:.1f} MB, "
               f"{ops / 1e9:.3f} G operations), library call "
               f"{'none' if library_ms is None else f'{library_ms:.4f} ms'}, "
@@ -369,12 +453,17 @@ def main() -> None:
                         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                         "bound_by": bound_by, "library_ms": library_ms,
                         "timed": timed})
+        if before is not None:
+            kernels[-1]["ms_before"] = ms_before
 
     def sweep_ops(sx, order):
         """Operations of an order sweep: one 32x32->64-bit multiply-add per
-        sample, candidate order and tap, each counted as four int32
-        operations (a multiply and an add on two 32-bit halves)."""
-        return 4 * sx.numel() * order * (order + 1) // 2
+        sample, candidate order and tap, counted as two int32 operations
+        (a multiply and an add): the card issues it as one instruction at
+        the int32 multiply-add rate, as the rate probe shows (it reached
+        1.5e10 a ms on an H100 80GB HBM3 at 700 W, more than the 8.4e9
+        that counting it as four operations would allow)."""
+        return 2 * sx.numel() * order * (order + 1) // 2
 
     def cmp_rel(name, a, b):
         abs_err = (a - b).abs()
@@ -399,7 +488,8 @@ def main() -> None:
           lambda: lpc.autocorr(x, max_o, window), cmp_rel,
           # a window multiply per sample, a float64 multiply-add per sample
           # and lag
-          (x, window), x.numel() * (1 + 2 * (max_o + 1)), FP64_OPS_PER_MS)
+          (x, window), x.numel() * (1 + 2 * (max_o + 1)), FP64_OPS_PER_MS,
+          before=lambda: yard["k1_before"](x, window, max_o))
     kernels[-1]["max_rel_err"] = rel_err["autocorr"]
     kernels[-1]["tolerance"] = f"{K1_REL_TOL:g} relative per element"
     phase("sweep_sums", "flake_tpu_torch/csrc/sweep.cu",
@@ -407,7 +497,20 @@ def main() -> None:
           lambda: sweep_mod.sweep_sums(sx, scoefs, sshifts, s_mo, s_pmax),
           lambda: sweep_mod.sweep_sums_plain(sx, scoefs, sshifts, s_mo,
                                           s_pmax), cmp_exact,
-          (sx, scoefs, sshifts), sweep_ops(sx, s_mo), INT32_OPS_PER_MS)
+          (sx, scoefs, sshifts), sweep_ops(sx, s_mo), INT32_OPS_PER_MS,
+          before=lambda: yard["k2_before"](sx, scoefs, sshifts, s_mo, s_pmax))
+    # K4 on the same order-12 inputs, for the K2/K4 route
+    folded = sweep_mod.sweep_granules(sx, scoefs, sshifts, s_mo, s_pmax) \
+        .reshape(sx.shape[0], s_mo, 1 << s_pmax, -1).sum(-1)
+    if not torch.equal(folded, sweep_mod.sweep_sums(sx, scoefs, sshifts,
+                                                    s_mo, s_pmax)):
+        fail("K4's granules, folded, differ from K2's sums at level 8")
+    k2_ms, k4_ms = time_turns(
+        lambda: sweep_mod.sweep_sums(sx, scoefs, sshifts, s_mo, s_pmax),
+        lambda: sweep_mod.sweep_granules(sx, scoefs, sshifts, s_mo, s_pmax))
+    kernels[-1]["k4_ms_same_inputs"] = k4_ms
+    print(f"info: on K2's level-8 inputs K2 {k2_ms:.4f} ms, K4 {k4_ms:.4f} ms"
+          " (same sums folded)", flush=True)
     phase("merge_words", "flake_tpu_torch/csrc/bitmerge.cu",
           "flake_tpu/ops/pallas_bitmerge.py:173",
           lambda: k3_mod.merge_words(ml, mlead, mpay, mwr),
@@ -470,7 +573,18 @@ def main() -> None:
     ax, awin, a_mo = cap12["autocorr"][0]
     _, detail = check("autocorr", lambda: k1_mod.autocorr(ax, awin, a_mo),
                       lambda: lpc.autocorr(ax, a_mo, awin), cmp_rel)
-    print(f"K1 at {a_mo + 1} lags on x {tuple(ax.shape)}: {detail}",
+    k1_12 = dict(zip(("ms", "ms_before"), time_turns(
+        lambda: k1_mod.autocorr(ax, awin, a_mo),
+        lambda: yard["k1_before"](ax, awin, a_mo))))
+    k1_12["bound_ms"], k1_12["bound_by"] = bound(
+        nbytes(ax, awin) + ax.shape[0] * (a_mo + 1) * 8, ax.numel()
+        * (1 + 2 * (a_mo + 1)), FP64_OPS_PER_MS)
+    k1_12["shape"] = [*ax.shape, a_mo + 1]
+    next(k for k in kernels if k["name"] == "autocorr")[
+        "level12_8192"] = k1_12
+    print(f"K1 at {a_mo + 1} lags on x {tuple(ax.shape)}: {detail}; kernel "
+          f"{k1_12['ms']:.4f} ms, first design {k1_12['ms_before']:.4f} ms, "
+          f"bound {k1_12['bound_ms']:.4f} ms by {k1_12['bound_by']}",
           flush=True)
     vl, vlead, vpay, vwr = cap12["merge_words"][0]
     _, detail = check("merge_words",
@@ -792,41 +906,62 @@ def main() -> None:
           f"{ {int(k): int(v) for k, v in zip(*torch.unique(est, return_counts=True))} }",
           flush=True)
 
-    # -- 5. K2 on every shape the level-12 path gives it ---------------------
-    # the sub-block sizes outside K4's domain and the tail, at order 32 with
-    # up to 256 partitions (64 KiB of shared accumulators); where K4 can sum
-    # the same shape, both are timed on it, to measure the route on the card
-    k2_calls = capture([(frame, "sweep_sums")],
-                       lambda: Encoder(cfg12, device="cuda")
-                       .encode_stream(vpcm))["sweep_sums"]
-    k2_shapes = []
-    for cx, cc, cs, c_mo, c_pmax in k2_calls:
+    # -- 5. the sweeps on every shape the level-12 path gives them ----------
+    # order 32 at every sub-block size and the tail: K2 is held against its
+    # plain version on each, and timed beside its first design and, where
+    # K4 can sum the shape, beside K4 (whose granules, folded, must give
+    # K2's sums): the table the K2/K4 route (ops/sweep.uses_granule_kernel)
+    # was drawn from, measured again
+    calls12 = capture([(frame, "sweep_sums"), (frame, "sweep_granules")],
+                      lambda: Encoder(cfg12, device="cuda")
+                      .encode_stream(vpcm))
+    table = []
+    for cx, cc, cs, c_mo, c_pmax in sorted(
+            calls12.get("sweep_sums", []) + calls12.get("sweep_granules", []),
+            key=lambda args: tuple(args[0].shape[::-1])):
+        N, B = cx.shape
+
         def k2c(cx=cx, cc=cc, cs=cs, c_mo=c_mo, c_pmax=c_pmax):
             return sweep_mod.sweep_sums(cx, cc, cs, c_mo, c_pmax)
+
+        def k2b(cx=cx, cc=cc, cs=cs, c_mo=c_mo, c_pmax=c_pmax):
+            return yard["k2_before"](cx, cc, cs, c_mo, c_pmax)
 
         _, detail = check(
             "sweep_sums", k2c,
             lambda: sweep_mod.sweep_sums_plain(cx, cc, cs, c_mo, c_pmax),
             cmp_exact)
-        line = (f"K2 on x {tuple(cx.shape)}, order {c_mo}, pmax_static "
-                f"{c_pmax}: {detail}")
-        if sweep_mod.granule_fits(cx.shape[1], c_pmax):
+        fns = [k2c, k2b]
+        if sweep_mod.granule_fits(B, c_pmax):
             def k4c(cx=cx, cc=cc, cs=cs, c_mo=c_mo, c_pmax=c_pmax):
                 return sweep_mod.sweep_granules(cx, cc, cs, c_mo, c_pmax)
 
-            folded = k4c().reshape(cx.shape[0], c_mo, 1 << c_pmax, -1).sum(-1)
+            folded = k4c().reshape(N, c_mo, 1 << c_pmax, -1).sum(-1)
             if not torch.equal(folded, k2c()):
                 fail(f"K4 folded differs from K2 on x {tuple(cx.shape)}")
-            k2_ms, k4_ms = time_turns(k2c, k4c)
-            line += (f"; info: K4 {k4_ms:.4f} ms (granule "
-                     f"{sweep_mod.granule_size(cx.shape[1], c_pmax)}, same "
-                     f"sums folded), K2 {k2_ms:.4f} ms")
-        print(line, flush=True)
-        k2_shapes.append([*cx.shape, c_mo, c_pmax])
-    if not any(s[2] == 32 and s[3] == 8 for s in k2_shapes):
+            fns.append(k4c)
+        k2_ms, k2_before_ms, *k4 = time_turns(*fns)
+        to_k4 = sweep_mod.uses_granule_kernel(B, c_pmax, c_mo)
+        row = {"shape": [N, B], "order": c_mo, "pmax_static": c_pmax,
+               "k2_ms": k2_ms, "k2_ms_before": k2_before_ms,
+               "k4_ms": k4[0] if k4 else None,
+               "bound_ms": bound(nbytes(cx, cc, cs) + N * c_mo
+                                 * (1 << c_pmax) * 8, sweep_ops(cx, c_mo),
+                                 INT32_OPS_PER_MS)[0],
+               "routed_to": "K4" if to_k4 else "K2"}
+        table.append(row)
+        faster = "K4" if k4 and k4[0] < k2_ms else "K2"
+        print(f"level 12, x {tuple(cx.shape)}, order {c_mo}, pmax_static "
+              f"{c_pmax}: K2 {detail}, K2 {k2_ms:.4f} ms (first design "
+              f"{k2_before_ms:.4f} ms), K4 "
+              f"{f'{k4[0]:.4f} ms (granule {sweep_mod.granule_size(B, c_pmax)})' if k4 else 'cannot sum it'}"
+              f", bound {row['bound_ms']:.4f} ms; routed to {row['routed_to']}"
+              f", faster in this run: {faster}", flush=True)
+    if not any(r["order"] == 32 and r["pmax_static"] == 8
+               and r["routed_to"] == "K2" for r in table):
         fail("the level-12 path gave K2 no shape at order 32, pmax 8")
     next(k for k in kernels if k["name"] == "sweep_sums")[
-        "order32_shapes_checked"] = k2_shapes
+        "level12_shapes"] = table
 
     # -- 6. a level-12 segment through the CPU and the CUDA encoder ---------
     seg = vpcm[PARITY_WINDOW[0] * SAMPLE_RATE:PARITY_WINDOW[1] * SAMPLE_RATE]

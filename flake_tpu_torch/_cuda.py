@@ -34,8 +34,9 @@ _I = ctypes.c_int
 SIGNATURES = {
     # x, window, out, N, B, max_order
     "flake_autocorr": [_P, _P, _P, _I, _I, _I],
-    # x, coefs, shifts, out, N, B, max_order, pmax_static
-    "flake_sweep_sums": [_P, _P, _P, _P, _I, _I, _I, _I],
+    # x, coefs, shifts, out, N, B, max_order, pmax_static, then the split
+    # plan: seg, spp, ppb, blocks, bucket (ops/sweep.py: sweep_plan)
+    "flake_sweep_sums": [_P, _P, _P, _P] + [_I] * 9,
     # x, coefs, shifts, out, N, B, max_order, gs_log2
     "flake_sweep_granules": [_P, _P, _P, _P, _I, _I, _I, _I],
     # lengths, leading, payload, words, total_bits, F, M, W

@@ -353,4 +353,6 @@ class Encoder:
                 drain(inflight.pop(0))
         for item in inflight:
             drain(item)
-        return bytes(out), np.concatenate(all_lengths)
+        lengths = np.concatenate(all_lengths) if all_lengths \
+            else np.zeros(0, np.int64)
+        return bytes(out), lengths

@@ -243,7 +243,7 @@ def _lpc_search(cfg: FrameConfig, chans, obits):
     if cfg.order_method not in (P.OrderMethod.MAX, P.OrderMethod.EST):
         pmax_static = limit_max_partition_order(pmax, n, 1)
         sweep = sweep_granules if uses_granule_kernel(
-            n, cfg.bps, pmax_static, max_o) else sweep_sums      # K4 / K2
+            n, pmax_static, max_o) else sweep_sums               # K4 / K2
         sums = sweep(cN, qcoefs.contiguous(), shifts.contiguous(), max_o,
                      pmax_static)
         o_arr = torch.arange(1, max_o + 1, dtype=torch.int32, device=dev)

@@ -31,6 +31,8 @@ coefficient quantization (port of ``flake_tpu/ops/lpc.py``, lpc.c).
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -49,9 +51,11 @@ def welch_window(n: int) -> np.ndarray:
     return w
 
 
+@functools.lru_cache(maxsize=64)
 def welch_window_on(n: int, device: torch.device) -> torch.Tensor:
     """:func:`welch_window` as a float64 tensor on ``device``, copied
-    from pinned memory without blocking the host."""
+    from pinned memory without blocking the host. Built once per (n,
+    device) and shared by every caller, which must not write to it."""
     w = torch.from_numpy(welch_window(n))
     if device.type == "cuda":
         return w.pin_memory().to(device, non_blocking=True)
@@ -64,10 +68,11 @@ def autocorr(x: torch.Tensor, max_order: int,
     (lpc.c:46-71), with the reference's +2.0 bias per lag.
 
     ``x`` int32 [..., B]; ``window`` float64 [B]. Returns float64
-    [..., max_order+1]."""
+    [..., max_order+1]; a lag of B or more sums nothing (2.0), as K1
+    gives it for any B."""
     n = x.shape[-1]
     d = x.to(torch.float64) * window
-    cols = [(d[..., lag:] * d[..., :n - lag]).sum(dim=-1) + 2.0
+    cols = [(d[..., lag:] * d[..., :max(n - lag, 0)]).sum(dim=-1) + 2.0
             for lag in range(max_order + 1)]
     return torch.stack(cols, dim=-1)
 

@@ -46,13 +46,22 @@ def _rice_count(sums, cnt, ks):
     return u32(cnt * (ks + 1) + ((sums - (cnt >> 1)) >> ks))
 
 
+def _first_min(nbits: torch.Tensor):
+    """(index int32, value) of the minimum over the last axis, in one
+    reduction. The first minimum wins ties, as ``jnp.argmin`` and the
+    reference's strict < have it: ``torch.min``'s stated rule ("the
+    indices of the first minimal value are returned"), held on the CPU
+    against JAX and on the card against the CPU by the tests."""
+    best, k_opt = torch.min(nbits, dim=-1)
+    return k_opt.to(torch.int32), best
+
+
 def find_optimal_k(sums: torch.Tensor, cnt: int):
     """k = 0..30 scan (rice.c:30-45). Returns (k int32 [...], bits int64
     [...]); the first minimum wins ties, like the reference's strict <."""
     ks = torch.arange(MAX_K + 1, dtype=torch.int64, device=sums.device)
     nbits = _rice_count(sums[..., None], cnt, ks)
-    best, k_opt = torch.min(nbits, dim=-1)
-    return k_opt.to(torch.int32), best
+    return _first_min(nbits)
 
 
 def find_optimal_k_u32(sums: torch.Tensor, cnt):
@@ -68,8 +77,7 @@ def find_optimal_k_u32(sums: torch.Tensor, cnt):
         cnt32 = (cnt & U32_MASK)[..., None]
     t = (sums - cnt2)[..., None]
     nbits = u32(cnt32 * (ks + 1) + ((t >> ks) & U32_MASK))
-    best, k_opt = torch.min(nbits, dim=-1)
-    return k_opt.to(torch.int32), best
+    return _first_min(nbits)
 
 
 def _partition_sums(z: torch.Tensor, parts: int, psize: int):

@@ -39,7 +39,8 @@ def decorr_mode(left: torch.Tensor, right: torch.Tensor,
         est[..., 1] + est[..., 3],   # R+S
         est[..., 2] + est[..., 3],   # M+S
     ], dim=-1)
-    best = torch.min(score, dim=-1).indices   # first min wins, like C
+    # the first minimum wins ties, like the C scan: torch.min's stated rule
+    best = torch.min(score, dim=-1).indices
     return torch.where(best == 0, LEFT_RIGHT,
                        torch.where(best == 1, LEFT_SIDE,
                                    torch.where(best == 2, RIGHT_SIDE,

@@ -14,12 +14,16 @@ versions emit exact int64 sums, which
   sums per granule of ``min(psize, 128)`` samples.
 
 :func:`v2_supports` and :func:`v3_supports` copy the JAX package's
-predicates for its two kernels; :func:`uses_granule_kernel` sends a shape
-to K4 exactly where ``analyze_frames`` under ``use_pallas="force"`` sends
-it to the v2 kernel (``flake_tpu/ops/frame.py:413-437``).
+predicates for its two kernels, held equal to them by the tests;
+:func:`uses_granule_kernel` sends a shape to the kernel that was faster
+on the card at that shape (the TPU's choice, the v2 kernel wherever the
+v3 kernel's VMEM estimate refused a shape, is not the H100's). K2's split
+of a stream over threads and blocks is :func:`sweep_plan`.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -31,6 +35,49 @@ MAX_ORDER = 32
 MAX_PMAX = 8
 MAX_GRANULE = 128
 LANE = 128
+# the K2/K4 route (uses_granule_kernel): K4 above this order
+GRANULE_MIN_ORDER = 12
+# K2's split plan: threads a block (csrc/sweep.cu: kThreads), the segment
+# lengths it tries, longest first, and the threads a launch should reach
+# (132 SMs x 1024) before it stops shortening them
+SWEEP_THREADS = 128
+SWEEP_SEGMENTS = (32, 16, 8, 4)
+SWEEP_FILL = 132 * 1024
+SWEEP_ORDER_BUCKETS = (12, 32)    # the kernel's instantiations
+
+
+class SweepPlan(NamedTuple):
+    """How K2 splits a stream: every partition into ``spp`` segments of at
+    most ``seg`` samples, one a thread, which reads the ``bucket`` samples
+    before its segment as its halo; ``ppb`` whole partitions a block of
+    :data:`SWEEP_THREADS`; ``blocks`` blocks a stream. ``bucket`` is the
+    kernel's compile-time order, the least of
+    :data:`SWEEP_ORDER_BUCKETS` that holds ``max_order``."""
+    seg: int
+    spp: int
+    ppb: int
+    blocks: int
+    bucket: int
+
+
+def sweep_plan(N: int, B: int, max_order: int,
+               pmax_static: int) -> SweepPlan:
+    """K2's split plan for N streams of B samples in 2^pmax_static
+    partitions: the longest segment (a multiple of 4, or the whole
+    partition) that still gives N * partitions * spp threads to fill the
+    card, else the shortest; never more segments a partition than a block
+    has threads."""
+    psize, parts = B >> pmax_static, 1 << pmax_static
+    least = -(-psize // SWEEP_THREADS)
+    least = -(-least // 4) * 4
+    for longest in SWEEP_SEGMENTS:
+        seg = min(max(longest, least), psize)
+        spp = -(-psize // seg)
+        if N * parts * spp >= SWEEP_FILL:
+            break
+    ppb = SWEEP_THREADS // spp
+    bucket = next(b for b in SWEEP_ORDER_BUCKETS if b >= max_order)
+    return SweepPlan(seg, spp, ppb, -(-parts // ppb), bucket)
 
 
 def v2_supports(block_size: int, bps: int, pmax_static: int) -> bool:
@@ -72,11 +119,15 @@ def v3_supports(block_size: int, bps: int, pmax_static: int,
     return est <= 15 * 1024 * 1024
 
 
-def uses_granule_kernel(block_size: int, bps: int, pmax_static: int,
+def uses_granule_kernel(block_size: int, pmax_static: int,
                         max_order: int) -> bool:
-    """Whether the sweep of this shape goes to K4 (else K2)."""
-    return (v2_supports(block_size, bps, pmax_static)
-            and not v3_supports(block_size, bps, pmax_static, max_order))
+    """Whether the sweep of this shape goes to K4 (else K2): where K4 was
+    the faster of the two on an H100 (``PERF.md`` §6, the route table):
+    every order-32 sub-block size of the level-12 stream that K4 can sum
+    (1024, 2048, 4096 and 8192 samples). K2 was faster at order 12 and
+    below. Both give the same sums, so the route moves no byte."""
+    return max_order > GRANULE_MIN_ORDER \
+        and granule_fits(block_size, pmax_static)
 
 
 def granule_size(block_size: int, pmax_static: int) -> int:
@@ -155,7 +206,8 @@ def sweep_sums(x: torch.Tensor, coefs: torch.Tensor, shifts: torch.Tensor,
     out = torch.empty((N, max_order, 1 << pmax_static), dtype=torch.int64,
                       device=x.device)
     _cuda.launch("flake_sweep_sums", x.device, x, coefs, shifts, out, N, B,
-                 max_order, pmax_static)
+                 max_order, pmax_static,
+                 *sweep_plan(N, B, max_order, pmax_static))
     sweep_sums.launches += 1
     return out
 

@@ -9,10 +9,14 @@ so they run on a machine that has only PyTorch with CUDA:
 Shapes cover the level-8 main path, the level-11/12 sub-blocks of 4096
 and 8192 samples at order 32 with 256 partitions, and the edges: odd
 block sizes, a partition size of 253, K2 at order 32 with 256 partitions
-(more than 48 KiB of shared memory), K4 with partitions larger than its
-granule and with 300 streams, 24-bit and 32-bit content, and blocks
-under 32; K5 and the four U1 variants on encoder slots, on random slot
-tables whose chunks span three word rows, and on a word block above
+(a stream split over several blocks), K4 with partitions larger than
+its granule and with 300 streams, 24-bit and 32-bit content, and blocks
+under 32; K2 on one stream, on the level-12 buckets and at the edges of
+its order buckets, K1 at the edges of its lag buckets on blocks of 3 and
+31 samples, and two K1 calls giving the same bits; the tie rules of the
+Rice k scan and the stereo mode on equal counts; K5 and the four U1
+variants on encoder slots, on random slot tables whose chunks span three
+word rows, and on a word block above
 48 KiB of shared memory; the merge prototypes ``merge_v2`` and ``merge_v3``
 at fb = 1, 8 and 16 and the combined-node merges ``merge_v5a`` and
 ``merge_v5b`` on the tools' ``music`` and ``noise`` batches at full frame
@@ -92,6 +96,52 @@ def test_sweep_kernel(dev, B, max_order, pmax_static, bps):
     got = k2.sweep_sums(x, qc, sh, max_order, pmax_static)
     want = k2.sweep_sums_plain(x, qc, sh, max_order, pmax_static)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("N,B,max_order,pmax_static", [
+    (1, 4096, 12, 6), (1, 3072, 32, 8), (32, 3072, 32, 8),
+    (18, 5120, 32, 8), (12, 7168, 32, 8), (5, 1024, 1, 4),
+    (5, 1024, 12, 4), (5, 1024, 13, 4), (5, 1024, 32, 4),
+    (2, 8176, 32, 4)])
+def test_sweep_kernel_geometry(dev, N, B, max_order, pmax_static):
+    """K2 on one stream, on the level-12 buckets' 12-28-sample partitions
+    (a stream split over several blocks, a partition over several
+    threads), at both edges of each order bucket and on the tail."""
+    x = _tonal(N, B, 16, seed=B + N + max_order)
+    x[0] = torch.from_numpy(np.random.default_rng(N).integers(
+        -32768, 32768, B).astype(np.int32))
+    x = x.to(dev)
+    qc, sh = _coefs(x, max_order)
+    before = k2.sweep_sums.launches
+    got = k2.sweep_sums(x, qc, sh, max_order, pmax_static)
+    assert k2.sweep_sums.launches == before + 1
+    want = k2.sweep_sums_plain(x, qc, sh, max_order, pmax_static)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("B", [3, 31, 4096])
+@pytest.mark.parametrize("max_order", [12, 13, 32])
+def test_autocorr_kernel_lag_buckets(dev, B, max_order):
+    """K1 at both edges of its lag buckets, on blocks shorter than a lane's
+    group and than the lags (lags past B sum nothing)."""
+    x = _tonal(6, B, 16, seed=B + max_order).to(dev)
+    w = lpc.welch_window_on(B, dev)
+    got = k1.autocorr(x, w, max_order)
+    want = lpc.autocorr(x, max_order, w)
+    rel = ((got - want).abs() / want.abs().clamp_min(1e-300)).max().item()
+    assert rel < 5e-11
+    assert torch.equal(got[:, B:], torch.full_like(got[:, B:], 2.0))
+
+
+@pytest.mark.parametrize("N,B,max_order", [(1024, 4096, 12),
+                                           (428, 8192, 32), (3, 777, 8)])
+def test_autocorr_kernel_same_bits_twice(dev, N, B, max_order):
+    """Two calls on the same input give the same bits (no float atomics,
+    a fixed reduction order)."""
+    x = _tonal(N, B, 16, seed=N).to(dev)
+    w = lpc.welch_window_on(B, dev)
+    first = k1.autocorr(x, w, max_order)
+    assert torch.equal(first, k1.autocorr(x, w, max_order))
 
 
 @pytest.mark.parametrize("N", [2, 300])
@@ -402,6 +452,38 @@ def test_search_ties_on_the_card(dev):
                               torch.device("cpu"))
     assert torch.equal(got.cpu(), want)
     assert want[0] == 1 and want[1] == 5
+
+
+def test_ties_on_the_card(dev):
+    """The Rice k scan and the stereo mode on the card pick the index the
+    CPU picks on equal counts: the first minimum."""
+    from flake_tpu_torch.ops import rice, stereo
+
+    rng = np.random.default_rng(6)
+    nbits = torch.from_numpy(rng.integers(10, 13, (4096, 31)))
+    nbits[0] = 7
+    nbits[1, [3, 17]] = 2
+    got = rice._first_min(nbits.to(dev))
+    want = rice._first_min(nbits)
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+    assert want[0][0] == 0 and want[0][1] == 3
+    sums = torch.arange(0, 3000, dtype=torch.int64)
+    for cnt in (1, 16, 4096):
+        assert torch.equal(rice.find_optimal_k(sums.to(dev), cnt)[0].cpu(),
+                           rice.find_optimal_k(sums, cnt)[0])
+        assert torch.equal(
+            rice.find_optimal_k_u32(sums.to(dev), cnt)[0].cpu(),
+            rice.find_optimal_k_u32(sums, cnt)[0])
+    left = torch.from_numpy(rng.integers(-3000, 3000, (64, 256))
+                            .astype(np.int32))
+    right = torch.from_numpy(rng.integers(-3000, 3000, (64, 256))
+                             .astype(np.int32))
+    right[0] = left[0]
+    left[1] = right[1] = 0
+    mode = stereo.decorr_mode(left.to(dev), right.to(dev), 256)
+    assert torch.equal(mode.cpu(), stereo.decorr_mode(left, right, 256))
+    assert mode[0] == stereo.LEFT_SIDE and mode[1] == stereo.LEFT_RIGHT
 
 
 def test_encoder_cuda_matches_cpu(dev):

@@ -4,10 +4,10 @@ The port's int64 granule sums must equal the Pallas v2 sweep's 16-bit
 limb sums recombined (interpret mode) at every granule size the kernel
 emits, including a partition larger than its 128-sample granule; the
 port's copies of the two Pallas predicates must agree with the JAX
-package's; the shape alone must send the level-11/12 sub-blocks of 4096
-and 8192 samples to K4 and every other preset's shapes to K2; and
-``analyze_frames`` routed through K4 must equal ``analyze_frames_jit``
-key by key. Everything is integer, so every comparison is exact.
+package's; the shape alone must send the level-11/12 sub-blocks of 1024,
+2048, 4096 and 8192 samples to K4 and every other preset's shapes to K2;
+and ``analyze_frames`` routed through K4 must equal
+``analyze_frames_jit`` key by key. Everything is integer, so every comparison is exact.
 """
 
 import numpy as np
@@ -118,7 +118,10 @@ def test_predicates_match_jax():
 @pytest.mark.parametrize("level", [8, 9, 10, 11, 12])
 def test_route_by_shape(level):
     """Every sub-block size of a preset, at its pmax_static: K4 exactly
-    for the 4096- and 8192-sample sub-blocks of levels 11 and 12."""
+    for the order-32 sub-blocks of levels 11 and 12 that it can sum,
+    where it was faster than K2 on the card (1024, 2048, 4096 and 8192
+    samples; 3072, 5120, 6144 and 7168 stay on K2), K2 for every order-12
+    shape."""
     p = TP.set_defaults(level)
     bs = p.block_size
     sizes = [bs * k // 8 for k in range(1, 9)] if p.variable_block_size \
@@ -127,10 +130,10 @@ def test_route_by_shape(level):
     for n in sizes:
         pmax_static = trice.limit_max_partition_order(
             p.max_partition_order, n, 1)
-        if tsweep.uses_granule_kernel(n, 16, pmax_static,
+        if tsweep.uses_granule_kernel(n, pmax_static,
                                       p.max_prediction_order):
             to_k4.add(n)
-    assert to_k4 == ({4096, 8192} if level >= 11 else set())
+    assert to_k4 == ({1024, 2048, 4096, 8192} if level >= 11 else set())
 
 
 @pytest.mark.parametrize("pmax", [6, 2])
