@@ -10,23 +10,30 @@ variants of the emission-profiling tool, U2, the merge prototypes
 ``merge_zero_fb``) and its host libraries (CRC
 patcher, decoder helpers) from this checkout, and holds each kernel
 against its plain PyTorch version: K1-K3 on the inputs the first level-8
-batch gives them, K4 (and K1 at 33 lags, K3 on 8192-sample frames) on the
+batch gives them (its sweep's, which the route gives K4, for K2), K4 (and
+K1 at 33 lags, K3 on 8192-sample frames) on the
 inputs of a level-12 batch of 8192-sample sub-blocks, with K2 timed on
 K4's inputs beside it; K5 and U1 on the aligned parts of the profiling
 tool's own level-8 batch, K5 also on the first level-5 batch and the
 level-12 8192 bucket, where its words must equal K3's. K2 is held against
-its plain version on every shape the level-12 path gives it (order 32,
-every sub-block size and the tail). Every kernel's time stands beside its
+its plain version on every shape the sweeping levels give the sweeps
+(order 8 at level 7, 12 at levels 8 and 10, 32 at level 12; every
+sub-block size and the tails). Every kernel's time stands beside its
 plain version's, its bound (the least time the card could take: bytes
 over the memory rate or operations over the peak rate, whichever is
 larger) and, where one PyTorch call computes the same function, that
-call's time. K1 and K2 are also timed beside their first designs
+call's time. K1-K4 are also timed beside their first designs
 (``flake_tpu_torch/csrc/yardsticks``, built into a library of their own
-and held against the plain versions too): on the level-8 batch, K1 on
-the level-12 8192 bucket, and K2 on every order-32 shape of the level-12
-stream, where K4 is timed beside them wherever it can sum the shape (the
-table of the K2/K4 route). Rate probes from the same folder measure the
-card's 32x32->64-bit integer multiply-add and float64 FMA rates. U2 and
+and held against the plain versions too): K1-K3 on the level-8 batch, K1
+and K4 on the level-12 8192 bucket, and K2 on every order-32 shape of the
+level-12 stream, where K4 is timed beside them wherever it can sum the
+shape (the table of the K2/K4 route). K3 is timed at 128, 256 and 512
+threads a block in both its instantiations (a frame's words staged in
+shared memory, or ORed into device memory, which frames above its
+shared-memory cap take), K4 beside the same source with its order loop
+unrolled and on the integer pipes. Rate probes from the same folder
+measure the card's 32x32->64-bit and 32-bit integer multiply-add and
+float64 FMA rates. U2 and
 U3 are held against their plain versions bit for bit
 on the ``music`` and ``noise`` batches of their tools (512 frames of 4096;
 the noise frames are verbatim, in chunks of 68 words, past the first
@@ -47,26 +54,35 @@ Three-second windows must give the same bytes through
 ``Encoder(device="cuda")``: 4-7 s of the level-12 stream (steady audio
 and noise bursts, reaching both K2 and K4) and 99-102 s of the fixed-block
 stream (tones around the full-scale noise second) at levels 5, 7, 3, 2, 1
-and 0. Each fixed-block stream (levels 8, 5, 7, 3, 2, 1, 0) is encoded
-once with K1, K2 and K3 recorded, and every call they got, each 512-frame
-batch and the partial last block, is held against the plain version again
-(K1 at 13, 9 and 7 lags, K2 at orders 12 and 8, K3 on 4096- and
-1152-sample frames). Then the main paths run, each with the launch counts set to 0 just before it
+and 0, and 2 s of each stream at another width (``WIDE_STREAMS``: 24-bit
+/ 96 kHz stereo at level 8, 6-channel / 48 kHz 16-bit at level 5, and
+8-channel / 96 kHz 24-bit at level 5, whose frames' words exceed K3's
+shared-memory cap). Each fixed-block stream (levels 8, 5, 7, 3, 2, 1, 0),
+each of those and the level-12 and level-11 streams is encoded once with
+K1-K4 recorded, and every call they got, each batch and the partial last
+block, is held against the plain version again (K1 at 13, 9, 7 and 33
+lags, K2 at orders 12, 8 and 32, K3 on 1152- to 8192-sample frames and in
+both instantiations, K4 on every bucket it sums). Then the main paths run, each with the launch counts set to 0 just before it
 and read just after: the profiling tool
-(``flake_tpu_torch.util.prof_merge.main``; K1-K3, K5 and U1 must launch),
+(``flake_tpu_torch.util.prof_merge.main``; K1, K3, K4, K5 and U1 must
+launch),
 the merge-prototype tools (``prof_merge2.main`` and ``main_v3``: K5 and
 ``merge_v2``, ``merge_v3``; ``prof_merge3.main``: K5, ``merge_v5a``,
 ``merge_v5b``; ``prof_merge3.main_v5d``: K5, ``merge_v5d``,
 ``merge_zero_rows``; ``prof_merge3.main_v5c``: K5, ``merge_v5c``,
 ``merge_zero_fb``) and, through ``Encoder.encode_stream``, cold and warm,
-180 s of deterministic 16-bit / 44.1 kHz stereo at level 8 (K1-K3 must launch) and
-at level 5 (EST: K1 and K3 must launch, K2 must not), 60 s of it at level
-7 (K1-K3), 30 s at levels 3 (K1, K3) and 2, 1, 0 (block 1152, K3 only),
-and a second deterministic stream with level jumps, bursts and silences
+180 s of deterministic 16-bit / 44.1 kHz stereo at level 8 (K1-K4 must
+launch: K2 for the partial last block) and at level 5 (EST: K1 and K3
+must launch, K2 and K4 must not), 60 s of it at level 7 (K1-K4), 30 s at
+levels 3 (K1, K3) and 2, 1, 0 (block 1152, K3 only),
+a second deterministic stream with level jumps, bursts and silences
 at levels 12 and 11, whose variable block sizes must split into at least
-four sub-block sizes, 4096 and 8192 among them (K1-K4 must launch). Every
-stream is decoded with the port's independent decoder
-(``flake_tpu_torch.decoder``), MD5 included.
+four sub-block sizes, 4096 and 8192 among them (K1-K4 must launch), and
+the three streams at other widths (30 s, 30 s and 4 s; K1 and K3, and K4
+at level 8; the 8-channel stream must launch K3's device-memory
+instantiation, the others its shared one). Every stream is decoded with
+the port's independent decoder (``flake_tpu_torch.decoder``), MD5
+included, and its STREAMINFO must give its channels, bits and rate.
 
     python3 chip_smoke.py
 
@@ -95,6 +111,15 @@ FIXED_PARITY_WINDOW = (99, 102)  # of the fixed-block stream, levels 5 and 7
 # seconds of the fixed-block stream per level below 8 (level 8 takes it all)
 LEVEL_SECONDS = {5: 180, 7: 60, 3: 30, 2: 30, 1: 30, 0: 30}
 SCENE = 10              # seconds per scene of that stream
+# streams at other widths: label -> (channels, bits per sample, sample
+# rate, level, seconds). The 6-channel frames take 49,664 bytes of words,
+# above the 48 KiB that needs K3's shared-memory opt-in; the 8-channel
+# 24-bit frames take 98,816, above K3's shared-memory cap, so they take
+# its other instantiation
+WIDE_STREAMS = {"24-bit/96 kHz stereo": (2, 24, 96000, 8, 30),
+                "6-channel/48 kHz 16-bit": (6, 16, 48000, 5, 30),
+                "8-channel/96 kHz 24-bit": (8, 24, 96000, 5, 4)}
+WIDE_PARITY_SECONDS = 2  # of each, through the CPU and the CUDA encoder
 K1_REL_TOL = 5e-11      # tests/test_pallas_autocorr.py:55
 # Published peaks of one H100 SXM (NVIDIA's data sheet): 3.35 TB/s of HBM3;
 # 67 TFLOP/s float32 outside the tensor cores, float64 at half of it. An SM
@@ -164,6 +189,32 @@ def make_vbs_stream(seed: int, seconds: int) -> "np.ndarray":
     return np.clip(np.rint(pcm), -32768, 32767).astype(np.int32)
 
 
+def make_wide_stream(seed: int, channels: int, bps: int, rate: int,
+                     seconds: int) -> "np.ndarray":
+    """int32 [n, channels] at ``bps`` bits: a tone pair a channel under a
+    slow envelope with light noise, a silent half second at a quarter of
+    the stream (CONSTANT subframes) and a half second of full-scale binary
+    noise at half of it (verbatim frames)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n = seconds * rate
+    t = np.arange(n) / rate
+    top = (1 << (bps - 1)) - 1
+    env = 0.6 + 0.4 * np.sin(2 * np.pi * t / 13.0)
+    pcm = np.empty((n, channels))
+    for ch in range(channels):
+        f0 = 110.0 * (1 + 0.37 * ch)
+        pcm[:, ch] = env * top * (0.4 * np.sin(2 * np.pi * f0 * t + ch)
+                                  + 0.15 * np.sin(2 * np.pi * 2.5 * f0 * t))
+    pcm += rng.normal(0, top / 200, pcm.shape)
+    half = rate // 2
+    pcm[n // 4:n // 4 + half] = 0
+    pcm[n // 2:n // 2 + half] = rng.choice([-top - 1, top],
+                                           (min(half, n - n // 2), channels))
+    return np.clip(np.rint(pcm), -top - 1, top).astype(np.int32)
+
+
 def make_slot_table(seed: int, frames: int, slots: int):
     """A made-up slot table, int32 numpy [frames, slots] x 3 (lengths,
     leading zero bits, payload) and the word rows that hold its longest
@@ -198,11 +249,12 @@ def nbytes(*tensors) -> int:
 
 
 def build_yardsticks():
-    """Build ``flake_tpu_torch/csrc/yardsticks`` (the first designs of K1
-    and K2, and the card's rate probes) into a library of their own.
-    Returns (the compiler's report, a dict of functions): ``k1_before`` and
-    ``k2_before`` take the wrappers' arguments and launch the first
-    designs; ``mad_wide`` and ``dfma`` measure the card's rate of each
+    """Build ``flake_tpu_torch/csrc/yardsticks`` (the first designs of K1-K4,
+    and the card's rate probes) into a library of their own. Returns (the
+    compiler's report, a dict of functions): ``k1_before`` to
+    ``k4_before`` take the wrappers' arguments and launch the first
+    designs (K3's zeroes its words first, as its wrapper did);
+    ``mad_wide``, ``imad`` and ``dfma`` measure the card's rate of each
     operation, in operations a ms."""
     import ctypes
 
@@ -219,7 +271,10 @@ def build_yardsticks():
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.flake_autocorr_v1.argtypes = [P, P, P, I, I, I, P]
     lib.flake_sweep_sums_v1.argtypes = [P, P, P, P, I, I, I, I, P]
+    lib.flake_merge_words_v1.argtypes = [P, P, P, P, P, I, I, I, P]
+    lib.flake_sweep_granules_v1.argtypes = [P, P, P, P, I, I, I, I, P]
     lib.flake_rate_mad_wide.argtypes = [P, I, I, I, P]
+    lib.flake_rate_imad.argtypes = [P, I, I, I, P]
     lib.flake_rate_dfma.argtypes = [P, I, I, I, P]
 
     def call(fn, *args):
@@ -242,6 +297,26 @@ def build_yardsticks():
              max_order, pmax_static)
         return out
 
+    def k3_before(lengths, leading, payload, word_rows):
+        F, M = lengths.shape
+        words = torch.zeros((F, word_rows, 128), dtype=torch.int32,
+                            device=lengths.device)
+        total_bits = torch.empty((F,), dtype=torch.int32,
+                                 device=lengths.device)
+        call(lib.flake_merge_words_v1, lengths, leading, payload, words,
+             total_bits, F, M, word_rows * 128)
+        return words, total_bits
+
+    def k4_before(x, coefs, shifts, max_order, pmax_static):
+        from flake_tpu_torch.ops.sweep import granule_size
+
+        gs = granule_size(x.shape[1], pmax_static)
+        out = torch.empty((x.shape[0], max_order, x.shape[1] // gs),
+                          dtype=torch.int64, device=x.device)
+        call(lib.flake_sweep_granules_v1, x, coefs, shifts, out, *x.shape,
+             max_order, gs.bit_length() - 1)
+        return out
+
     def rate(fn, dtype):
         """Operations a ms of ``fn`` on 8 blocks of 256 threads an SM."""
         blocks, threads, iters = 8 * 132, 256, 256
@@ -251,7 +326,9 @@ def build_yardsticks():
 
     return report, {
         "k1_before": k1_before, "k2_before": k2_before,
+        "k3_before": k3_before, "k4_before": k4_before,
         "mad_wide": lambda: rate(lib.flake_rate_mad_wide, torch.int64),
+        "imad": lambda: rate(lib.flake_rate_imad, torch.int32),
         "dfma": lambda: rate(lib.flake_rate_dfma, torch.float64)}
 
 
@@ -331,12 +408,13 @@ def main() -> None:
         if "registers" in line or "spill" in line or "Compiling" in line:
             print("  ptxas:", line.strip())
     rates = {"mad_wide_per_ms": yard["mad_wide"](),
+             "imad_per_ms": yard["imad"](),
              "dfma_per_ms": yard["dfma"]()}
     print(f"rates on {card}: {rates['mad_wide_per_ms']:.4g} 32x32->64-bit "
-          f"integer multiply-adds a ms (the bound assumes "
-          f"{INT32_OPS_PER_MS / 2:.4g}: two int32 operations each), "
-          f"{rates['dfma_per_ms']:.4g} float64 FMAs a ms (the bound assumes "
-          f"{FP64_OPS_PER_MS / 2:.4g})", flush=True)
+          f"integer multiply-adds a ms, {rates['imad_per_ms']:.4g} 32-bit "
+          f"ones (the int32 bound assumes {INT32_OPS_PER_MS / 2:.4g}), "
+          f"{rates['dfma_per_ms']:.4g} float64 FMAs a ms (the sweeps' bound "
+          f"assumes {FP64_OPS_PER_MS / 2:.4g})", flush=True)
     t0 = time.perf_counter()
     native.build()
     native.get_verifier()
@@ -391,12 +469,15 @@ def main() -> None:
     cfg8 = stream_config(8)
     fcfg8 = frame.FrameConfig.from_params(cfg8.params, 2, 16)
     cap8 = capture(
-        [(frame, "autocorr"), (frame, "sweep_sums"), (bitpack, "merge_words")],
+        [(frame, "autocorr"), (frame, "sweep_granules"),
+         (bitpack, "merge_words")],
         lambda: analyze_and_pack(
             torch.from_numpy(pcm[:BATCH * BLOCK].reshape(BATCH, BLOCK, 2))
             .to(dev), fcfg8, np.arange(BATCH, dtype=np.int64), 0))
     x, window, max_o = cap8["autocorr"][0]
-    sx, scoefs, sshifts, s_mo, s_pmax = cap8["sweep_sums"][0]
+    # the batch's sweep goes to K4; K2 takes the same arguments and is held
+    # and timed on them, as on the shapes it keeps
+    sx, scoefs, sshifts, s_mo, s_pmax = cap8["sweep_granules"][0]
     ml, mlead, mpay, mwr = cap8["merge_words"][0]
     print(f"K1 inputs x {tuple(x.shape)}, max_order {max_o}; K2 inputs "
           f"coefs {tuple(scoefs.shape)}, pmax_static {s_pmax}; K3 inputs "
@@ -457,12 +538,13 @@ def main() -> None:
             kernels[-1]["ms_before"] = ms_before
 
     def sweep_ops(sx, order):
-        """Operations of an order sweep: one 32x32->64-bit multiply-add per
-        sample, candidate order and tap, counted as two int32 operations
-        (a multiply and an add): the card issues it as one instruction at
-        the int32 multiply-add rate, as the rate probe shows (it reached
-        1.5e10 a ms on an H100 80GB HBM3 at 700 W, more than the 8.4e9
-        that counting it as four operations would allow)."""
+        """Operations of an order sweep: one multiply-add per sample,
+        candidate order and tap, counted as one float64 FMA (two float64
+        operations): every product and partial sum of the sweep is an
+        integer below 2^51 in magnitude, so an FMA on the FP64 pipe does
+        the work exactly, and that is the least time the card can take for
+        it (K4 runs so; a 32x32->64-bit integer multiply-add runs at
+        less than half the FMA rate, as the rate probes show)."""
         return 2 * sx.numel() * order * (order + 1) // 2
 
     def cmp_rel(name, a, b):
@@ -497,7 +579,7 @@ def main() -> None:
           lambda: sweep_mod.sweep_sums(sx, scoefs, sshifts, s_mo, s_pmax),
           lambda: sweep_mod.sweep_sums_plain(sx, scoefs, sshifts, s_mo,
                                           s_pmax), cmp_exact,
-          (sx, scoefs, sshifts), sweep_ops(sx, s_mo), INT32_OPS_PER_MS,
+          (sx, scoefs, sshifts), sweep_ops(sx, s_mo), FP64_OPS_PER_MS,
           before=lambda: yard["k2_before"](sx, scoefs, sshifts, s_mo, s_pmax))
     # K4 on the same order-12 inputs, for the K2/K4 route
     folded = sweep_mod.sweep_granules(sx, scoefs, sshifts, s_mo, s_pmax) \
@@ -517,7 +599,38 @@ def main() -> None:
           lambda: k3_mod.merge_words_plain(ml, mlead, mpay, mwr), cmp_exact,
           # about 16 int32 operations per slot: the scan, the shifts and
           # masks of its two word parts, two atomics
-          (ml, mlead, mpay), 16 * ml.numel(), INT32_OPS_PER_MS)
+          (ml, mlead, mpay), 16 * ml.numel(), INT32_OPS_PER_MS,
+          before=lambda: yard["k3_before"](ml, mlead, mpay, mwr))
+
+    def k3_at(threads, shared):
+        """K3 on the level-8 batch at another block size or instantiation
+        than the wrapper's: launched here only to be timed, not counted."""
+        F, M = ml.shape
+        words = torch.empty((F, mwr, 128), dtype=torch.int32, device=dev)
+        total = torch.empty((F,), dtype=torch.int32, device=dev)
+        _cuda.launch("flake_merge_words", dev, ml, mlead, mpay, words, total,
+                     F, M, mwr * 128, threads, int(shared))
+        return words, total
+
+    k3_plain = k3_mod.merge_words_plain(ml, mlead, mpay, mwr)
+    k3_forms = [(t, sh) for t in (128, 256, 512) for sh in (True, False)]
+    for t, sh in k3_forms:
+        if not all(torch.equal(a, b) for a, b in zip(k3_at(t, sh), k3_plain)):
+            fail(f"K3 at {t} threads, shared {sh}, disagrees with its plain "
+                 "version")
+    k3_forms_ms = {f"{t} threads, {'shared memory' if sh else 'device memory'}"
+                   : ms for (t, sh), ms in zip(k3_forms, time_turns(
+                       *[lambda t=t, sh=sh: k3_at(t, sh)
+                         for t, sh in k3_forms]))}
+    kernels[-1].update(threads=k3_mod.MERGE_THREADS,
+                       shared_cap_bytes=k3_mod.MERGE_SHARED_CAP,
+                       forms_ms=k3_forms_ms)
+    print(f"K3 forms on the level-8 batch (the wrapper takes "
+          f"{k3_mod.MERGE_THREADS} threads and stages a frame's words in "
+          f"shared memory up to {k3_mod.MERGE_SHARED_CAP} bytes, "
+          f"{mwr * 512} here), each bit-exact: "
+          f"{ {k: round(v, 4) for k, v in k3_forms_ms.items()} } ms",
+          flush=True)
 
     # -- 4. K4 on a level-12 batch of 8192-sample sub-blocks ----------------
     vpcm = make_vbs_stream(SEED + 12, VBS_SECONDS)
@@ -556,11 +669,35 @@ def main() -> None:
     def k2_run():
         return sweep_mod.sweep_sums(gx, gcoefs, gshifts, g_mo, g_pmax)
 
+    def k4_form(form):
+        """K4 in another form of its source (csrc/sweep_granules.cu:
+        ``flake_sweep_granules_form``), launched only to be timed."""
+        gs = sweep_mod.granule_size(gx.shape[1], g_pmax)
+        out = torch.empty((gx.shape[0], g_mo, gx.shape[1] // gs),
+                          dtype=torch.int64, device=dev)
+        _cuda.launch("flake_sweep_granules_form", dev, form, gx, gcoefs,
+                     gshifts, out, *gx.shape, g_mo, gs.bit_length() - 1)
+        return out
+
     phase("sweep_granules", "flake_tpu_torch/csrc/sweep_granules.cu",
           "flake_tpu/ops/pallas_sweep.py:147", k4_run,
           lambda: sweep_mod.sweep_granules_plain(gx, gcoefs, gshifts, g_mo,
                                               g_pmax), cmp_exact,
-          (gx, gcoefs, gshifts), sweep_ops(gx, g_mo), INT32_OPS_PER_MS)
+          (gx, gcoefs, gshifts), sweep_ops(gx, g_mo), FP64_OPS_PER_MS,
+          before=lambda: yard["k4_before"](gx, gcoefs, gshifts, g_mo, g_pmax))
+    k4_forms = {1: "integer pipes", 2: "FP64 pipe, order loop unrolled",
+                3: "integer pipes, order loop unrolled"}
+    for form, what in k4_forms.items():
+        if not torch.equal(k4_form(form), k4_run()):
+            fail(f"K4 on the {what} differs from K4")
+    k4_ms, *forms_ms = time_turns(
+        k4_run, *[lambda form=form: k4_form(form) for form in k4_forms])
+    kernels[-1].update(ms_beside_forms=k4_ms, forms_ms={
+        what: ms for what, ms in zip(k4_forms.values(), forms_ms)})
+    print(f"info: K4 {k4_ms:.4f} ms (FP64 pipe, order loop rolled); its "
+          f"other forms, the same sums: "
+          f"{ {w: round(m, 4) for w, m in zip(k4_forms.values(), forms_ms)} }"
+          " ms", flush=True)
     folded = k4_run().reshape(gx.shape[0], g_mo, 1 << g_pmax, -1).sum(-1)
     if not torch.equal(folded, k2_run()):
         fail("K4's granules, folded to partitions, differ from K2's sums")
@@ -907,18 +1044,27 @@ def main() -> None:
           flush=True)
 
     # -- 5. the sweeps on every shape the level-12 path gives them ----------
-    # order 32 at every sub-block size and the tail: K2 is held against its
-    # plain version on each, and timed beside its first design and, where
-    # K4 can sum the shape, beside K4 (whose granules, folded, must give
-    # K2's sums): the table the K2/K4 route (ops/sweep.uses_granule_kernel)
-    # was drawn from, measured again
-    calls12 = capture([(frame, "sweep_sums"), (frame, "sweep_granules")],
-                      lambda: Encoder(cfg12, device="cuda")
-                      .encode_stream(vpcm))
+    # every shape the sweeping levels give them: order 8 at level 7 and
+    # order 12 at level 8 (their first 60 s), order 12 at every sub-block
+    # size of level 10 and order 32 at every one of level 12, tails
+    # included. K2 is held against its plain version on each, and timed
+    # beside its first design and, where K4 can sum the shape, beside K4
+    # (whose granules, folded, must give K2's sums): the table the K2/K4
+    # route (ops/sweep.uses_granule_kernel) was drawn from, measured again
+    route_calls = {}
+    for level, stream in ((7, pcm[:60 * SAMPLE_RATE]),
+                          (8, pcm[:60 * SAMPLE_RATE]), (10, vpcm),
+                          (12, vpcm)):
+        got = capture([(frame, "sweep_sums"), (frame, "sweep_granules")],
+                      lambda: Encoder(stream_config(level), device="cuda")
+                      .encode_stream(stream))
+        for args in got.get("sweep_sums", []) + got.get("sweep_granules",
+                                                         []):
+            route_calls.setdefault((level, tuple(args[0].shape[::-1]),
+                                    args[3], args[4]), args)
     table = []
-    for cx, cc, cs, c_mo, c_pmax in sorted(
-            calls12.get("sweep_sums", []) + calls12.get("sweep_granules", []),
-            key=lambda args: tuple(args[0].shape[::-1])):
+    for (level, *_), (cx, cc, cs, c_mo, c_pmax) in sorted(
+            route_calls.items(), key=lambda item: item[0]):
         N, B = cx.shape
 
         def k2c(cx=cx, cc=cc, cs=cs, c_mo=c_mo, c_pmax=c_pmax):
@@ -941,17 +1087,18 @@ def main() -> None:
                 fail(f"K4 folded differs from K2 on x {tuple(cx.shape)}")
             fns.append(k4c)
         k2_ms, k2_before_ms, *k4 = time_turns(*fns)
-        to_k4 = sweep_mod.uses_granule_kernel(B, c_pmax, c_mo)
-        row = {"shape": [N, B], "order": c_mo, "pmax_static": c_pmax,
+        to_k4 = sweep_mod.uses_granule_kernel(B, c_pmax)
+        row = {"level": level, "shape": [N, B], "order": c_mo,
+               "pmax_static": c_pmax,
                "k2_ms": k2_ms, "k2_ms_before": k2_before_ms,
                "k4_ms": k4[0] if k4 else None,
                "bound_ms": bound(nbytes(cx, cc, cs) + N * c_mo
                                  * (1 << c_pmax) * 8, sweep_ops(cx, c_mo),
-                                 INT32_OPS_PER_MS)[0],
+                                 FP64_OPS_PER_MS)[0],
                "routed_to": "K4" if to_k4 else "K2"}
         table.append(row)
         faster = "K4" if k4 and k4[0] < k2_ms else "K2"
-        print(f"level 12, x {tuple(cx.shape)}, order {c_mo}, pmax_static "
+        print(f"level {level}, x {tuple(cx.shape)}, order {c_mo}, pmax_static "
               f"{c_pmax}: K2 {detail}, K2 {k2_ms:.4f} ms (first design "
               f"{k2_before_ms:.4f} ms), K4 "
               f"{f'{k4[0]:.4f} ms (granule {sweep_mod.granule_size(B, c_pmax)})' if k4 else 'cannot sum it'}"
@@ -994,13 +1141,36 @@ def main() -> None:
         if on_card != on_host:
             fail(f"the CPU and CUDA encoders disagree at level {level}")
 
+    def wide_config(label):
+        channels, bps, rate, level, _ = WIDE_STREAMS[label]
+        return P.StreamConfig(channels=channels, sample_rate=rate,
+                              bits_per_sample=bps,
+                              params=P.set_defaults(level))
+
+    wide = {label: make_wide_stream(SEED + 24 + i, channels, bps, rate, secs)
+            for i, (label, (channels, bps, rate, _, secs))
+            in enumerate(WIDE_STREAMS.items())}
+    for label, stream in wide.items():
+        cfg = wide_config(label)
+        mid, half = stream.shape[0] // 2, cfg.sample_rate \
+            * WIDE_PARITY_SECONDS // 2
+        wseg = stream[mid - half:mid + half]    # tones, then the noise
+        on_card = Encoder(cfg, device="cuda").encode_stream(wseg)
+        on_host = Encoder(cfg, device="cpu").encode_stream(wseg)
+        print(f"parity: {WIDE_PARITY_SECONDS} s of the {label} stream at "
+              f"level {WIDE_STREAMS[label][3]}, {len(on_card)} bytes, equal "
+              f"{on_card == on_host}", flush=True)
+        if on_card != on_host:
+            fail(f"the CPU and CUDA encoders disagree on the {label} stream")
+
     # -- 6b. K1-K3 on every call of the fixed-block levels' main paths -------
     # levels 0-7: EST needs no sweep, the FIXED levels no autocorrelation
     # either; every stream here ends in a partial block
     k123 = ("autocorr", "sweep_sums", "merge_words")
+    k1234 = k123 + ("sweep_granules",)   # K2 for the partial last block
     sweeps = ("sweep_sums", "sweep_granules")
     low_levels = ((5, ("autocorr", "merge_words"), sweeps),
-                  (7, k123, ("sweep_granules",)),
+                  (7, k1234, ()),
                   (3, ("autocorr", "merge_words"), sweeps),
                   (2, ("merge_words",), ("autocorr",) + sweeps),
                   (1, ("merge_words",), ("autocorr",) + sweeps),
@@ -1018,35 +1188,54 @@ def main() -> None:
             "sweep_sums": (sweep_mod.sweep_sums, sweep_mod.sweep_sums_plain,
                            cmp_exact),
             "merge_words": (k3_mod.merge_words, k3_mod.merge_words_plain,
-                            cmp_exact)}
-    for level, needs, _ in ((8, k123, ()),) + low_levels:
+                            cmp_exact),
+            "sweep_granules": (sweep_mod.sweep_granules,
+                               sweep_mod.sweep_granules_plain, cmp_exact)}
+    needs_of_level = {8: ("autocorr", "sweep_granules", "merge_words"),
+                      5: ("autocorr", "merge_words")}
+    held_paths = [(f"level {level}", stream_config(level),
+                   level_stream(level), needs)
+                  for level, needs, _ in ((8, k1234, ()),) + low_levels] \
+        + [(label, wide_config(label), stream,
+            needs_of_level[WIDE_STREAMS[label][3]])
+           for label, stream in wide.items()] \
+        + [(f"level {level}", stream_config(level), vpcm, k1234)
+           for level in (12, 11)]
+    k3_forms_held = set()
+    for label, cfg, stream, needs in held_paths:
         calls = capture(
             [(frame, "autocorr"), (frame, "sweep_sums"),
-             (bitpack, "merge_words")],
-            lambda: Encoder(stream_config(level), device="cuda")
-            .encode_stream(level_stream(level)))
+             (frame, "sweep_granules"), (bitpack, "merge_words")],
+            lambda: Encoder(cfg, device="cuda").encode_stream(stream))
         if set(calls) != set(needs):
-            fail(f"level {level} called {sorted(calls)}, expected "
+            fail(f"{label} called {sorted(calls)}, expected "
                  f"{sorted(needs)}")
         for name, args_of_calls in calls.items():
             kern, plain, compare = held[name]
             worst = 0.0
             for args in args_of_calls:
-                err, _ = check(f"{name} at level {level}",
+                err, _ = check(f"{name} on {label}",
                                lambda: kern(*args), lambda: plain(*args),
                                compare)
-                worst = max(worst, rel_err.pop(f"{name} at level {level}",
-                                               err))
+                worst = max(worst, rel_err.pop(f"{name} on {label}", err))
             shapes = sorted({tuple(args[0].shape) for args in args_of_calls})
             what = (f", {args_of_calls[0][2] + 1} lags" if name == "autocorr"
                     else f", order {args_of_calls[0][3]}"
-                    if name == "sweep_sums" else "")
+                    if name in sweeps else "")
+            if name == "merge_words":
+                forms = {"shared" if k3_mod.merge_in_shared(args[3])
+                         else "global" for args in args_of_calls}
+                k3_forms_held |= forms
+                what = (f", word rows {sorted({a[3] for a in args_of_calls})}"
+                        f", K3 instantiations {sorted(forms)}")
             how = (f"max rel err {worst:.3e} (tolerance {K1_REL_TOL:g})"
                    if compare is cmp_rel else "bit-exact")
-            print(f"level {level}: {name} on {len(args_of_calls)} calls, "
+            print(f"{label}: {name} on {len(args_of_calls)} calls, "
                   f"first-argument shapes {shapes}{what}: {how} against the "
                   "plain version", flush=True)
         del calls
+    if k3_forms_held != {"shared", "global"}:
+        fail(f"K3 was held on the streams in {sorted(k3_forms_held)} only")
 
     # -- 7. the main paths through Encoder.encode_stream ---------------------
     counted = {"autocorr": k1_mod.autocorr, "sweep_sums": sweep_mod.sweep_sums,
@@ -1063,15 +1252,19 @@ def main() -> None:
                "prof_merge_zero_fb": tool3.merge_zero_fb,
                "prof_merge_zero_rows": tool3.merge_zero_rows}
     launched = {name: {} for name in counted}   # name -> {path: count}
+    k3_launched_by = {}     # path -> K3's launches by instantiation
 
     def count_launches(label, run, needs, never=()):
         """Run one main path with every count set to 0 just before it and
         read just after; ``needs`` must have launched, ``never`` not."""
         for fn in counted.values():
             fn.launches = 0
+        k3_mod.merge_words.launches_by = {"shared": 0, "global": 0}
         result = run()
         torch.cuda.synchronize()
         counts = {name: fn.launches for name, fn in counted.items()}
+        if counts["merge_words"]:
+            k3_launched_by[label] = dict(k3_mod.merge_words.launches_by)
         print(f"{label}: launches { {k: v for k, v in counts.items() if v} }",
               flush=True)
         missing = [name for name in needs if counts[name] < 1]
@@ -1091,7 +1284,7 @@ def main() -> None:
     # one or two passes of 20, by how the stage is timed)
     res = count_launches(
         "profiling tool", lambda: tool.main(device="cuda"),
-        k123 + ("merge_aligned",)
+        ("autocorr", "sweep_granules", "merge_words", "merge_aligned")
         + tuple(f"prof_merge_{name}" for name in tool.VARIANTS))
     if not res["static2_matches"] or (res["F"], res["nc"], res["wr"]) \
             != (tF, nc, twr):
@@ -1099,7 +1292,7 @@ def main() -> None:
     # the merge-prototype tools: U2's and U3's main paths. Their match keys
     # must hold on both batches: the widest noise chunk stays inside
     # merge_v2's 256 words and merge_v3's four rows
-    analysis_k5 = ("autocorr", "sweep_sums", "merge_aligned")
+    analysis_k5 = ("autocorr", "sweep_granules", "merge_aligned")
     for label, run, needs in (
             ("prototype tool v2", tool2.main, ("prof_merge_v2",)),
             ("prototype tool v3", tool2.main_v3, ("prof_merge_v3",)),
@@ -1122,6 +1315,7 @@ def main() -> None:
         """One main path through the encoder, cold then warm; the counts
         are those of the cold run."""
         torch.cuda.reset_peak_memory_stats(dev)
+        rate, pcm_bytes = cfg.sample_rate, stream.size * cfg.bits_per_sample / 8
         enc = Encoder(cfg, device="cuda")
         t0 = time.perf_counter()
         blob = count_launches(label, lambda: enc.encode_stream(stream),
@@ -1138,11 +1332,11 @@ def main() -> None:
         warm = time.perf_counter() - t0
         if blob2 != blob:
             fail(f"{label}: the warm run's bytes differ from the cold run's")
-        secs = stream.shape[0] / SAMPLE_RATE
+        secs = stream.shape[0] / rate
         print(f"encode {secs:g} s {label} on {card}: cold {cold:.3f} s "
               f"({secs / cold:.1f}x realtime), warm {warm:.3f} s "
               f"({secs / warm:.1f}x realtime); {len(blob)} bytes "
-              f"({len(blob) / (stream.shape[0] * 4):.4f} of 16-bit PCM); "
+              f"({len(blob) / pcm_bytes:.4f} of the PCM bytes); "
               f"peak device memory {peak / 2**20:.0f} MiB; warm stats "
               f"{ {k: round(v, 4) for k, v in enc2.stats.items()} }",
               flush=True)
@@ -1158,7 +1352,7 @@ def main() -> None:
               f"({time.perf_counter() - t0:.1f} s)", flush=True)
         return dec
 
-    dec8 = drive("level 8", cfg8, pcm, k123)
+    dec8 = drive("level 8", cfg8, pcm, k1234)
     if dec8.streaminfo.min_block_size != BLOCK:
         fail("level 8: STREAMINFO min block is not the block size")
     # the silent and noise seconds take the CONSTANT and VERBATIM branches
@@ -1186,15 +1380,35 @@ def main() -> None:
             fail(f"level {level}: STREAMINFO min block is not the block size")
 
     for level in (12, 11):
-        dec = drive(f"level {level}", stream_config(level), vpcm,
-                    k123 + ("sweep_granules",))
+        dec = drive(f"level {level}", stream_config(level), vpcm, k1234)
         if dec.streaminfo.min_block_size != 16:
             fail(f"level {level}: STREAMINFO min block is not 16")
+
+    for label, stream in wide.items():
+        cfg = wide_config(label)
+        dec = drive(label, cfg, stream, needs_of_level[WIDE_STREAMS[label][3]])
+        info = dec.streaminfo
+        if (info.channels, info.bits_per_sample, info.sample_rate) != (
+                cfg.channels, cfg.bits_per_sample, cfg.sample_rate):
+            fail(f"{label}: STREAMINFO says {info}")
+        form = "shared" if k3_mod.merge_in_shared(bitpack.word_rows(
+            frame.FrameConfig.from_params(cfg.params, cfg.channels,
+                                          cfg.bits_per_sample))) else "global"
+        if not k3_launched_by[label][form]:
+            fail(f"{label}: K3's {form} instantiation never launched")
+    if not all(sum(by[form] for by in k3_launched_by.values())
+               for form in ("shared", "global")):
+        fail(f"the main paths did not launch both K3 instantiations: "
+             f"{k3_launched_by}")
 
     # -- 8. results -----------------------------------------------------------
     for k in kernels:
         k["launches"] = sum(launched[k["name"]].values())
         k["launches_by_path"] = launched[k["name"]]
+    next(k for k in kernels if k["name"] == "merge_words")[
+        "launches_by_instantiation"] = {
+            form: {path: by[form] for path, by in k3_launched_by.items()
+                   if by[form]} for form in ("shared", "global")}
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,36 +10,56 @@
 // TPU kernel split samples and coefficients into 16-bit and 8-bit limbs,
 // kept per-stream scalars in SMEM, built lag views from lane and sublane
 // rolls and summed granules with an f32 one-hot matmul, all because the
-// TPU has no int64 and a 128-lane layout. Here every product is one
-// 32x32 -> 64-bit multiply-add and the sums are exact int64.
+// TPU has no int64 and a 128-lane layout.
 //
-// What bounds it on the card: at order 32 every sample costs 528 64-bit
-// multiply-adds against 4 bytes read, so it is bound by the integer pipes.
-// The shapes that reach it (levels 11-12: B = 4096 or 8192, order 32,
-// 256 partitions) come a few dozen streams per launch, which one block
-// per stream (K2) spreads over too few of the 132 SMs, and K2's shared
-// accumulators grow to 64 KiB there. Design: the grid tiles (stream,
-// 1024-sample tile); each block stages its tile with a 32-sample halo
-// from the previous tile (zero at the stream start) and the stream's
-// coefficients in shared memory. A thread takes 4 consecutive samples and
-// holds their 36-sample window in registers, so each coefficient read
-// from shared memory feeds 4 multiply-adds; the order and tap loops are
-// unrolled at compile time up to 32 and skip the orders beyond
-// max_order. A granule is gs / 4 neighbouring lanes of one warp (gs a
-// power of two from 4 to 128), summed with xor shuffles; its first lane
-// stores the sum. A tile holds whole granules, so every output has one
-// writer: plain stores, no atomics, and sums that do not depend on
-// scheduling.
+// What bounds it on the card: at order 32 every sample costs 528
+// products against 4 bytes read, so the multiply pipes, not memory. A
+// 32x32 -> 64-bit integer multiply-add (mad.wide) runs on this card at
+// about 0.4 of the int32 multiply-add rate (csrc/yardsticks/rates.cu),
+// but every product and partial sum here is an integer below 2^51 in
+// magnitude (coefficients below 2^14, samples below 2^31, at most 32
+// taps), so a float64 FMA computes it exactly, at the full FP64 rate. The
+// kernel runs its products on the FP64 pipe; the form on the integer
+// pipes (one mad.wide a product) is built beside it, as is either with
+// its order loop unrolled, only to be timed (chip_smoke.py).
+//
+// Design: the grid tiles (stream, 1024-sample tile); each block stages
+// its tile with a 32-sample halo from the previous tile (zero at the
+// stream start) and the stream's coefficients in shared memory. A thread
+// takes 8 consecutive samples and holds their 40-sample window in
+// registers; each coefficient is a shared broadcast that feeds 8
+// products. The order loop steps four orders at a time, whose residues
+// 1-4 are compile-time: an order's first taps, as many as its residue,
+// then whole chunks of four that a uniform branch skips past the order,
+// so no product is padded (chunks from tap 0 padded to fours cost 9% more
+// products). Above order 12 the loop is not unrolled further, which
+// keeps the body in the instruction cache; up to order 12 it is. The epilogue is 32-bit: only the low 32 bits of pred count after
+// the wrap, and for 0 <= shift <= 15 (ops/lpc.py: quantize_lpc_coefs
+// clamps it there) they are one funnel shift of the sum's two halves; on
+// the FP64 form the sums start at 1.5 * 2^52, so their halves are the
+// bits of the sum plus 2^51 in the mantissa, an offset that the shift
+// moves past bit 31. The zigzag runs in 32 bits, and only the sums widen to 64. A
+// thread sums its samples 0-3 and 4-7 apart, which are granules of their
+// own when gs is 4; larger granules are gs / 8 neighbouring lanes of one
+// warp, summed with xor shuffles, whose first lane stores the sum. A tile
+// holds whole granules, so every output has one writer: plain stores, no
+// atomics, and sums that do not depend on scheduling.
 
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kPer = 4;                     // consecutive samples a thread
+constexpr int kThreads = 128;
+constexpr int kPer = 8;                     // consecutive samples a thread
 constexpr int kTile = kThreads * kPer;      // samples per block
 constexpr int kMaxOrder = 32;
 constexpr int kWin = kMaxOrder + kPer;      // a thread's register window
+// up to this order the unrolled order loop is the faster (chip_smoke.py
+// times both): its few iterations stay in the instruction cache and know
+// their chunk counts at compile time
+constexpr int kUnrollUpTo = 12;
 
 // acc + (int64)a * b in one instruction
 __device__ __forceinline__ long long mad_wide(int a, int b, long long acc) {
@@ -48,13 +68,92 @@ __device__ __forceinline__ long long mad_wide(int a, int b, long long acc) {
   return d;
 }
 
+// the low 32 bits of (sum of c[o-1][j] * x[i-1-j]) >> s for this thread's
+// 8 samples, order o = 4m + R: taps 0..R-1 first, then m chunks of four,
+// so every tap the order has is computed and no other; w is the integer
+// window, wd its float64 copy on the FP64 form
+template <bool kFp64, int R>
+__device__ __forceinline__ void predictions(
+    int m, const int (&w)[kWin], const double (&wd)[kWin],
+    const void* __restrict__ c, int s, unsigned (&pred)[kPer]) {
+  const int o = 4 * m + R;
+  if constexpr (kFp64) {
+    const double* co = static_cast<const double*>(c) + (o - 1) * kMaxOrder;
+    // each sum starts at 1.5 * 2^52: every partial sum S is an integer
+    // with |S| < 2^51, so 1.5 * 2^52 + S lies where doubles are the
+    // integers, each fma is exact, and the sum's bits are S + 2^51 in the
+    // mantissa
+    double a[kPer];
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) a[k] = 6755399441055744.0;
+#pragma unroll
+    for (int t = 0; t < R; ++t) {
+      const double cv = co[t];
+#pragma unroll
+      for (int k = 0; k < kPer; ++k)
+        a[k] = fma(cv, wd[kMaxOrder + k - 1 - t], a[k]);
+    }
+#pragma unroll
+    for (int q = 0; q < (kMaxOrder - R) / 4; ++q) {
+      if (q < m) {                            // uniform over the block
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          const int j = R + 4 * q + t;
+          const double cv = co[j];
+#pragma unroll
+          for (int k = 0; k < kPer; ++k)
+            a[k] = fma(cv, wd[kMaxOrder + k - 1 - j], a[k]);
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kPer; ++k)
+      pred[k] = __funnelshift_r(static_cast<unsigned>(__double2loint(a[k])),
+                                static_cast<unsigned>(__double2hiint(a[k])),
+                                s);
+  } else {
+    const int* co = static_cast<const int*>(c) + (o - 1) * kMaxOrder;
+    long long a[kPer];
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) a[k] = 0;
+#pragma unroll
+    for (int t = 0; t < R; ++t) {
+      const int cv = co[t];
+#pragma unroll
+      for (int k = 0; k < kPer; ++k)
+        a[k] = mad_wide(cv, w[kMaxOrder + k - 1 - t], a[k]);
+    }
+#pragma unroll
+    for (int q = 0; q < (kMaxOrder - R) / 4; ++q) {
+      if (q < m) {                            // uniform over the block
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          const int j = R + 4 * q + t;
+          const int cv = co[j];
+#pragma unroll
+          for (int k = 0; k < kPer; ++k)
+            a[k] = mad_wide(cv, w[kMaxOrder + k - 1 - j], a[k]);
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kPer; ++k)
+      pred[k] = __funnelshift_r(
+          static_cast<unsigned>(a[k]),
+          static_cast<unsigned>(static_cast<unsigned long long>(a[k]) >> 32),
+          s);
+  }
+}
+
+template <bool kFp64, bool kUnrollOrders>
 __global__ void __launch_bounds__(kThreads)
 granule_kernel(const int* __restrict__ x, const int* __restrict__ coefs,
                const int* __restrict__ shifts,
                unsigned long long* __restrict__ out, int B, int max_order,
                int gs_log2) {
-  __shared__ int xs[kMaxOrder + kTile];             // halo, then the tile
-  __shared__ __align__(16) int c[kMaxOrder * kMaxOrder];  // [order-1][tap]
+  using Coef = std::conditional_t<kFp64, double, int>;
+  __shared__ __align__(16) int xs[kMaxOrder + kTile];    // halo, then tile
+  __shared__ __align__(16) Coef c[kMaxOrder * kMaxOrder];  // [order-1][tap]
   __shared__ int sh[kMaxOrder];
 
   const size_t n = blockIdx.y;
@@ -73,67 +172,134 @@ granule_kernel(const int* __restrict__ x, const int* __restrict__ coefs,
   }
   __syncthreads();
 
-  // w[k] = x[i0 - kMaxOrder + k]: the 32 samples before i0, then i0..i0+3
+  // w[k] = x[i0 - kMaxOrder + k]: the 32 samples before i0, then i0..i0+7
   const int li = threadIdx.x * kPer;
   const int i0 = t0 + li;
   int w[kWin];
+  double wd[kWin];
 #pragma unroll
-  for (int k = 0; k < kWin; ++k) w[k] = xs[li + k];
+  for (int k = 0; k < kWin; k += 4) {
+    const int4 q = *reinterpret_cast<const int4*>(xs + li + k);
+    w[k] = q.x;
+    w[k + 1] = q.y;
+    w[k + 2] = q.z;
+    w[k + 3] = q.w;
+  }
+  if constexpr (kFp64) {
+#pragma unroll
+    for (int k = 0; k < kWin; ++k) wd[k] = w[k];
+  }
 
-  const int lanes = (1 << gs_log2) / kPer;    // lanes per granule, 1..32
+  const bool warm = i0 < kMaxOrder;
   const int lane = threadIdx.x & 31;
-  const bool head = i0 < B && (lane & (lanes - 1)) == 0;
   const int G = B >> gs_log2;
   unsigned long long* dst = out + n * max_order * G + (i0 >> gs_log2);
+  // gs 4: two granules a thread; else gs / 8 lanes a granule, 1..16
+  const int lanes = gs_log2 == 2 ? 1 : 1 << (gs_log2 - 3);
+  const bool head = i0 < B && (lane & (lanes - 1)) == 0;
 
+  // order 4m + R, R a compile-time 1..4
+  auto one_order = [&](auto residue, int m) {
+    constexpr int R = decltype(residue)::value;
+    const int o = 4 * m + R;
+    unsigned pred[kPer];
+    predictions<kFp64, R>(m, w, wd, c, sh[o - 1], pred);
+    unsigned z[kPer];
 #pragma unroll
-  for (int o = 1; o <= kMaxOrder; ++o) {
-    if (o <= max_order) {                     // uniform over the block
-      const int* co = c + (o - 1) * kMaxOrder;
-      long long a[kPer];
+    for (int k = 0; k < kPer; ++k) {
+      const int r = static_cast<int>(static_cast<unsigned>(w[kMaxOrder + k])
+                                     - pred[k]);
+      z[k] = (static_cast<unsigned>(r) << 1) ^ static_cast<unsigned>(r >> 31);
+    }
+    if (warm) {                               // the stream's first samples
 #pragma unroll
-      for (int k = 0; k < kPer; ++k) a[k] = 0;
+      for (int k = 0; k < kPer; ++k)
+        if (i0 + k < o) z[k] = 0;
+    }
+    unsigned long long* d = dst + static_cast<size_t>(o - 1) * G;
+    if (gs_log2 == 2) {                       // uniform over the launch
+      unsigned long long v0 = 0, v1 = 0;
 #pragma unroll
-      for (int j = 0; j < o; ++j) {
-        const int cj = co[j];
-#pragma unroll
-        for (int k = 0; k < kPer; ++k)
-          a[k] = mad_wide(cj, w[kMaxOrder + k - 1 - j], a[k]);
+      for (int k = 0; k < kPer / 2; ++k) {
+        v0 += z[k];
+        v1 += z[k + kPer / 2];
       }
-      const int s = sh[o - 1];
+      if (i0 < B) d[0] = v0;
+      if (i0 + kPer / 2 < B) d[1] = v1;
+    } else {
       unsigned long long v = 0;
 #pragma unroll
-      for (int k = 0; k < kPer; ++k) {
-        const long long pred = a[k] >> s;
-        const int r = static_cast<int>(static_cast<unsigned>(
-            static_cast<unsigned long long>(w[kMaxOrder + k] - pred)));
-        const unsigned z = (static_cast<unsigned>(r) << 1)
-                           ^ static_cast<unsigned>(r >> 31);
-        if (i0 + k >= o) v += z;              // warm-up samples excluded
-      }
-      // granule sum over its aligned group of lanes (a power of two)
+      for (int k = 0; k < kPer; ++k) v += z[k];
       for (int off = 1; off < lanes; off <<= 1)
         v += __shfl_xor_sync(0xffffffffu, v, off);
-      if (head) dst[static_cast<size_t>(o - 1) * G] = v;
+      if (head) d[0] = v;
     }
+  };
+  auto four_orders = [&](int m) {             // orders 4m + 1 .. 4m + 4
+    one_order(std::integral_constant<int, 1>{}, m);
+    if (4 * m + 2 <= max_order) one_order(std::integral_constant<int, 2>{}, m);
+    if (4 * m + 3 <= max_order) one_order(std::integral_constant<int, 3>{}, m);
+    if (4 * m + 4 <= max_order) one_order(std::integral_constant<int, 4>{}, m);
+  };
+  if constexpr (kUnrollOrders) {
+#pragma unroll
+    for (int m = 0; m < kMaxOrder / 4; ++m)
+      if (4 * m < max_order) four_orders(m);
+  } else {
+#pragma unroll 1
+    for (int m = 0; 4 * m < max_order; ++m) four_orders(m);
   }
+}
+
+template <bool kFp64, bool kUnrollOrders>
+int launch(const int* x, const int* coefs, const int* shifts, long long* out,
+           int N, int B, int max_order, int gs_log2, cudaStream_t stream) {
+  if (N > 0 && B > 0) {
+    const dim3 grid((B + kTile - 1) / kTile, N);
+    granule_kernel<kFp64, kUnrollOrders><<<grid, kThreads, 0, stream>>>(
+        x, coefs, shifts, reinterpret_cast<unsigned long long*>(out), B,
+        max_order, gs_log2);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // x int32 [N, B], coefs int32 [N, max_order, max_order] (row o-1 holds
-// order o's taps), shifts int32 [N, max_order] -> out int64
-// [N, max_order, B >> gs_log2]; 2 <= gs_log2 <= 7 and B % (1 << gs_log2)
-// == 0, checked by the caller.
+// order o's taps, |c| < 2^14), shifts int32 [N, max_order] with
+// 0 <= shift <= 15 -> out int64 [N, max_order, B >> gs_log2];
+// 2 <= gs_log2 <= 7 and B % (1 << gs_log2) == 0, checked by the caller.
 extern "C" int flake_sweep_granules(const int* x, const int* coefs,
                                     const int* shifts, long long* out, int N,
                                     int B, int max_order, int gs_log2,
                                     cudaStream_t stream) {
-  if (N > 0 && B > 0) {
-    const dim3 grid((B + kTile - 1) / kTile, N);
-    granule_kernel<<<grid, kThreads, 0, stream>>>(
-        x, coefs, shifts, reinterpret_cast<unsigned long long*>(out), B,
-        max_order, gs_log2);
+  return max_order <= kUnrollUpTo
+             ? launch<true, true>(x, coefs, shifts, out, N, B, max_order,
+                                  gs_log2, stream)
+             : launch<true, false>(x, coefs, shifts, out, N, B, max_order,
+                                   gs_log2, stream);
+}
+
+// the same sums by the other forms of the kernel, which chip_smoke.py
+// times beside the entry above: form 1, the integer pipes; 2, the FP64
+// pipe with the order loop unrolled (what the entry above runs up to
+// order kUnrollUpTo); 3, the integer pipes with the order loop unrolled
+extern "C" int flake_sweep_granules_form(int form, const int* x,
+                                         const int* coefs, const int* shifts,
+                                         long long* out, int N, int B,
+                                         int max_order, int gs_log2,
+                                         cudaStream_t stream) {
+  switch (form) {
+    case 1:
+      return launch<false, false>(x, coefs, shifts, out, N, B, max_order,
+                                  gs_log2, stream);
+    case 2:
+      return launch<true, true>(x, coefs, shifts, out, N, B, max_order,
+                                gs_log2, stream);
+    case 3:
+      return launch<false, true>(x, coefs, shifts, out, N, B, max_order,
+                                 gs_log2, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }

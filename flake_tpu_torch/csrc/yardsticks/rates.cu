@@ -1,10 +1,14 @@
-// The card's own rates for the two operations the sweeps and the
+// The card's own rates for the operations the sweeps and the
 // autocorrelation are built from, measured rather than read off a data
 // sheet: the 32x32 -> 64-bit integer multiply-add (mad.wide.s32, one per
-// tap in K2 and K4) and the float64 FMA (one per sample and lag in K1).
+// tap in K2 and in K4's integer form), the 32-bit integer multiply-add,
+// and the float64 FMA (one per sample and lag in K1, one per tap in K4).
 // Every thread runs eight independent chains of `iters` x 16 operations,
-// so neither latency nor memory limits the count. No path of the package
-// calls these; chip_smoke.py times them beside the kernels.
+// so neither latency nor memory limits the count. Each operation takes
+// its chain's own last result as an operand that it multiplies, so the
+// compiler cannot lift a product out of the loop (with loop-invariant
+// factors it does, and the loop then times 64-bit adds). No path of the
+// package calls these; chip_smoke.py times them beside the kernels.
 
 #include <cuda_runtime.h>
 
@@ -19,20 +23,34 @@ __device__ __forceinline__ long long mad_wide(int a, int b, long long acc) {
 
 __global__ void mad_wide_kernel(long long* out, int iters, int seed) {
   long long a[8];
-  int b[8];
 #pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    a[k] = threadIdx.x + k;
-    b[k] = seed + 3 * k + threadIdx.x;
-  }
+  for (int k = 0; k < 8; ++k) a[k] = seed + 3 * k + threadIdx.x;
   const int c = seed ^ blockIdx.x;
   for (int i = 0; i < iters; ++i) {
 #pragma unroll
     for (int u = 0; u < 16; ++u)
 #pragma unroll
-      for (int k = 0; k < 8; ++k) a[k] = mad_wide(c, b[k], a[k]);
+      for (int k = 0; k < 8; ++k)
+        a[k] = mad_wide(c, static_cast<int>(a[k]), a[k]);
   }
   long long s = 0;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) s += a[k];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+}
+
+__global__ void imad_kernel(int* out, int iters, int seed) {
+  int a[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) a[k] = seed + 3 * k + threadIdx.x;
+  const int c = seed ^ blockIdx.x;
+  for (int i = 0; i < iters; ++i) {
+#pragma unroll
+    for (int u = 0; u < 16; ++u)
+#pragma unroll
+      for (int k = 0; k < 8; ++k) a[k] = a[k] * c + a[k];
+  }
+  int s = 0;
 #pragma unroll
   for (int k = 0; k < 8; ++k) s += a[k];
   out[blockIdx.x * blockDim.x + threadIdx.x] = s;
@@ -65,6 +83,12 @@ __global__ void dfma_kernel(double* out, int iters, double seed) {
 extern "C" int flake_rate_mad_wide(long long* out, int blocks, int threads,
                                    int iters, cudaStream_t stream) {
   mad_wide_kernel<<<blocks, threads, 0, stream>>>(out, iters, 7);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int flake_rate_imad(int* out, int blocks, int threads, int iters,
+                               cudaStream_t stream) {
+  imad_kernel<<<blocks, threads, 0, stream>>>(out, iters, 7);
   return static_cast<int>(cudaGetLastError());
 }
 

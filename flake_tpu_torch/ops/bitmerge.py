@@ -37,6 +37,12 @@ from flake_tpu_torch import _cuda
 from flake_tpu_torch.ops.common import U32_MASK, wrap_int32
 
 LANE = 128
+# K3's launch (csrc/bitmerge.cu): threads a block, one of the 128, 256 and
+# 512 the source instantiates (PERF.md §6 times all three), and the most
+# bytes of shared memory a frame's words may take; a larger frame goes to
+# the instantiation that ORs into device memory
+MERGE_THREADS = 256
+MERGE_SHARED_CAP = 96 * 1024
 
 
 def slot_words(lengths: torch.Tensor, leading: torch.Tensor,
@@ -87,6 +93,14 @@ def merge_words_plain(lengths: torch.Tensor, leading: torch.Tensor,
     return words, ln.sum(dim=-1).to(torch.int32)
 
 
+def merge_in_shared(word_rows: int) -> bool:
+    """Whether K3 stages a frame of ``word_rows`` rows of words in shared
+    memory (they fit :data:`MERGE_SHARED_CAP`); otherwise the other
+    instantiation of the same source ORs into device memory. Chosen by
+    the shape alone."""
+    return word_rows * LANE * 4 <= MERGE_SHARED_CAP
+
+
 def merge_words(lengths: torch.Tensor, leading: torch.Tensor,
                 payload: torch.Tensor, word_rows: int):
     """Merge each frame's slots into big-endian 32-bit words.
@@ -94,7 +108,8 @@ def merge_words(lengths: torch.Tensor, leading: torch.Tensor,
     lengths/leading/payload int32 [F, M] (payload holds the uint32 bit
     pattern). Returns (words int32 [F, word_rows, 128], total_bits int32
     [F]). A CPU tensor takes the plain version; a CUDA tensor launches
-    the kernel."""
+    the kernel, counted in ``launches`` and, by instantiation, in
+    ``launches_by`` (see :func:`merge_in_shared`)."""
     if lengths.device.type == "cpu":
         return merge_words_plain(lengths, leading, payload, word_rows)
     if lengths.device.type != "cuda":
@@ -106,15 +121,19 @@ def merge_words(lengths: torch.Tensor, leading: torch.Tensor,
     for name, t in (("lengths", lengths), ("leading", leading),
                     ("payload", payload)):
         _cuda.check(t, name, torch.int32, (F, M), dev)
-    words = torch.zeros((F, word_rows, LANE), dtype=torch.int32, device=dev)
+    shared = merge_in_shared(word_rows)
+    words = torch.empty((F, word_rows, LANE), dtype=torch.int32, device=dev)
     total_bits = torch.empty((F,), dtype=torch.int32, device=dev)
     _cuda.launch("flake_merge_words", dev, lengths, leading, payload, words,
-                 total_bits, F, M, word_rows * LANE)
+                 total_bits, F, M, word_rows * LANE, MERGE_THREADS,
+                 int(shared))
     merge_words.launches += 1
+    merge_words.launches_by["shared" if shared else "global"] += 1
     return words, total_bits
 
 
 merge_words.launches = 0
+merge_words.launches_by = {"shared": 0, "global": 0}
 
 
 def sum_at(idx: torch.Tensor, val: torch.Tensor, n: int) -> torch.Tensor:

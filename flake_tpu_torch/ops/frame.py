@@ -5,13 +5,12 @@ runs as dense tensor ops over a [F, C, B] batch: stereo-mode estimation,
 wasted-bit removal, LPC analysis, order selection (optimize.c:196-261)
 and the Rice partition search. The LPC path runs K1 for the windowed
 autocorrelation and one of two kernels for the candidate-order sweep,
-chosen by the shape alone as the JAX package chooses its Pallas sweep
-under ``use_pallas="force"`` (``flake_tpu/ops/frame.py:413-437``): K4
-(granule sums) where the v2 kernel fits and v3 does not, which is
-B = 4096 and 8192 at order 32 with 256 partitions (levels 11-12), and K2
-(partition sums) everywhere else, including the shapes where the JAX
-package falls back to its XLA sweep. The output dict has the JAX
-package's keys, so the tests compare key by key.
+chosen by the shape alone (``ops/sweep.uses_granule_kernel``): K4
+(granule sums) wherever its power-of-two granules fit the partitions,
+where it was the faster on an H100, and K2 (partition sums) for the
+rest. The JAX package chooses by its TPU kernels' limits instead
+(``flake_tpu/ops/frame.py:413-437``); all give the same sums. The output
+dict has the JAX package's keys, so the tests compare key by key.
 
 Every order method is ported. EST (levels 3-6) takes its reflection
 coefficients from the Schur recursion and seeds Levinson with them, and
@@ -243,7 +242,7 @@ def _lpc_search(cfg: FrameConfig, chans, obits):
     if cfg.order_method not in (P.OrderMethod.MAX, P.OrderMethod.EST):
         pmax_static = limit_max_partition_order(pmax, n, 1)
         sweep = sweep_granules if uses_granule_kernel(
-            n, pmax_static, max_o) else sweep_sums               # K4 / K2
+            n, pmax_static) else sweep_sums                      # K4 / K2
         sums = sweep(cN, qcoefs.contiguous(), shifts.contiguous(), max_o,
                      pmax_static)
         o_arr = torch.arange(1, max_o + 1, dtype=torch.int32, device=dev)

@@ -15,10 +15,11 @@ versions emit exact int64 sums, which
 
 :func:`v2_supports` and :func:`v3_supports` copy the JAX package's
 predicates for its two kernels, held equal to them by the tests;
-:func:`uses_granule_kernel` sends a shape to the kernel that was faster
-on the card at that shape (the TPU's choice, the v2 kernel wherever the
-v3 kernel's VMEM estimate refused a shape, is not the H100's). K2's split
-of a stream over threads and blocks is :func:`sweep_plan`.
+:func:`uses_granule_kernel` sends every shape K4 can sum to K4, which was
+the faster of the two on the card there (the TPU's choice, the v2 kernel
+wherever the v3 kernel's VMEM estimate refused a shape, is not the
+H100's). K2's split of a stream over threads and blocks is
+:func:`sweep_plan`.
 """
 
 from __future__ import annotations
@@ -35,8 +36,6 @@ MAX_ORDER = 32
 MAX_PMAX = 8
 MAX_GRANULE = 128
 LANE = 128
-# the K2/K4 route (uses_granule_kernel): K4 above this order
-GRANULE_MIN_ORDER = 12
 # K2's split plan: threads a block (csrc/sweep.cu: kThreads), the segment
 # lengths it tries, longest first, and the threads a launch should reach
 # (132 SMs x 1024) before it stops shortening them
@@ -119,15 +118,16 @@ def v3_supports(block_size: int, bps: int, pmax_static: int,
     return est <= 15 * 1024 * 1024
 
 
-def uses_granule_kernel(block_size: int, pmax_static: int,
-                        max_order: int) -> bool:
-    """Whether the sweep of this shape goes to K4 (else K2): where K4 was
-    the faster of the two on an H100 (``PERF.md`` §6, the route table):
-    every order-32 sub-block size of the level-12 stream that K4 can sum
-    (1024, 2048, 4096 and 8192 samples). K2 was faster at order 12 and
-    below. Both give the same sums, so the route moves no byte."""
-    return max_order > GRANULE_MIN_ORDER \
-        and granule_fits(block_size, pmax_static)
+def uses_granule_kernel(block_size: int, pmax_static: int) -> bool:
+    """Whether the sweep of this shape goes to K4 (else K2): every shape K4
+    can sum (:func:`granule_fits`), where it was the faster of the two on
+    an H100 (``PERF.md`` §6, the route table: order 8 at level 7, order 12
+    at levels 8-10, order 32 at levels 11-12; within 5% of K2 only on
+    launches of a few dozen streams). K2 takes the rest: sub-blocks whose
+    partitions hold no power-of-two granule (3072, 5120, 6144, 7168) and
+    most partial last blocks. Both give the same sums, so the route moves
+    no byte."""
+    return granule_fits(block_size, pmax_static)
 
 
 def granule_size(block_size: int, pmax_static: int) -> int:
@@ -224,7 +224,10 @@ def sweep_granules(x: torch.Tensor, coefs: torch.Tensor,
     with gs = ``min(B >> pmax_static, 128)``; the shape must pass
     :func:`granule_fits` (every shape of the v2 kernel's domain does). A
     CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel."""
+    kernel, which sums on the FP64 pipe: exact for coefficients below
+    2^14 in magnitude and shifts of 0-15, which is what
+    :func:`flake_tpu_torch.ops.lpc.quantize_lpc_coefs` gives at the
+    encoder's 15-bit precision."""
     if x.dim() != 2 or not 1 <= max_order <= MAX_ORDER \
             or not granule_fits(x.shape[1], pmax_static) \
             or x.shape[0] >= 65536:

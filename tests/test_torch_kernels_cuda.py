@@ -10,8 +10,12 @@ Shapes cover the level-8 main path, the level-11/12 sub-blocks of 4096
 and 8192 samples at order 32 with 256 partitions, and the edges: odd
 block sizes, a partition size of 253, K2 at order 32 with 256 partitions
 (a stream split over several blocks), K4 with partitions larger than
-its granule and with 300 streams, 24-bit and 32-bit content, and blocks
-under 32; K2 on one stream, on the level-12 buckets and at the edges of
+its granule and with 300 streams, K4 on 1, 2 and 428 streams of 1024-8192
+samples at orders 13-32 with granules of 4 to 128 and on 25-bit samples,
+24-bit and 32-bit content, and blocks under 32; K3 in both its
+instantiations (words below and above its shared-memory cap), on frames
+of 3 and 20 samples, on slot counts that are no multiple of its tiles,
+on rows that start off a 16-byte boundary and on 32-bit slot pairs; K2 on one stream, on the level-12 buckets and at the edges of
 its order buckets, K1 at the edges of its lag buckets on blocks of 3 and
 31 samples, and two K1 calls giving the same bits; the tie rules of the
 Rice k scan and the stereo mode on equal counts; K5 and the four U1
@@ -167,8 +171,43 @@ def test_granule_kernel(dev, N, B, max_order, pmax_static):
                        k2.sweep_sums(x, qc, sh, max_order, pmax_static))
 
 
+@pytest.mark.parametrize("N", [1, 2, 428])
+@pytest.mark.parametrize("B,max_order,pmax_static", [
+    (1024, 32, 8), (2048, 13, 8), (4096, 20, 2), (8192, 32, 8),
+    (8192, 17, 6), (1024, 24, 3)])
+def test_granule_kernel_shapes(dev, N, B, max_order, pmax_static):
+    """K4 on one to 428 streams, blocks of 1024-8192, orders 13-32 and
+    granules of 4 (1024 at pmax 8) to 128 samples (4096 at pmax 2)."""
+    x = _tonal(max(N, 3), B, 16, seed=B + N + max_order)[:N].to(dev)
+    qc, sh = _coefs(x, max_order)
+    got = k4(x, qc, sh, max_order, pmax_static)
+    want = k2.sweep_granules_plain(x, qc, sh, max_order, pmax_static)
+    assert got.shape == (N, max_order, B // min(B >> pmax_static, 128))
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("pmax_static", [8, 2])
+def test_granule_kernel_wide_samples(dev, pmax_static):
+    """K4 on 25-bit samples (the side channel of 24-bit stereo at levels
+    11-12), full-scale 25-bit noise and full-range int32 noise, where the
+    FP64 sums come nearest 2^51; two calls give the same bits."""
+    N, B = 6, 4096
+    rng = np.random.default_rng(25)
+    x = _tonal(N, B, 24, seed=25).to(torch.int64) * 2
+    x[3] = torch.from_numpy(rng.integers(-(1 << 24), 1 << 24, B))
+    x = x.clamp(-(1 << 24), (1 << 24) - 1)
+    x[4] = torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, B))
+    x = x.to(torch.int32).to(dev)
+    qc, sh = _coefs(x, 32)
+    got = k4(x, qc, sh, 32, pmax_static)
+    assert torch.equal(got, k2.sweep_granules_plain(x, qc, sh, 32,
+                                                    pmax_static))
+    assert torch.equal(k4(x, qc, sh, 32, pmax_static), got)
+
+
 @pytest.mark.parametrize("B,F,bps", [(4096, 8, 16), (20, 2, 16),
-                                     (256, 4, 32)])
+                                     (256, 4, 32), (3, 1, 16), (20, 5, 24),
+                                     (1024, 3, 32)])
 def test_merge_kernel(dev, B, F, bps):
     rng = np.random.default_rng(B)
     lim = 1 << (bps - 1)
@@ -233,6 +272,41 @@ def _random_slots(F, M, seed):
     return tuple(torch.from_numpy(a.astype(np.int64)).to(torch.int32)
                  for a in (lengths, leading,
                            payload.astype(np.uint32).view(np.int32))), wr
+
+
+@pytest.mark.parametrize("F,M,rows", [(1, 7, 0), (5, 1025, 0),
+                                      (3, 8473, 0), (2, 1000, 97),
+                                      (4, 3001, 200), (1, 5, 193)])
+def test_merge_kernel_instantiations(dev, F, M, rows):
+    """K3 on random slot tables: M not a multiple of a thread's four slots
+    or a block's chunk, F = 1, words below and above 48 KiB and above the
+    shared-memory cap (193 and 200 rows), each launch counted under the
+    instantiation the wrapper picked. The rows are a view one row into a
+    larger table, so that they start off a 16-byte boundary when M % 4,
+    and two calls give the same words."""
+    slots, wr = _random_slots(F + 1, M, seed=F * M + rows)
+    wr = max(wr, rows)
+    slots = tuple(t.to(dev)[1:] for t in slots)
+    form = "shared" if k3.merge_in_shared(wr) else "global"
+    before = dict(k3.merge_words.launches_by)
+    words, total_bits = k3.merge_words(*slots, wr)
+    assert k3.merge_words.launches_by[form] == before[form] + 1
+    words_p, total_p = k3.merge_words_plain(*slots, wr)
+    assert torch.equal(words, words_p)
+    assert torch.equal(total_bits, total_p)
+    assert torch.equal(k3.merge_words(*slots, wr)[0], words)
+
+
+def test_merge_kernel_mixed_alignment(dev):
+    """Rows whose three arrays start at different 16-byte offsets take
+    scalar loads throughout and give the same words."""
+    (lengths, leading, payload), wr = _random_slots(4, 1001, seed=11)
+    lengths, payload = (t.to(dev)[1:] for t in (lengths, payload))
+    leading = leading.to(dev)[1:].clone()
+    words, total_bits = k3.merge_words(lengths, leading, payload, wr)
+    words_p, total_p = k3.merge_words_plain(lengths, leading, payload, wr)
+    assert torch.equal(words, words_p)
+    assert torch.equal(total_bits, total_p)
 
 
 def _level8_slots(dev, F=8, B=4096):

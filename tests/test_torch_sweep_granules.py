@@ -115,13 +115,13 @@ def test_predicates_match_jax():
     assert cases == 12 * 2 * 9 * 4
 
 
-@pytest.mark.parametrize("level", [8, 9, 10, 11, 12])
+@pytest.mark.parametrize("level", [7, 8, 9, 10, 11, 12])
 def test_route_by_shape(level):
     """Every sub-block size of a preset, at its pmax_static: K4 exactly
-    for the order-32 sub-blocks of levels 11 and 12 that it can sum,
-    where it was faster than K2 on the card (1024, 2048, 4096 and 8192
-    samples; 3072, 5120, 6144 and 7168 stay on K2), K2 for every order-12
-    shape."""
+    for the blocks it can sum, where it was faster than K2 on the card
+    (the full 4096-sample blocks of levels 7-8, the 1024, 2048 and 4096
+    sub-blocks of levels 9-10 and also the 8192 ones of levels 11-12),
+    K2 for the rest (512, 1536, 2560, 3072, 3584 and 5120-7168)."""
     p = TP.set_defaults(level)
     bs = p.block_size
     sizes = [bs * k // 8 for k in range(1, 9)] if p.variable_block_size \
@@ -130,10 +130,10 @@ def test_route_by_shape(level):
     for n in sizes:
         pmax_static = trice.limit_max_partition_order(
             p.max_partition_order, n, 1)
-        if tsweep.uses_granule_kernel(n, pmax_static,
-                                      p.max_prediction_order):
+        if tsweep.uses_granule_kernel(n, pmax_static):
             to_k4.add(n)
-    assert to_k4 == ({1024, 2048, 4096, 8192} if level >= 11 else set())
+    assert to_k4 == ({4096} if level <= 8 else {1024, 2048, 4096}
+                     if level <= 10 else {1024, 2048, 4096, 8192})
 
 
 @pytest.mark.parametrize("pmax", [6, 2])
