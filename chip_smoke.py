@@ -19,21 +19,21 @@ level-12 8192 bucket, where its words must equal K3's. K2 is held against
 its plain version on every shape the sweeping levels give the sweeps
 (order 8 at level 7, 12 at levels 8 and 10, 32 at level 12; every
 sub-block size and the tails). Every kernel's time stands beside its
-plain version's, its bound (the least time the card could take: bytes
-over the memory rate or operations over the peak rate, whichever is
-larger) and, where one PyTorch call computes the same function, that
-call's time. K1-K4 are also timed beside their first designs
+plain version's, its bound (bytes over the memory rate or operations
+over the peak rate of their type outside the tensor cores, whichever is
+larger; the sweeps' also at the float64 tensor cores' rate) and, where
+one PyTorch call computes the same function, that call's time. K1-K4 are also timed beside their first designs
 (``flake_tpu_torch/csrc/yardsticks``, built into a library of their own
 and held against the plain versions too): K1-K3 on the level-8 batch, K1
 and K4 on the level-12 8192 bucket, and K2 on every order-32 shape of the
 level-12 stream, where K4 is timed beside them wherever it can sum the
-shape (the table of the K2/K4 route). K3 is timed at 128, 256 and 512
-threads a block in both its instantiations (a frame's words staged in
-shared memory, or ORed into device memory, which frames above its
-shared-memory cap take), K4 beside the same source with its order loop
-unrolled and on the integer pipes. Rate probes from the same folder
-measure the card's 32x32->64-bit and 32-bit integer multiply-add and
-float64 FMA rates. U2 and
+shape (the table of the K2/K4 route). K3 is timed in both its
+instantiations (a frame's words staged in shared memory, or ORed into
+device memory, which frames above its shared-memory cap take), K4 beside
+the same design on the integer pipes (``csrc/yardsticks/
+sweep_granules_int.cu``, held against the plain version too). Rate probes
+from the same folder measure the card's 32x32->64-bit and 32-bit integer
+multiply-add and float64 FMA rates. U2 and
 U3 are held against their plain versions bit for bit
 on the ``music`` and ``noise`` batches of their tools (512 frames of 4096;
 the noise frames are verbatim, in chunks of 68 words, past the first
@@ -126,8 +126,12 @@ K1_REL_TOL = 5e-11      # tests/test_pallas_autocorr.py:55
 # has half as many int32 lanes as float32 lanes, so int32 operations peak
 # at half the float32 rate too. The rate probes (csrc/yardsticks/rates.cu,
 # printed by every run) measure both that the sweeps and K1 are made of.
+# The float64 tensor cores (DMMA) peak at 67 TFLOP/s: the sweeps' bounds
+# are also given at that rate (``bound_ms_fp64_tensor``), which no kernel
+# of the port uses yet.
 HBM_BYTES_PER_MS = 3.35e9
 FP64_OPS_PER_MS = 33.5e9
+FP64_TENSOR_OPS_PER_MS = 67e9
 INT32_OPS_PER_MS = 33.5e9
 
 
@@ -250,10 +254,11 @@ def nbytes(*tensors) -> int:
 
 def build_yardsticks():
     """Build ``flake_tpu_torch/csrc/yardsticks`` (the first designs of K1-K4,
-    and the card's rate probes) into a library of their own. Returns (the
-    compiler's report, a dict of functions): ``k1_before`` to
-    ``k4_before`` take the wrappers' arguments and launch the first
-    designs (K3's zeroes its words first, as its wrapper did);
+    K4's design on the integer pipes and the card's rate probes) into a
+    library of their own. Returns (the compiler's report, a dict of
+    functions): ``k1_before`` to ``k4_before`` take the wrappers'
+    arguments and launch the first designs (K3's zeroes its words first,
+    as its wrapper did), ``k4_int`` K4's design on the integer pipes;
     ``mad_wide``, ``imad`` and ``dfma`` measure the card's rate of each
     operation, in operations a ms."""
     import ctypes
@@ -273,6 +278,7 @@ def build_yardsticks():
     lib.flake_sweep_sums_v1.argtypes = [P, P, P, P, I, I, I, I, P]
     lib.flake_merge_words_v1.argtypes = [P, P, P, P, P, I, I, I, P]
     lib.flake_sweep_granules_v1.argtypes = [P, P, P, P, I, I, I, I, P]
+    lib.flake_sweep_granules_int.argtypes = [P, P, P, P, I, I, I, I, P]
     lib.flake_rate_mad_wide.argtypes = [P, I, I, I, P]
     lib.flake_rate_imad.argtypes = [P, I, I, I, P]
     lib.flake_rate_dfma.argtypes = [P, I, I, I, P]
@@ -307,14 +313,14 @@ def build_yardsticks():
              total_bits, F, M, word_rows * 128)
         return words, total_bits
 
-    def k4_before(x, coefs, shifts, max_order, pmax_static):
+    def k4_on(fn, x, coefs, shifts, max_order, pmax_static):
         from flake_tpu_torch.ops.sweep import granule_size
 
         gs = granule_size(x.shape[1], pmax_static)
         out = torch.empty((x.shape[0], max_order, x.shape[1] // gs),
                           dtype=torch.int64, device=x.device)
-        call(lib.flake_sweep_granules_v1, x, coefs, shifts, out, *x.shape,
-             max_order, gs.bit_length() - 1)
+        call(fn, x, coefs, shifts, out, *x.shape, max_order,
+             gs.bit_length() - 1)
         return out
 
     def rate(fn, dtype):
@@ -326,7 +332,9 @@ def build_yardsticks():
 
     return report, {
         "k1_before": k1_before, "k2_before": k2_before,
-        "k3_before": k3_before, "k4_before": k4_before,
+        "k3_before": k3_before,
+        "k4_before": lambda *a: k4_on(lib.flake_sweep_granules_v1, *a),
+        "k4_int": lambda *a: k4_on(lib.flake_sweep_granules_int, *a),
         "mad_wide": lambda: rate(lib.flake_rate_mad_wide, torch.int64),
         "imad": lambda: rate(lib.flake_rate_imad, torch.int32),
         "dfma": lambda: rate(lib.flake_rate_dfma, torch.float64)}
@@ -402,8 +410,9 @@ def main() -> None:
         if "registers" in line or "spill" in line or "Compiling" in line:
             print("  ptxas:", line.strip())
     report, yard = build_yardsticks()
-    print("build the first designs of K1 and K2 and the rate probes "
-          "(flake_tpu_torch/csrc/yardsticks)", flush=True)
+    print("build the yardsticks: K1's to K4's first designs, K4 on the "
+          "integer pipes, the rate probes (flake_tpu_torch/csrc/yardsticks)",
+          flush=True)
     for line in report.splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             print("  ptxas:", line.strip())
@@ -542,10 +551,18 @@ def main() -> None:
         candidate order and tap, counted as one float64 FMA (two float64
         operations): every product and partial sum of the sweep is an
         integer below 2^51 in magnitude, so an FMA on the FP64 pipe does
-        the work exactly, and that is the least time the card can take for
-        it (K4 runs so; a 32x32->64-bit integer multiply-add runs at
-        less than half the FMA rate, as the rate probes show)."""
+        the work exactly (K4 runs so; a 32x32->64-bit integer multiply-add
+        runs at less than half the FMA rate, as the rate probes show). The
+        bound counts them at the FP64 rate outside the tensor cores. It is
+        not the least time the card could take: the float64 tensor cores
+        run twice that rate and would compute the same integer products
+        exactly (``bound_ms_fp64_tensor``)."""
         return 2 * sx.numel() * order * (order + 1) // 2
+
+    def tensor_bound(moved, ops):
+        """A sweep's bound at the float64 tensor cores' rate: ``moved``
+        bytes, ``ops`` operations."""
+        return bound(moved, ops, FP64_TENSOR_OPS_PER_MS)[0]
 
     def cmp_rel(name, a, b):
         abs_err = (a - b).abs()
@@ -581,6 +598,9 @@ def main() -> None:
                                           s_pmax), cmp_exact,
           (sx, scoefs, sshifts), sweep_ops(sx, s_mo), FP64_OPS_PER_MS,
           before=lambda: yard["k2_before"](sx, scoefs, sshifts, s_mo, s_pmax))
+    kernels[-1]["bound_ms_fp64_tensor"] = tensor_bound(
+        nbytes(sx, scoefs, sshifts) + sx.shape[0] * s_mo * (1 << s_pmax) * 8,
+        sweep_ops(sx, s_mo))
     # K4 on the same order-12 inputs, for the K2/K4 route
     folded = sweep_mod.sweep_granules(sx, scoefs, sshifts, s_mo, s_pmax) \
         .reshape(sx.shape[0], s_mo, 1 << s_pmax, -1).sum(-1)
@@ -602,33 +622,29 @@ def main() -> None:
           (ml, mlead, mpay), 16 * ml.numel(), INT32_OPS_PER_MS,
           before=lambda: yard["k3_before"](ml, mlead, mpay, mwr))
 
-    def k3_at(threads, shared):
-        """K3 on the level-8 batch at another block size or instantiation
-        than the wrapper's: launched here only to be timed, not counted."""
+    def k3_at(shared):
+        """K3 on the level-8 batch in the given instantiation, whichever
+        the wrapper would pick: launched here only to be timed, not
+        counted."""
         F, M = ml.shape
         words = torch.empty((F, mwr, 128), dtype=torch.int32, device=dev)
         total = torch.empty((F,), dtype=torch.int32, device=dev)
         _cuda.launch("flake_merge_words", dev, ml, mlead, mpay, words, total,
-                     F, M, mwr * 128, threads, int(shared))
+                     F, M, mwr * 128, int(shared))
         return words, total
 
     k3_plain = k3_mod.merge_words_plain(ml, mlead, mpay, mwr)
-    k3_forms = [(t, sh) for t in (128, 256, 512) for sh in (True, False)]
-    for t, sh in k3_forms:
-        if not all(torch.equal(a, b) for a, b in zip(k3_at(t, sh), k3_plain)):
-            fail(f"K3 at {t} threads, shared {sh}, disagrees with its plain "
-                 "version")
-    k3_forms_ms = {f"{t} threads, {'shared memory' if sh else 'device memory'}"
-                   : ms for (t, sh), ms in zip(k3_forms, time_turns(
-                       *[lambda t=t, sh=sh: k3_at(t, sh)
-                         for t, sh in k3_forms]))}
-    kernels[-1].update(threads=k3_mod.MERGE_THREADS,
-                       shared_cap_bytes=k3_mod.MERGE_SHARED_CAP,
+    for sh in (True, False):
+        if not all(torch.equal(a, b) for a, b in zip(k3_at(sh), k3_plain)):
+            fail(f"K3's {'shared' if sh else 'device'}-memory instantiation "
+                 "disagrees with its plain version")
+    k3_forms_ms = dict(zip(("shared memory", "device memory"), time_turns(
+        lambda: k3_at(True), lambda: k3_at(False))))
+    kernels[-1].update(shared_cap_bytes=k3_mod.MERGE_SHARED_CAP,
                        forms_ms=k3_forms_ms)
-    print(f"K3 forms on the level-8 batch (the wrapper takes "
-          f"{k3_mod.MERGE_THREADS} threads and stages a frame's words in "
-          f"shared memory up to {k3_mod.MERGE_SHARED_CAP} bytes, "
-          f"{mwr * 512} here), each bit-exact: "
+    print(f"K3's instantiations on the level-8 batch (the wrapper stages a "
+          f"frame's words in shared memory up to {k3_mod.MERGE_SHARED_CAP} "
+          f"bytes, {mwr * 512} here), each bit-exact: "
           f"{ {k: round(v, 4) for k, v in k3_forms_ms.items()} } ms",
           flush=True)
 
@@ -669,35 +685,28 @@ def main() -> None:
     def k2_run():
         return sweep_mod.sweep_sums(gx, gcoefs, gshifts, g_mo, g_pmax)
 
-    def k4_form(form):
-        """K4 in another form of its source (csrc/sweep_granules.cu:
-        ``flake_sweep_granules_form``), launched only to be timed."""
-        gs = sweep_mod.granule_size(gx.shape[1], g_pmax)
-        out = torch.empty((gx.shape[0], g_mo, gx.shape[1] // gs),
-                          dtype=torch.int64, device=dev)
-        _cuda.launch("flake_sweep_granules_form", dev, form, gx, gcoefs,
-                     gshifts, out, *gx.shape, g_mo, gs.bit_length() - 1)
-        return out
-
     phase("sweep_granules", "flake_tpu_torch/csrc/sweep_granules.cu",
           "flake_tpu/ops/pallas_sweep.py:147", k4_run,
           lambda: sweep_mod.sweep_granules_plain(gx, gcoefs, gshifts, g_mo,
                                               g_pmax), cmp_exact,
           (gx, gcoefs, gshifts), sweep_ops(gx, g_mo), FP64_OPS_PER_MS,
           before=lambda: yard["k4_before"](gx, gcoefs, gshifts, g_mo, g_pmax))
-    k4_forms = {1: "integer pipes", 2: "FP64 pipe, order loop unrolled",
-                3: "integer pipes, order loop unrolled"}
-    for form, what in k4_forms.items():
-        if not torch.equal(k4_form(form), k4_run()):
-            fail(f"K4 on the {what} differs from K4")
-    k4_ms, *forms_ms = time_turns(
-        k4_run, *[lambda form=form: k4_form(form) for form in k4_forms])
-    kernels[-1].update(ms_beside_forms=k4_ms, forms_ms={
-        what: ms for what, ms in zip(k4_forms.values(), forms_ms)})
-    print(f"info: K4 {k4_ms:.4f} ms (FP64 pipe, order loop rolled); its "
-          f"other forms, the same sums: "
-          f"{ {w: round(m, 4) for w, m in zip(k4_forms.values(), forms_ms)} }"
-          " ms", flush=True)
+    k4_out = k4_run()
+    kernels[-1]["bound_ms_fp64_tensor"] = tensor_bound(
+        nbytes(gx, gcoefs, gshifts, k4_out), sweep_ops(gx, g_mo))
+
+    def k4_int():
+        return yard["k4_int"](gx, gcoefs, gshifts, g_mo, g_pmax)
+
+    check("sweep_granules", k4_int,
+          lambda: sweep_mod.sweep_granules_plain(gx, gcoefs, gshifts, g_mo,
+                                                 g_pmax), cmp_exact)
+    k4_ms, k4_int_ms = time_turns(k4_run, k4_int)
+    kernels[-1].update(ms_beside_int=k4_ms, int_pipes_ms=k4_int_ms)
+    print(f"info: K4 {k4_ms:.4f} ms (FP64 pipe); the same design on the "
+          f"integer pipes (csrc/yardsticks/sweep_granules_int.cu, the same "
+          f"sums) {k4_int_ms:.4f} ms; bound at the float64 tensor cores' "
+          f"rate {kernels[-1]['bound_ms_fp64_tensor']:.4f} ms", flush=True)
     folded = k4_run().reshape(gx.shape[0], g_mo, 1 << g_pmax, -1).sum(-1)
     if not torch.equal(folded, k2_run()):
         fail("K4's granules, folded to partitions, differ from K2's sums")
@@ -1095,6 +1104,9 @@ def main() -> None:
                "bound_ms": bound(nbytes(cx, cc, cs) + N * c_mo
                                  * (1 << c_pmax) * 8, sweep_ops(cx, c_mo),
                                  FP64_OPS_PER_MS)[0],
+               "bound_ms_fp64_tensor": tensor_bound(
+                   nbytes(cx, cc, cs) + N * c_mo * (1 << c_pmax) * 8,
+                   sweep_ops(cx, c_mo)),
                "routed_to": "K4" if to_k4 else "K2"}
         table.append(row)
         faster = "K4" if k4 and k4[0] < k2_ms else "K2"

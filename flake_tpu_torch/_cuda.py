@@ -39,10 +39,8 @@ SIGNATURES = {
     "flake_sweep_sums": [_P, _P, _P, _P] + [_I] * 9,
     # x, coefs, shifts, out, N, B, max_order, gs_log2
     "flake_sweep_granules": [_P, _P, _P, _P, _I, _I, _I, _I],
-    # the same after a form: K4's other forms, launched only to be timed
-    "flake_sweep_granules_form": [_I, _P, _P, _P, _P, _I, _I, _I, _I],
-    # lengths, leading, payload, words, total_bits, F, M, W, threads, shared
-    "flake_merge_words": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I],
+    # lengths, leading, payload, words, total_bits, F, M, W, shared
+    "flake_merge_words": [_P, _P, _P, _P, _P, _I, _I, _I, _I],
     # w0t, hit, lot, words, F, S, W
     "flake_merge_aligned": [_P, _P, _P, _P, _I, _I, _I],
     # chunk_bits, w0t, hit, lot, words, F, nc, W

@@ -14,7 +14,8 @@
 //
 // What bounds it on the card: per frame it reads 12 bytes per slot and
 // writes the frame's W words once, so it is bound by bytes. Design: one
-// block of T threads (128, 256 or 512) per frame. A thread takes 4
+// block of 256 threads per frame (128 and 512 were no faster on the
+// card, PERF.md section 6). A thread takes 4
 // consecutive slots with one 16-byte load from each of the three arrays
 // (a row that starts off a 16-byte boundary, or a row's last slots, take
 // scalar loads for the quad that straddles), scans its 4 lengths itself,
@@ -37,7 +38,9 @@
 
 namespace {
 
-constexpr int kPer = 4;  // consecutive slots a thread
+constexpr int kThreads = 256;             // a block, one frame
+constexpr int kWarps = kThreads / 32;
+constexpr int kPer = 4;                   // consecutive slots a thread
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
@@ -78,12 +81,11 @@ __device__ __forceinline__ void place(unsigned* words, int off, int ln,
   if (lo && w0 + 1 < W) atomicOr(words + w0 + 1, lo);
 }
 
-template <int T, bool kShared>
-__global__ void __launch_bounds__(T)
+template <bool kShared>
+__global__ void __launch_bounds__(kThreads)
 merge_kernel(const int* __restrict__ lengths, const int* __restrict__ leading,
              const int* __restrict__ payload, unsigned* __restrict__ words,
              int* __restrict__ total_bits, int M, int W) {
-  constexpr int kWarps = T / 32;
   extern __shared__ uint4 staged[];             // the frame's W words
   __shared__ int warp_tot[2][kWarps];           // by chunk parity
   const size_t f = blockIdx.x;
@@ -96,7 +98,7 @@ merge_kernel(const int* __restrict__ lengths, const int* __restrict__ leading,
   const int warp = threadIdx.x >> 5;
 
   uint4* dst4 = reinterpret_cast<uint4*>(dst);  // W is a multiple of 128
-  for (int i = threadIdx.x; i < W / 4; i += T)
+  for (int i = threadIdx.x; i < W / 4; i += kThreads)
     dst4[i] = make_uint4(0u, 0u, 0u, 0u);
 
   // the row's quads start ``pre`` slots before it, at a 16-byte boundary;
@@ -114,8 +116,9 @@ merge_kernel(const int* __restrict__ lengths, const int* __restrict__ leading,
   int4 d = load_quad(lead, g, skew, M, vec);
   int4 p = load_quad(pay, g, skew, M, vec);
   int carry = 0;
-  for (int base = 0, it = 0; base < quads; base += T, ++it, g += T) {
-    const int gn = g + T;                       // the next chunk, in flight
+  for (int base = 0, it = 0; base < quads;
+       base += kThreads, ++it, g += kThreads) {
+    const int gn = g + kThreads;                // the next chunk, in flight
     const int4 ln = load_quad(len, gn, skew, M, vec);
     const int4 dn = load_quad(lead, gn, skew, M, vec);
     const int4 pn = load_quad(pay, gn, skew, M, vec);
@@ -149,23 +152,23 @@ merge_kernel(const int* __restrict__ lengths, const int* __restrict__ leading,
   __syncthreads();
   if (kShared) {
     uint4* out4 = reinterpret_cast<uint4*>(out);
-    for (int i = threadIdx.x; i < W / 4; i += T) out4[i] = dst4[i];
+    for (int i = threadIdx.x; i < W / 4; i += kThreads) out4[i] = dst4[i];
   }
   if (threadIdx.x == 0) total_bits[f] = carry;
 }
 
-template <int T, bool kShared>
+template <bool kShared>
 cudaError_t launch(const int* lengths, const int* leading, const int* payload,
                    int* words, int* total_bits, int F, int M, int W,
                    cudaStream_t stream) {
   const size_t smem = kShared ? static_cast<size_t>(W) * 4 : 0;
   if (smem > 48 * 1024) {  // above the default for dynamic shared memory
     const cudaError_t err = cudaFuncSetAttribute(
-        merge_kernel<T, kShared>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        merge_kernel<kShared>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  merge_kernel<T, kShared><<<F, T, smem, stream>>>(
+  merge_kernel<kShared><<<F, kThreads, smem, stream>>>(
       lengths, leading, payload, reinterpret_cast<unsigned*>(words),
       total_bits, M, W);
   return cudaGetLastError();
@@ -174,32 +177,18 @@ cudaError_t launch(const int* lengths, const int* leading, const int* payload,
 }  // namespace
 
 // lengths, leading, payload int32 [F, M] -> words int32 [F, W] (written
-// whole, W a multiple of 128), total_bits int32 [F]; ``threads`` is 128,
-// 256 or 512; ``shared`` picks the instantiation that stages the frame's
-// words in shared memory (W * 4 bytes of it) over the one that ORs into
-// device memory
+// whole, W a multiple of 128), total_bits int32 [F]; ``shared`` picks the
+// instantiation that stages the frame's words in shared memory (W * 4
+// bytes of it) over the one that ORs into device memory
 extern "C" int flake_merge_words(const int* lengths, const int* leading,
                                  const int* payload, int* words,
                                  int* total_bits, int F, int M, int W,
-                                 int threads, int shared,
-                                 cudaStream_t stream) {
+                                 int shared, cudaStream_t stream) {
   if (F <= 0) return static_cast<int>(cudaGetLastError());
   if (W % 128) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err;
-#define FLAKE_MERGE_CASE(T)                                                  \
-  case T:                                                                    \
-    err = shared ? launch<T, true>(lengths, leading, payload, words,         \
-                                   total_bits, F, M, W, stream)              \
-                 : launch<T, false>(lengths, leading, payload, words,        \
-                                    total_bits, F, M, W, stream);            \
-    break;
-  switch (threads) {
-    FLAKE_MERGE_CASE(128)
-    FLAKE_MERGE_CASE(256)
-    FLAKE_MERGE_CASE(512)
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-#undef FLAKE_MERGE_CASE
-  return static_cast<int>(err);
+  return static_cast<int>(
+      shared ? launch<true>(lengths, leading, payload, words, total_bits, F,
+                            M, W, stream)
+             : launch<false>(lengths, leading, payload, words, total_bits, F,
+                             M, W, stream));
 }

@@ -19,9 +19,9 @@
 // but every product and partial sum here is an integer below 2^51 in
 // magnitude (coefficients below 2^14, samples below 2^31, at most 32
 // taps), so a float64 FMA computes it exactly, at the full FP64 rate. The
-// kernel runs its products on the FP64 pipe; the form on the integer
-// pipes (one mad.wide a product) is built beside it, as is either with
-// its order loop unrolled, only to be timed (chip_smoke.py).
+// kernel runs its products on the FP64 pipe; the same design on the
+// integer pipes (csrc/yardsticks/sweep_granules_int.cu) is timed beside it
+// by chip_smoke.py.
 //
 // Design: the grid tiles (stream, 1024-sample tile); each block stages
 // its tile with a 32-sample halo from the previous tile (zero at the
@@ -33,12 +33,12 @@
 // then whole chunks of four that a uniform branch skips past the order,
 // so no product is padded (chunks from tap 0 padded to fours cost 9% more
 // products). Above order 12 the loop is not unrolled further, which
-// keeps the body in the instruction cache; up to order 12 it is. The epilogue is 32-bit: only the low 32 bits of pred count after
-// the wrap, and for 0 <= shift <= 15 (ops/lpc.py: quantize_lpc_coefs
-// clamps it there) they are one funnel shift of the sum's two halves; on
-// the FP64 form the sums start at 1.5 * 2^52, so their halves are the
-// bits of the sum plus 2^51 in the mantissa, an offset that the shift
-// moves past bit 31. The zigzag runs in 32 bits, and only the sums widen to 64. A
+// keeps the body in the instruction cache; up to order 12 it is. The
+// epilogue is 32-bit: only the low 32 bits of pred count after the wrap,
+// and for 0 <= shift <= 15 they are one funnel shift of the sum's two
+// halves; the sums start at 1.5 * 2^52, so their halves are the bits of
+// the sum plus 2^51 in the mantissa, an offset that the shift moves past
+// bit 31. The zigzag runs in 32 bits, and only the sums widen to 64. A
 // thread sums its samples 0-3 and 4-7 apart, which are granules of their
 // own when gs is 4; larger granules are gs / 8 neighbouring lanes of one
 // warp, summed with xor shuffles, whose first lane stores the sum. A tile
@@ -61,99 +61,58 @@ constexpr int kWin = kMaxOrder + kPer;      // a thread's register window
 // their chunk counts at compile time
 constexpr int kUnrollUpTo = 12;
 
-// acc + (int64)a * b in one instruction
-__device__ __forceinline__ long long mad_wide(int a, int b, long long acc) {
-  long long d;
-  asm("mad.wide.s32 %0, %1, %2, %3;" : "=l"(d) : "r"(a), "r"(b), "l"(acc));
-  return d;
-}
-
 // the low 32 bits of (sum of c[o-1][j] * x[i-1-j]) >> s for this thread's
 // 8 samples, order o = 4m + R: taps 0..R-1 first, then m chunks of four,
-// so every tap the order has is computed and no other; w is the integer
-// window, wd its float64 copy on the FP64 form
-template <bool kFp64, int R>
+// so every tap the order has is computed and no other; wd is the window
+// in float64
+template <int R>
 __device__ __forceinline__ void predictions(
-    int m, const int (&w)[kWin], const double (&wd)[kWin],
-    const void* __restrict__ c, int s, unsigned (&pred)[kPer]) {
+    int m, const double (&wd)[kWin], const double* __restrict__ c, int s,
+    unsigned (&pred)[kPer]) {
   const int o = 4 * m + R;
-  if constexpr (kFp64) {
-    const double* co = static_cast<const double*>(c) + (o - 1) * kMaxOrder;
-    // each sum starts at 1.5 * 2^52: every partial sum S is an integer
-    // with |S| < 2^51, so 1.5 * 2^52 + S lies where doubles are the
-    // integers, each fma is exact, and the sum's bits are S + 2^51 in the
-    // mantissa
-    double a[kPer];
+  const double* co = c + (o - 1) * kMaxOrder;
+  // each sum starts at 1.5 * 2^52: every partial sum S is an integer
+  // with |S| < 2^51, so 1.5 * 2^52 + S lies where doubles are the
+  // integers, each fma is exact, and the sum's bits are S + 2^51 in the
+  // mantissa
+  double a[kPer];
 #pragma unroll
-    for (int k = 0; k < kPer; ++k) a[k] = 6755399441055744.0;
+  for (int k = 0; k < kPer; ++k) a[k] = 6755399441055744.0;
 #pragma unroll
-    for (int t = 0; t < R; ++t) {
-      const double cv = co[t];
-#pragma unroll
-      for (int k = 0; k < kPer; ++k)
-        a[k] = fma(cv, wd[kMaxOrder + k - 1 - t], a[k]);
-    }
-#pragma unroll
-    for (int q = 0; q < (kMaxOrder - R) / 4; ++q) {
-      if (q < m) {                            // uniform over the block
-#pragma unroll
-        for (int t = 0; t < 4; ++t) {
-          const int j = R + 4 * q + t;
-          const double cv = co[j];
-#pragma unroll
-          for (int k = 0; k < kPer; ++k)
-            a[k] = fma(cv, wd[kMaxOrder + k - 1 - j], a[k]);
-        }
-      }
-    }
+  for (int t = 0; t < R; ++t) {
+    const double cv = co[t];
 #pragma unroll
     for (int k = 0; k < kPer; ++k)
-      pred[k] = __funnelshift_r(static_cast<unsigned>(__double2loint(a[k])),
-                                static_cast<unsigned>(__double2hiint(a[k])),
-                                s);
-  } else {
-    const int* co = static_cast<const int*>(c) + (o - 1) * kMaxOrder;
-    long long a[kPer];
-#pragma unroll
-    for (int k = 0; k < kPer; ++k) a[k] = 0;
-#pragma unroll
-    for (int t = 0; t < R; ++t) {
-      const int cv = co[t];
-#pragma unroll
-      for (int k = 0; k < kPer; ++k)
-        a[k] = mad_wide(cv, w[kMaxOrder + k - 1 - t], a[k]);
-    }
-#pragma unroll
-    for (int q = 0; q < (kMaxOrder - R) / 4; ++q) {
-      if (q < m) {                            // uniform over the block
-#pragma unroll
-        for (int t = 0; t < 4; ++t) {
-          const int j = R + 4 * q + t;
-          const int cv = co[j];
-#pragma unroll
-          for (int k = 0; k < kPer; ++k)
-            a[k] = mad_wide(cv, w[kMaxOrder + k - 1 - j], a[k]);
-        }
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < kPer; ++k)
-      pred[k] = __funnelshift_r(
-          static_cast<unsigned>(a[k]),
-          static_cast<unsigned>(static_cast<unsigned long long>(a[k]) >> 32),
-          s);
+      a[k] = fma(cv, wd[kMaxOrder + k - 1 - t], a[k]);
   }
+#pragma unroll
+  for (int q = 0; q < (kMaxOrder - R) / 4; ++q) {
+    if (q < m) {                              // uniform over the block
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        const int j = R + 4 * q + t;
+        const double cv = co[j];
+#pragma unroll
+        for (int k = 0; k < kPer; ++k)
+          a[k] = fma(cv, wd[kMaxOrder + k - 1 - j], a[k]);
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kPer; ++k)
+    pred[k] = __funnelshift_r(static_cast<unsigned>(__double2loint(a[k])),
+                              static_cast<unsigned>(__double2hiint(a[k])),
+                              s);
 }
 
-template <bool kFp64, bool kUnrollOrders>
+template <bool kUnrollOrders>
 __global__ void __launch_bounds__(kThreads)
 granule_kernel(const int* __restrict__ x, const int* __restrict__ coefs,
                const int* __restrict__ shifts,
                unsigned long long* __restrict__ out, int B, int max_order,
                int gs_log2) {
-  using Coef = std::conditional_t<kFp64, double, int>;
   __shared__ __align__(16) int xs[kMaxOrder + kTile];    // halo, then tile
-  __shared__ __align__(16) Coef c[kMaxOrder * kMaxOrder];  // [order-1][tap]
+  __shared__ __align__(16) double c[kMaxOrder * kMaxOrder];  // [order-1][tap]
   __shared__ int sh[kMaxOrder];
 
   const size_t n = blockIdx.y;
@@ -185,10 +144,8 @@ granule_kernel(const int* __restrict__ x, const int* __restrict__ coefs,
     w[k + 2] = q.z;
     w[k + 3] = q.w;
   }
-  if constexpr (kFp64) {
 #pragma unroll
-    for (int k = 0; k < kWin; ++k) wd[k] = w[k];
-  }
+  for (int k = 0; k < kWin; ++k) wd[k] = w[k];
 
   const bool warm = i0 < kMaxOrder;
   const int lane = threadIdx.x & 31;
@@ -203,7 +160,7 @@ granule_kernel(const int* __restrict__ x, const int* __restrict__ coefs,
     constexpr int R = decltype(residue)::value;
     const int o = 4 * m + R;
     unsigned pred[kPer];
-    predictions<kFp64, R>(m, w, wd, c, sh[o - 1], pred);
+    predictions<R>(m, wd, c, sh[o - 1], pred);
     unsigned z[kPer];
 #pragma unroll
     for (int k = 0; k < kPer; ++k) {
@@ -251,12 +208,12 @@ granule_kernel(const int* __restrict__ x, const int* __restrict__ coefs,
   }
 }
 
-template <bool kFp64, bool kUnrollOrders>
+template <bool kUnrollOrders>
 int launch(const int* x, const int* coefs, const int* shifts, long long* out,
            int N, int B, int max_order, int gs_log2, cudaStream_t stream) {
   if (N > 0 && B > 0) {
     const dim3 grid((B + kTile - 1) / kTile, N);
-    granule_kernel<kFp64, kUnrollOrders><<<grid, kThreads, 0, stream>>>(
+    granule_kernel<kUnrollOrders><<<grid, kThreads, 0, stream>>>(
         x, coefs, shifts, reinterpret_cast<unsigned long long*>(out), B,
         max_order, gs_log2);
   }
@@ -266,40 +223,23 @@ int launch(const int* x, const int* coefs, const int* shifts, long long* out,
 }  // namespace
 
 // x int32 [N, B], coefs int32 [N, max_order, max_order] (row o-1 holds
-// order o's taps, |c| < 2^14), shifts int32 [N, max_order] with
-// 0 <= shift <= 15 -> out int64 [N, max_order, B >> gs_log2];
-// 2 <= gs_log2 <= 7 and B % (1 << gs_log2) == 0, checked by the caller.
+// order o's taps), shifts int32 [N, max_order] -> out int64
+// [N, max_order, B >> gs_log2]; 2 <= gs_log2 <= 7 and B % (1 << gs_log2)
+// == 0, checked by the caller.
+// Precondition, not checked here: |coef| < 2^14 and 0 <= shift <= 15.
+// Outside it the float64 sums are no longer exact and the result is wrong
+// without an error. ops/lpc.py: quantize_lpc_coefs gives exactly this
+// range at the encoder's precision, params.LPC_PRECISION = 15
+// (|coef| <= 2^14 - 1, the shift clamped to 0..15), and
+// tests/test_torch_sweep_granules.py holds that, so a change of precision
+// fails a test.
 extern "C" int flake_sweep_granules(const int* x, const int* coefs,
                                     const int* shifts, long long* out, int N,
                                     int B, int max_order, int gs_log2,
                                     cudaStream_t stream) {
   return max_order <= kUnrollUpTo
-             ? launch<true, true>(x, coefs, shifts, out, N, B, max_order,
-                                  gs_log2, stream)
-             : launch<true, false>(x, coefs, shifts, out, N, B, max_order,
-                                   gs_log2, stream);
-}
-
-// the same sums by the other forms of the kernel, which chip_smoke.py
-// times beside the entry above: form 1, the integer pipes; 2, the FP64
-// pipe with the order loop unrolled (what the entry above runs up to
-// order kUnrollUpTo); 3, the integer pipes with the order loop unrolled
-extern "C" int flake_sweep_granules_form(int form, const int* x,
-                                         const int* coefs, const int* shifts,
-                                         long long* out, int N, int B,
-                                         int max_order, int gs_log2,
-                                         cudaStream_t stream) {
-  switch (form) {
-    case 1:
-      return launch<false, false>(x, coefs, shifts, out, N, B, max_order,
-                                  gs_log2, stream);
-    case 2:
-      return launch<true, true>(x, coefs, shifts, out, N, B, max_order,
-                                gs_log2, stream);
-    case 3:
-      return launch<false, true>(x, coefs, shifts, out, N, B, max_order,
-                                 gs_log2, stream);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+             ? launch<true>(x, coefs, shifts, out, N, B, max_order, gs_log2,
+                            stream)
+             : launch<false>(x, coefs, shifts, out, N, B, max_order, gs_log2,
+                             stream);
 }

@@ -37,11 +37,9 @@ from flake_tpu_torch import _cuda
 from flake_tpu_torch.ops.common import U32_MASK, wrap_int32
 
 LANE = 128
-# K3's launch (csrc/bitmerge.cu): threads a block, one of the 128, 256 and
-# 512 the source instantiates (PERF.md §6 times all three), and the most
-# bytes of shared memory a frame's words may take; a larger frame goes to
-# the instantiation that ORs into device memory
-MERGE_THREADS = 256
+# the most bytes of shared memory K3 (csrc/bitmerge.cu) stages a frame's
+# words in; a larger frame goes to the instantiation that ORs into device
+# memory
 MERGE_SHARED_CAP = 96 * 1024
 
 
@@ -125,8 +123,7 @@ def merge_words(lengths: torch.Tensor, leading: torch.Tensor,
     words = torch.empty((F, word_rows, LANE), dtype=torch.int32, device=dev)
     total_bits = torch.empty((F,), dtype=torch.int32, device=dev)
     _cuda.launch("flake_merge_words", dev, lengths, leading, payload, words,
-                 total_bits, F, M, word_rows * LANE, MERGE_THREADS,
-                 int(shared))
+                 total_bits, F, M, word_rows * LANE, int(shared))
     merge_words.launches += 1
     merge_words.launches_by["shared" if shared else "global"] += 1
     return words, total_bits

@@ -8,8 +8,12 @@ room for two blocks on an SM of an H100 (227 KiB a block, 228 KiB an SM).
 The frame sizes are those of the streams the encoder is given.
 """
 
+import pathlib
+import re
+
 import pytest
 
+from flake_tpu_torch import _cuda
 from flake_tpu_torch import params as P
 from flake_tpu_torch.ops import bitmerge, bitpack, frame
 
@@ -49,4 +53,11 @@ def test_cap_is_a_word_row_boundary_and_fits_the_card():
 
 
 def test_threads_are_an_instantiated_block_size():
-    assert bitmerge.MERGE_THREADS in (128, 256, 512)
+    """The kernel compiles one block size, whole warps, and its entry
+    takes no block size: the pointers, F, M, W, the instantiation and the
+    stream."""
+    src = (pathlib.Path(bitmerge.__file__).parents[1] / "csrc"
+           / "bitmerge.cu").read_text()
+    threads = int(re.search(r"constexpr int kThreads = (\d+);", src)[1])
+    assert threads % 32 == 0 and 32 <= threads <= 1024
+    assert len(_cuda.SIGNATURES["flake_merge_words"]) == 9

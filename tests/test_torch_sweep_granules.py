@@ -183,3 +183,24 @@ def test_search_picks_the_lowest_order_on_ties():
     want = np.asarray(jnp.argmin(jnp.asarray(bits), axis=-1)) + 1
     np.testing.assert_array_equal(got.numpy(), want)
     assert got[0] == 1 and got[1] == 3
+
+
+@pytest.mark.parametrize("level", [7, 8, 10, 12])
+def test_quantized_coefs_fit_the_fp64_kernel(level):
+    """K4 sums its products as float64 FMAs, exact only for |coef| < 2^14
+    and shifts of 0-15 (``csrc/sweep_granules.cu``), and its wrapper does
+    not check them. The encoder's frame configuration and
+    ``quantize_lpc_coefs`` at its precision must stay inside that range for
+    coefficient rows of every magnitude, so that a change of precision
+    fails here and not in the sums."""
+    cfg = tframe.FrameConfig.from_params(TP.set_defaults(level), 2, 16)
+    assert cfg.precision == TP.LPC_PRECISION <= 15
+    rng = np.random.default_rng(level)
+    mag = 10.0 ** rng.uniform(-9, 9, (256, 32, 1))
+    rows = torch.from_numpy(rng.standard_normal((256, 32, 32)) * mag)
+    rows[0] = 0.0
+    rows[1, :, 0] = 1e12
+    qc, sh = tlpc.quantize_lpc_coefs(rows, cfg.precision)
+    assert int(qc.abs().max()) < 1 << 14
+    assert int(sh.min()) >= 0 and int(sh.max()) <= 15
+
