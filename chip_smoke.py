@@ -7,8 +7,9 @@ variants of the emission-profiling tool, U2, the merge prototypes
 ``merge_v2`` and ``merge_v3``, U3a/U3b, the combined-node merges
 ``merge_v5a`` and ``merge_v5b``, and U3c-U3f, their row-layout forms
 ``merge_v5d`` and ``merge_v5c`` with the zero floors ``merge_zero_rows`` and
-``merge_zero_fb``) and its host libraries (CRC
-patcher, decoder helpers) from this checkout, and holds each kernel
+``merge_zero_fb``, one kernel with U1's zero variant) and its host
+libraries (CRC patcher, decoder helpers) from this checkout, and holds
+each kernel
 against its plain PyTorch version: K1-K3 on the inputs the first level-8
 batch gives them (its sweep's, which the route gives K4, for K2), K4 (and
 K1 at 33 lags, K3 on 8192-sample frames) on the
@@ -22,10 +23,15 @@ sub-block size and the tails). Every kernel's time stands beside its
 plain version's, its bound (bytes over the memory rate or operations
 over the peak rate of their type outside the tensor cores, whichever is
 larger; the sweeps' also at the float64 tensor cores' rate) and, where
-one PyTorch call computes the same function, that call's time. K1-K4 are also timed beside their first designs
-(``flake_tpu_torch/csrc/yardsticks``, built into a library of their own
-and held against the plain versions too): K1-K3 on the level-8 batch, K1
-and K4 on the level-12 8192 bucket, and K2 on every order-32 shape of the
+one PyTorch call computes the same function, that call's time (for K1 a
+grouped float64 ``conv1d``, held against K1's plain version first).
+K1-K4, ``merge_v2`` and the zero floor are also timed beside their first
+designs (``flake_tpu_torch/csrc/yardsticks``, built into a library of
+their own and held against the plain versions too): K1-K3 on the level-8
+batch, K1 and K4 on the level-12 8192 bucket, ``merge_v2`` at 1, 4, 8 and
+16 frames a TPU program and the zero floors at 1, 8, 16 and 32 on the
+tools' ``music`` batch (the floor also beside its form by bulk
+asynchronous stores), and K2 on every order-32 shape of the
 level-12 stream, where K4 is timed beside them wherever it can sum the
 shape (the table of the K2/K4 route). K3 is timed in both its
 instantiations (a frame's words staged in shared memory, or ORed into
@@ -254,13 +260,16 @@ def nbytes(*tensors) -> int:
 
 def build_yardsticks():
     """Build ``flake_tpu_torch/csrc/yardsticks`` (the first designs of K1-K4,
-    K4's design on the integer pipes and the card's rate probes) into a
-    library of their own. Returns (the compiler's report, a dict of
-    functions): ``k1_before`` to ``k4_before`` take the wrappers'
-    arguments and launch the first designs (K3's zeroes its words first,
-    as its wrapper did), ``k4_int`` K4's design on the integer pipes;
-    ``mad_wide``, ``imad`` and ``dfma`` measure the card's rate of each
-    operation, in operations a ms."""
+    of ``merge_v2`` and of the zero floor, K4's design on the integer pipes,
+    the zero floor by bulk asynchronous stores and the card's rate probes)
+    into a library of their own. Returns (the compiler's report, a dict of
+    functions): ``k1_before`` to ``k4_before`` and ``v2_before`` take the
+    wrappers' arguments and launch the first designs (K3's zeroes its
+    words first, as its wrapper did), ``zero_before(F, word_rows, fb)`` and
+    ``zero_bulk(F, word_rows)`` write the zero floor, ``k4_int`` is K4's
+    design on the integer pipes, ``launch_floor(blocks, threads)``
+    launches an empty kernel; ``mad_wide``, ``imad`` and ``dfma`` measure
+    the card's rate of each operation, in operations a ms."""
     import ctypes
 
     import torch
@@ -282,6 +291,10 @@ def build_yardsticks():
     lib.flake_rate_mad_wide.argtypes = [P, I, I, I, P]
     lib.flake_rate_imad.argtypes = [P, I, I, I, P]
     lib.flake_rate_dfma.argtypes = [P, I, I, I, P]
+    lib.flake_prof_merge_v2_v1.argtypes = [P] * 5 + [I] * 4 + [P]
+    lib.flake_zero_floor_v1.argtypes = [P, I, I, I, P]
+    lib.flake_zero_floor_bulk.argtypes = [P, I, I, P]
+    lib.flake_launch_floor.argtypes = [I, I, P]
 
     def call(fn, *args):
         rc = fn(*[P(a.data_ptr()) if isinstance(a, torch.Tensor) else a
@@ -323,6 +336,20 @@ def build_yardsticks():
              gs.bit_length() - 1)
         return out
 
+    def v2_before(w0t, hit, lot, chunk_bits, word_rows, fb):
+        F, _, nc = w0t.shape
+        words = torch.empty((F, word_rows, 128), dtype=torch.int32,
+                            device=w0t.device)
+        call(lib.flake_prof_merge_v2_v1, chunk_bits, w0t, hit, lot, words, F,
+             nc, word_rows * 128, fb)
+        return words
+
+    def zero_floor(fn, F, word_rows, *fb):
+        words = torch.empty((F, word_rows, 128), dtype=torch.int32,
+                            device="cuda")
+        call(fn, words, F, word_rows * 128, *fb)
+        return words
+
     def rate(fn, dtype):
         """Operations a ms of ``fn`` on 8 blocks of 256 threads an SM."""
         blocks, threads, iters = 8 * 132, 256, 256
@@ -335,6 +362,13 @@ def build_yardsticks():
         "k3_before": k3_before,
         "k4_before": lambda *a: k4_on(lib.flake_sweep_granules_v1, *a),
         "k4_int": lambda *a: k4_on(lib.flake_sweep_granules_int, *a),
+        "v2_before": v2_before,
+        "zero_before": lambda F, wr, fb: zero_floor(lib.flake_zero_floor_v1,
+                                                    F, wr, fb),
+        "zero_bulk": lambda F, wr: zero_floor(lib.flake_zero_floor_bulk, F,
+                                              wr),
+        "launch_floor": lambda blocks, threads: call(lib.flake_launch_floor,
+                                                     blocks, threads),
         "mad_wide": lambda: rate(lib.flake_rate_mad_wide, torch.int64),
         "imad": lambda: rate(lib.flake_rate_imad, torch.int32),
         "dfma": lambda: rate(lib.flake_rate_dfma, torch.float64)}
@@ -410,9 +444,10 @@ def main() -> None:
         if "registers" in line or "spill" in line or "Compiling" in line:
             print("  ptxas:", line.strip())
     report, yard = build_yardsticks()
-    print("build the yardsticks: K1's to K4's first designs, K4 on the "
-          "integer pipes, the rate probes (flake_tpu_torch/csrc/yardsticks)",
-          flush=True)
+    print("build the yardsticks: K1's to K4's, merge_v2's and the zero "
+          "floor's first designs, K4 on the integer pipes, the zero floor by "
+          "bulk asynchronous stores, the rate probes and an empty kernel "
+          "(flake_tpu_torch/csrc/yardsticks)", flush=True)
     for line in report.splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             print("  ptxas:", line.strip())
@@ -546,6 +581,52 @@ def main() -> None:
         if before is not None:
             kernels[-1]["ms_before"] = ms_before
 
+    def at_every_fb(name, fbs, kern_at, before_at, plain):
+        """Hold a kernel and its first design against the plain version's
+        ``plain`` words at every ``fb`` of ``fbs``, and time both in turns
+        at each: ``ms_by_fb`` and ``ms_before_by_fb`` of the kernel's last
+        entry."""
+        entry = kernels[-1]
+        entry["ms_by_fb"], entry["ms_before_by_fb"] = {}, {}
+        for fb in fbs:
+            for label, fn in (("the kernel", kern_at),
+                              ("the first design", before_at)):
+                got = fn(fb)
+                torch.cuda.synchronize()
+                if not torch.equal(got, plain):
+                    fail(f"{name}: {label} at fb {fb} disagrees with the "
+                         "plain version")
+            entry["ms_by_fb"][fb], entry["ms_before_by_fb"][fb] = time_turns(
+                lambda: kern_at(fb), lambda: before_at(fb))
+        print(f"{name} at fb {list(fbs)}, each bit-exact against the plain "
+              f"version: kernel "
+              f"{[round(v, 4) for v in entry['ms_by_fb'].values()]} ms, "
+              f"first design "
+              f"{[round(v, 4) for v in entry['ms_before_by_fb'].values()]} "
+              "ms", flush=True)
+
+    def k1_library_on(x, window, max_order):
+        """K1's library yardstick: one grouped float64 ``conv1d`` gives
+        every lag of every stream. The window multiply and the padding are
+        made here, outside the timed call; the caller adds the +2.0 bias
+        outside it too."""
+        d = x.to(torch.float64) * window
+        padded = torch.nn.functional.pad(d, (0, max_order))[None]
+        taps = d[:, None]
+
+        def run():
+            return torch.nn.functional.conv1d(padded, taps,
+                                              groups=d.shape[0])[0]
+        return run
+
+    def check_k1_library(label, run, want):
+        _, ok, detail = cmp_rel(f"autocorr library {label}", run() + 2.0,
+                                want)
+        print(f"K1's library call (grouped float64 conv1d) on {label}: "
+              f"{detail}", flush=True)
+        if not ok:
+            fail(f"the grouped conv1d does not give K1's lags on {label}")
+
     def sweep_ops(sx, order):
         """Operations of an order sweep: one multiply-add per sample,
         candidate order and tap, counted as one float64 FMA (two float64
@@ -581,6 +662,9 @@ def main() -> None:
             err = (a - b).abs().max().item()
         return float(err), same, f"bit-exact {same}"
 
+    k1_library = k1_library_on(x, window, max_o)
+    check_k1_library("the level-8 batch", k1_library,
+                     lpc.autocorr(x, max_o, window))
     phase("autocorr", "flake_tpu_torch/csrc/autocorr.cu",
           "flake_tpu/ops/pallas_autocorr.py:158",
           lambda: k1_mod.autocorr(x, window, max_o),
@@ -588,6 +672,7 @@ def main() -> None:
           # a window multiply per sample, a float64 multiply-add per sample
           # and lag
           (x, window), x.numel() * (1 + 2 * (max_o + 1)), FP64_OPS_PER_MS,
+          library=k1_library,
           before=lambda: yard["k1_before"](x, window, max_o))
     kernels[-1]["max_rel_err"] = rel_err["autocorr"]
     kernels[-1]["tolerance"] = f"{K1_REL_TOL:g} relative per element"
@@ -719,9 +804,12 @@ def main() -> None:
     ax, awin, a_mo = cap12["autocorr"][0]
     _, detail = check("autocorr", lambda: k1_mod.autocorr(ax, awin, a_mo),
                       lambda: lpc.autocorr(ax, a_mo, awin), cmp_rel)
-    k1_12 = dict(zip(("ms", "ms_before"), time_turns(
+    k1_library12 = k1_library_on(ax, awin, a_mo)
+    check_k1_library(f"the level-12 {vbs} bucket", k1_library12,
+                     lpc.autocorr(ax, a_mo, awin))
+    k1_12 = dict(zip(("ms", "ms_before", "library_ms"), time_turns(
         lambda: k1_mod.autocorr(ax, awin, a_mo),
-        lambda: yard["k1_before"](ax, awin, a_mo))))
+        lambda: yard["k1_before"](ax, awin, a_mo), k1_library12)))
     k1_12["bound_ms"], k1_12["bound_by"] = bound(
         nbytes(ax, awin) + ax.shape[0] * (a_mo + 1) * 8, ax.numel()
         * (1 + 2 * (a_mo + 1)), FP64_OPS_PER_MS)
@@ -730,7 +818,7 @@ def main() -> None:
         "level12_8192"] = k1_12
     print(f"K1 at {a_mo + 1} lags on x {tuple(ax.shape)}: {detail}; kernel "
           f"{k1_12['ms']:.4f} ms, first design {k1_12['ms_before']:.4f} ms, "
-          f"bound {k1_12['bound_ms']:.4f} ms by {k1_12['bound_by']}",
+          f"grouped conv1d {k1_12['library_ms']:.4f} ms, bound {k1_12['bound_ms']:.4f} ms by {k1_12['bound_by']}",
           flush=True)
     vl, vlead, vpay, vwr = cap12["merge_words"][0]
     _, detail = check("merge_words",
@@ -792,7 +880,8 @@ def main() -> None:
           "zero": (228, (), 0)}
     for name, (line, reads, ops) in u1.items():
         kern, plain = tool.VARIANTS[name]
-        phase(f"prof_merge_{name}", "flake_tpu_torch/csrc/prof_merge.cu",
+        phase(f"prof_merge_{name}", "flake_tpu_torch/csrc/zero_floor.cu"
+              if name == "zero" else "flake_tpu_torch/csrc/prof_merge.cu",
               f"util/prof_merge.py:141 (k_{name} :{line})",
               lambda kern=kern: kern(*parts, twr),
               lambda plain=plain: plain(*parts, twr), cmp_exact, reads, ops,
@@ -800,7 +889,9 @@ def main() -> None:
               library=(lambda: torch.zeros((tF, twr, 128), dtype=torch.int32,
                                            device=dev))
               if name == "zero" else None,
-              plain_is_one_kernel=name == "zero")
+              plain_is_one_kernel=name == "zero",
+              before=(lambda: yard["zero_before"](tF, twr, 1))
+              if name == "zero" else None)
     print(f"static2_matches: "
           f"{torch.equal(tool.merge_static2(*parts, twr), k5_run())}",
           flush=True)
@@ -917,8 +1008,9 @@ def main() -> None:
               f"differ from K5's words, the others equal them", flush=True)
 
     # times and bounds on the music batch, the shapes the tools time; v2 and
-    # v3 at fb = 8, the JAX tool's default. One scatter_add_ gives their
-    # words too, since they equal K5's there.
+    # v3 at fb = 8, the JAX tool's default, v2 (and its first design) also
+    # at every fb its tool times. One scatter_add_ gives their words too,
+    # since they equal K5's there.
     for name, line, body, ops in (("v2", 224, "k_v2 :193", 12),
                                   ("v3", 353, "k_v3 :328", 10)):
         kern = getattr(tool2, f"merge_{name}")
@@ -928,8 +1020,20 @@ def main() -> None:
               lambda kern=kern: kern(*parts, twr, 8),
               lambda plain=plain: plain(*parts, twr), cmp_exact,
               (cbits, w0t, hit, lot), ops * w0t.numel(), INT32_OPS_PER_MS,
-              library=k5_library)
+              library=k5_library,
+              before=(lambda: yard["v2_before"](*parts, twr, 8))
+              if name == "v2" else None)
         kernels[-1]["fb"] = 8
+        if name == "v2":
+            at_every_fb("merge_v2", (1, 4, 8, 16),
+                        lambda fb: kern(*parts, twr, fb),
+                        lambda fb: yard["v2_before"](*parts, twr, fb),
+                        plain(*parts, twr))
+            v2_ms, k5_same_ms = time_turns(lambda: kern(*parts, twr, 8),
+                                           k5_run)
+            kernels[-1].update(k5_ms_same_inputs=k5_same_ms)
+            print(f"info: merge_v2 {v2_ms:.4f} ms beside K5 {k5_same_ms:.4f} "
+                  "ms on the same parts", flush=True)
 
     def v5_read_bytes(v5):
         """What the v5 kernels must read of ``v5``: both cb tables, the
@@ -997,12 +1101,36 @@ def main() -> None:
                                  ("zero_rows", 1019, in_rows)):
         floor = getattr(tool3, f"merge_{name}")
         *kin, _ = parts_of["music"]
-        phase(f"prof_merge_{name}", "flake_tpu_torch/csrc/prof_merge3_rows.cu",
+        phase(f"prof_merge_{name}", "flake_tpu_torch/csrc/zero_floor.cu",
               f"util/prof_merge3.py:{line} (k_{name})",
               lambda floor=floor, kin=kin: floor(*kin, twr, 8), zeros_run,
               cmp_exact, (), 0, INT32_OPS_PER_MS, library=zeros_run,
-              plain_is_one_kernel=True)
+              plain_is_one_kernel=True,
+              before=lambda: yard["zero_before"](tF, twr, 8))
         kernels[-1]["fb"] = 8
+        at_every_fb(f"merge_{name}", (1, 8, 16, 32),
+                    lambda fb, floor=floor, kin=kin: floor(*kin, twr, fb),
+                    lambda fb: yard["zero_before"](tF, twr, fb), zeros_run())
+    # the zero floor's other form, by bulk asynchronous stores
+    bulk = yard["zero_bulk"](tF, twr)
+    torch.cuda.synchronize()
+    if not torch.equal(bulk, zeros_run()):
+        fail("the zero floor by bulk asynchronous stores does not give zeros")
+    # and the fixed cost of a launch: an empty kernel of one warp and one
+    # of the zero floor's grid (a block of 256 threads an SM)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    zero_ms, bulk_ms, zeros_ms, empty_ms, empty_grid_ms = time_turns(
+        lambda: tool3.merge_zero_rows(*in_rows["music"][:-1], twr, 8),
+        lambda: yard["zero_bulk"](tF, twr), zeros_run,
+        lambda: yard["launch_floor"](1, 32),
+        lambda: yard["launch_floor"](sms, 256))
+    kernels[-1].update(bulk_form_ms=bulk_ms, launch_floor_ms={
+        "1x32": empty_ms, f"{sms}x256": empty_grid_ms})
+    print(f"info: the zero floor {zero_ms:.4f} ms, by bulk asynchronous "
+          f"stores (csrc/yardsticks/zero_floor_bulk.cu) {bulk_ms:.4f} ms, "
+          f"torch.zeros {zeros_ms:.4f} ms; an empty kernel of 1 x 32 "
+          f"threads {empty_ms:.4f} ms, of {sms} x 256 {empty_grid_ms:.4f} "
+          "ms", flush=True)
 
     def v5_prep_run():
         return tool3.v5_parts(*tslots)

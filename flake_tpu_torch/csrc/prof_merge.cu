@@ -1,8 +1,9 @@
-// U1: four variants of K5 (bitmerge_aligned.cu) for the emission
-// profiling tool, flake_tpu_torch/util/prof_merge.py.
+// U1: three of the four variants of K5 (bitmerge_aligned.cu) for the
+// emission profiling tool, flake_tpu_torch/util/prof_merge.py; the fourth,
+// zero, is the tools' one zero floor in zero_floor.cu.
 //
 // Replaces the TPU kernels built by util/prof_merge.py: _mk (bodies
-// k_static2, k_fixedrow, k_nowin, k_zero). On the TPU each variant drops
+// k_static2, k_fixedrow, k_nowin). On the TPU each variant drops
 // one part of the merge kernel to show what that part costs: the loop
 // over the word rows a chunk can touch, the row-dependent store, the
 // 128 x 128 compares. Two of them (fixedrow, nowin) compute wrong words
@@ -14,8 +15,7 @@
 //   fixedrow  for every row from row0 to last_row of a chunk, the parts
 //             that fall into that row are added into row 0 at their lane;
 //   nowin     every row from row0 to last_row of a chunk gets the sum of
-//             the chunk's hi words on all 128 lanes;
-//   zero      the output zeroed: the launch-and-store floor.
+//             the chunk's hi words on all 128 lanes.
 //
 // row0 = chunk_bits[c] >> 12 and last_row = max((((chunk_bits[c + 1] - 1)
 // >> 5) + 1) >> 7, row0), with signed shifts, as the TPU kernels compute
@@ -144,14 +144,6 @@ nowin_kernel(const int* __restrict__ chunk_bits, const int* __restrict__ w0t,
     words[f * W + w] = smem[w / kLane];
 }
 
-__global__ void __launch_bounds__(kThreads)
-zero_kernel(const int* __restrict__ chunk_bits, const int* __restrict__ w0t,
-            const int* __restrict__ hit, const int* __restrict__ lot,
-            int* __restrict__ words, int nc, int W) {
-  const size_t f = blockIdx.x;
-  for (int w = threadIdx.x; w < W; w += kThreads) words[f * W + w] = 0;
-}
-
 // Busy-wait on the nanosecond timer; the cycle counter ends the wait too
 // (the SM clock stays under 4 GHz), should the timer stand still.
 __global__ void spin_kernel(unsigned long long ns) {
@@ -206,13 +198,6 @@ extern "C" int flake_prof_merge_nowin(
     int* words, int F, int nc, int W, cudaStream_t stream) {
   return launch(nowin_kernel, static_cast<size_t>(W / kLane) + 2 * nc + 1,
                 chunk_bits, w0t, hit, lot, words, F, nc, W, stream);
-}
-
-extern "C" int flake_prof_merge_zero(
-    const int* chunk_bits, const int* w0t, const int* hit, const int* lot,
-    int* words, int F, int nc, int W, cudaStream_t stream) {
-  return launch(zero_kernel, 0, chunk_bits, w0t, hit, lot, words, F, nc, W,
-                stream);
 }
 
 // keeps the stream busy for `us` microseconds

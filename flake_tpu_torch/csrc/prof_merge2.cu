@@ -25,15 +25,41 @@
 // A word at or past W is never written. Shifts are signed, as on the TPU.
 //
 // What bounds them on the card: bytes, as K5 (12 bytes per slot read, the
-// word block written once). Design as K5: the word block of one frame in
-// shared memory, inputs read in memory order (the chunk of element j of a
-// frame's [128, nc] array is j % nc), shared-memory atomicAdd on int, one
-// coalesced store. `fb` is the TPU tool's frames per program: a block
-// takes fb consecutive frames, one after the other through the same word
-// block (fb word blocks would not fit an SM at fb = 16), so the grid has
-// F / fb blocks and the words do not depend on fb.
+// word block written once: 61.7 MB, 0.0184 ms, on the tools' music batch).
+// Both keep a frame's word block in shared memory, add with shared-memory
+// atomicAdd on int (int32 addition in any order) and store the block with
+// coalesced writes.
+//
+// v2's design for the card: one block of 256 threads per frame, whatever
+// the TPU tool's fb (frames per program) is, so that no frame waits behind
+// another and four blocks an SM hold the tools' 512 frames in one wave. The
+// three inputs are read as 16-byte quads of four slots; a thread loads its
+// next quad as soon as it has added the one before, its first before the
+// block's barrier, and the SM's other warps cover the loads' latency (two or
+// four quads a thread in flight, or 128 or 512 threads a block, read slower
+// on an H100). A frame's
+// [128, nc] arrays start 512 nc bytes apart, so the quads are aligned
+// wherever the arrays are (else the same walk loads one slot at a time).
+// The chunk of element j is j % nc: each thread computes it once and
+// carries it forward by its fixed stride modulo nc. While the other warps
+// zero the word block, warp 0 builds a table of every chunk's cw, window
+// limit and early displacement in shared memory, so that a slot needs one
+// 16-byte shared load. The carry rows come from a warp prefix minimum: where
+// r_c does not decrease, ra_c = max(ra_{c-1}, min(r_c, ra_{c-1} + 2)) with
+// ra_{-1} = 0 equals min(2 (c + 1), min_{j <= c} (r_j + 2 (c - j))), that is
+// 2 c + min(2, min_{j <= c} (r_j - 2 j)) (flake_tpu_torch/util/prof_merge2.py:
+// v2_carry_rows_prefix_min states the same on the host).
+//
+// v3 keeps the TPU's geometry: a block takes fb consecutive frames, one
+// after the other through one word block (fb word blocks would not fit an
+// SM at fb = 16), so its grid has F / fb blocks; the words do not depend on
+// fb. The inputs are read in memory order (the chunk of element j of a
+// frame's [128, nc] array is j % nc).
 
 #include <cuda_runtime.h>
+
+#include <climits>
+#include <cstdint>
 
 namespace {
 
@@ -63,43 +89,117 @@ __device__ __forceinline__ void add_at(int* smem, int w, int value, int W) {
   if (value != 0 && w >= 0 && w < W) atomicAdd(smem + w, value);
 }
 
-// shared memory: word block [W], chunk bounds [nc + 1], early words [nc]
-__global__ void __launch_bounds__(kThreads)
+constexpr int kV2Threads = 256;
+
+// Warp 0 fills table[c] = (cw, lim, early, 0) for every chunk of a frame
+// whose chunk bounds are cb[0, nc]: a slot of chunk c adds where
+// 0 <= w0 - cw < lim (lim = 64 (windows kept), 64 to 256), at w0 - early in
+// the first window and at w0 in the others.
+__device__ __forceinline__ void v2_chunk_table(int4* table, const int* cb,
+                                               int nc) {
+  const int lane = threadIdx.x;
+  int carry = INT_MAX;   // min of r_j - 2 j over the chunks of earlier passes
+  for (int base = 0; base < nc; base += 32) {
+    const int c = base + lane;
+    const bool in = c < nc;
+    const int b0 = in ? cb[c] : 0;
+    const int b1 = in ? cb[c + 1] : 0;
+    const int r = b0 >> 12;
+    int m = in ? r - 2 * c : INT_MAX;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int o = __shfl_up_sync(0xffffffffu, m, d);
+      if (lane >= d) m = min(m, o);
+    }
+    m = min(m, carry);
+    carry = __shfl_sync(0xffffffffu, m, 31);
+    if (in) {
+      const int ra = 2 * c + min(2, m);
+      const int cw = b0 >> 5;
+      const int ext = ((b1 - 1) >> 5) - cw;
+      const int windows = 1 + min(3, max(0, ext >> 6));
+      table[c] = make_int4(cw, 64 * windows, kLane * (r - ra), 0);
+    }
+  }
+}
+
+// Adds the four slots of one quad, elements of chunks c, c + 1, ... mod nc.
+__device__ __forceinline__ void v2_add_quad(int* block_words,
+                                            const int4* table, int4 w, int4 h,
+                                            int4 l, int c, int nc, int W) {
+  const int ws[4] = {w.x, w.y, w.z, w.w};
+  const int hs[4] = {h.x, h.y, h.z, h.w};
+  const int ls[4] = {l.x, l.y, l.z, l.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int4 t = table[c];
+    const int rel = ws[k] - t.x;
+    if (static_cast<unsigned>(rel) < static_cast<unsigned>(t.y)) {
+      const int at = rel < 64 ? ws[k] - t.z : ws[k];
+      add_at(block_words, at, hs[k], W);
+      add_at(block_words, at + 1, ls[k], W);
+    }
+    if (++c == nc) c = 0;
+  }
+}
+
+template <bool kVec>
+__device__ __forceinline__ int4 load_quad(const int* p, int q) {
+  if (kVec) return reinterpret_cast<const int4*>(p)[q];
+  return make_int4(p[4 * q], p[4 * q + 1], p[4 * q + 2], p[4 * q + 3]);
+}
+
+// shared memory: word block [W], chunk table [nc] of int4. kVec: the inputs
+// and the output are 16-byte aligned.
+template <bool kVec>
+__global__ void __launch_bounds__(kV2Threads, 4)
 v2_kernel(const int* __restrict__ chunk_bits, const int* __restrict__ w0t,
           const int* __restrict__ hit, const int* __restrict__ lot,
-          int* __restrict__ words, int nc, int W, int fb) {
-  extern __shared__ int smem[];
-  int* cb = smem + W;
-  int* early = cb + nc + 1;   // 128 (r - ra) of each chunk
-  const int S = kLane * nc;
-  for (int i = 0; i < fb; ++i) {
-    const size_t f = static_cast<size_t>(blockIdx.x) * fb + i;
-    stage(smem, cb, chunk_bits, f, nc, W);
-    if (threadIdx.x == 0) {
-      int ra = 0;
-      for (int c = 0; c < nc; ++c) {
-        const int r = cb[c] >> 12;
-        const int up = r < ra + 2 ? r : ra + 2;
-        if (up > ra) ra = up;
-        early[c] = (r - ra) * kLane;
+          int* __restrict__ words, int nc, int W) {
+  extern __shared__ int4 shared4[];
+  int* block_words = reinterpret_cast<int*>(shared4);
+  int4* table = shared4 + W / 4;
+  const size_t f = blockIdx.x;
+  const int Q = 32 * nc;   // quads of a frame's [128, nc] array
+  const int* w0 = w0t + f * kLane * nc;
+  const int* hi = hit + f * kLane * nc;
+  const int* lo = lot + f * kLane * nc;
+  int q = threadIdx.x;
+  int4 wq, hq, lq;
+  if (q < Q) {
+    wq = load_quad<kVec>(w0, q);
+    hq = load_quad<kVec>(hi, q);
+    lq = load_quad<kVec>(lo, q);
+  }
+  if (threadIdx.x < 32) {
+    v2_chunk_table(table, chunk_bits + f * (nc + 1), nc);
+  } else {
+    for (int i = threadIdx.x - 32; i < W / 4; i += kV2Threads - 32)
+      shared4[i] = make_int4(0, 0, 0, 0);
+  }
+  __syncthreads();
+  if (Q > 0) {
+    int c = 4 * static_cast<int>(threadIdx.x) % nc;
+    const int step = 4 * kV2Threads % nc;
+    for (; q < Q; q += kV2Threads) {
+      v2_add_quad(block_words, table, wq, hq, lq, c, nc, W);
+      c += step;
+      if (c >= nc) c -= nc;
+      const int next = q + kV2Threads;
+      if (next < Q) {
+        wq = load_quad<kVec>(w0, next);
+        hq = load_quad<kVec>(hi, next);
+        lq = load_quad<kVec>(lo, next);
       }
     }
-    __syncthreads();
-    for (int j = threadIdx.x; j < S; j += kThreads) {
-      const int w = w0t[f * S + j];
-      const int h = hit[f * S + j];
-      const int l = lot[f * S + j];
-      const int c = j % nc;
-      const int cw = cb[c] >> 5;
-      const int rel = w - cw;
-      const int p = rel >> 6;
-      if (rel < 0 || p >= 4) continue;
-      if (p > 0 && ((cb[c + 1] - 1) >> 5) - cw < 64 * p) continue;
-      const int at = p == 0 ? w - early[c] : w;
-      add_at(smem, at, h, W);
-      add_at(smem, at + 1, l, W);
-    }
-    store(smem, words, f, W);
+  }
+  __syncthreads();
+  if (kVec) {
+    int4* out = reinterpret_cast<int4*>(words + f * W);
+    for (int i = threadIdx.x; i < W / 4; i += kV2Threads) out[i] = shared4[i];
+  } else {
+    for (int w = threadIdx.x; w < W; w += kV2Threads)
+      words[f * W + w] = block_words[w];
   }
 }
 
@@ -151,17 +251,46 @@ int launch(Prototype kernel, size_t shared_ints, const int* chunk_bits,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <bool kVec>
+int launch_v2(const int* chunk_bits, const int* w0t, const int* hit,
+              const int* lot, int* words, int F, int nc, int W,
+              cudaStream_t stream) {
+  const size_t bytes = static_cast<size_t>(W) * sizeof(int)
+      + static_cast<size_t>(nc) * sizeof(int4);
+  if (bytes > 48 * 1024) {
+    const cudaError_t rc = cudaFuncSetAttribute(
+        v2_kernel<kVec>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(bytes));
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+  }
+  v2_kernel<kVec><<<F, kV2Threads, bytes, stream>>>(chunk_bits, w0t, hit,
+                                                    lot, words, nc, W);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // chunk_bits int32 [F, nc + 1]; w0t, hit, lot int32 [F, 128, nc]
-// -> words int32 [F, W], W a multiple of 128; fb divides F
+// -> words int32 [F, W], W a multiple of 128. One block a frame.
+// Precondition: each frame's chunk_bits do not decrease and start at or
+// above 0 (aligned_parts makes them a running sum of bit lengths); the carry
+// rows' prefix-minimum form equals the TPU's recurrence only there.
 extern "C" int flake_prof_merge_v2(
     const int* chunk_bits, const int* w0t, const int* hit, const int* lot,
-    int* words, int F, int nc, int W, int fb, cudaStream_t stream) {
-  return launch(v2_kernel, static_cast<size_t>(W) + 2 * nc + 1, chunk_bits,
-                w0t, hit, lot, words, F, nc, W, fb, stream);
+    int* words, int F, int nc, int W, cudaStream_t stream) {
+  if (F <= 0) return 0;
+  if (W <= 0 || W % kLane != 0 || nc < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool aligned = ((reinterpret_cast<uintptr_t>(w0t)
+                         | reinterpret_cast<uintptr_t>(hit)
+                         | reinterpret_cast<uintptr_t>(lot)
+                         | reinterpret_cast<uintptr_t>(words)) & 15) == 0;
+  return aligned
+      ? launch_v2<true>(chunk_bits, w0t, hit, lot, words, F, nc, W, stream)
+      : launch_v2<false>(chunk_bits, w0t, hit, lot, words, F, nc, W, stream);
 }
 
+// as v2, with fb frames a block; fb divides F
 extern "C" int flake_prof_merge_v3(
     const int* chunk_bits, const int* w0t, const int* hit, const int* lot,
     int* words, int F, int nc, int W, int fb, cudaStream_t stream) {

@@ -1,13 +1,14 @@
-// U3c-U3f: the row-layout combined-node merges and their zero floors of
-// flake_tpu_torch/util/prof_merge3.py.
+// U3c-U3d: the row-layout combined-node merges of
+// flake_tpu_torch/util/prof_merge3.py (their zero floors, U3e and U3f, are
+// the tools' one zero floor in zero_floor.cu).
 //
 // Replaces the TPU kernels util/prof_merge3.py: merge_v5d (body k_v5d,
-// _mxu_chunk_d), merge_v5c (body k_v5c, _mxu_chunk), merge_zero_fb (k_zero_fb)
-// and merge_zero_rows (k_zero_rows). The inputs are the three node sets that
-// v5d_parts / v5c_parts make of a frame's slots: main and sp2, each w0 and
-// (A, B, C), and sp1, w0 and (A, B), with cb2 [F, nc2 + 1] and cb1
-// [F, nc1 + 1], whose low 31 bits are the bit offset of a chunk's first node
-// and whose bit 31 says that the chunk of sp2 or sp1 holds a spill at all.
+// _mxu_chunk_d) and merge_v5c (body k_v5c, _mxu_chunk). The inputs are the
+// three node sets that v5d_parts / v5c_parts make of a frame's slots: main
+// and sp2, each w0 and (A, B, C), and sp1, w0 and (A, B), with cb2
+// [F, nc2 + 1] and cb1 [F, nc1 + 1], whose low 31 bits are the bit offset of
+// a chunk's first node and whose bit 31 says that the chunk of sp2 or sp1
+// holds a spill at all.
 // The words A, B, C lie in rows, int32 [F, nc, 128]: a chunk is 512
 // contiguous bytes. w0 lies in rows too for v5d and in chunks, int32
 // [F, 128, nc], for v5c.
@@ -26,12 +27,11 @@
 //   A and B only).
 //
 // A word at or past W is never written (the TPU bodies index row0 + dr
-// without a bound). The zero floors take the same operands, read nothing and
-// write zeros, in the merges' launch geometry.
+// without a bound).
 //
 // What bounds the merges on the card: bytes (16 bytes per main node, the
 // flagged spill chunks, the word block written once). Design as v5a
-// (prof_merge3.cu) and merge_v2 (prof_merge2.cu): a block takes fb
+// (prof_merge3.cu) and merge_v3 (prof_merge2.cu): a block takes fb
 // consecutive frames, one after the other through one word block in shared
 // memory (fb word blocks would not fit an SM at fb = 16), shared-memory
 // atomicAdd on int, one coalesced store a frame. In rows the chunk of
@@ -111,14 +111,6 @@ rows_kernel(const int* __restrict__ cb2, const int* __restrict__ cb1,
   }
 }
 
-// Writes the fb word blocks of a program; reads nothing.
-__global__ void __launch_bounds__(kThreads)
-zero_kernel(int* __restrict__ words, int W, int fb) {
-  const size_t n = static_cast<size_t>(fb) * W;
-  int* out = words + static_cast<size_t>(blockIdx.x) * n;
-  for (size_t w = threadIdx.x; w < n; w += kThreads) out[w] = 0;
-}
-
 template <bool kDual>
 int launch(const int* cb2, const int* cb1, const int* mw, const int* ma,
            const int* mb, const int* mc, const int* s2w, const int* s2a,
@@ -138,13 +130,6 @@ int launch(const int* cb2, const int* cb1, const int* mw, const int* ma,
   rows_kernel<kDual><<<F / fb, kThreads, bytes, stream>>>(
       cb2, cb1, mw, ma, mb, mc, s2w, s2a, s2b, s2c, s1w, s1a, s1b, words, nc2,
       nc1, W, fb, kmax, kmax1);
-  return static_cast<int>(cudaGetLastError());
-}
-
-int launch_zero(int* words, int F, int W, int fb, cudaStream_t stream) {
-  if (F <= 0) return 0;
-  if (fb <= 0 || F % fb != 0) return static_cast<int>(cudaErrorInvalidValue);
-  zero_kernel<<<F / fb, kThreads, 0, stream>>>(words, W, fb);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -172,22 +157,4 @@ extern "C" int flake_prof_merge_v5c(
     int kmax, int kmax1, cudaStream_t stream) {
   return launch<true>(cb2, cb1, mw, ma, mb, mc, s2w, s2a, s2b, s2c, s1w, s1a,
                       s1b, words, F, nc2, nc1, W, fb, kmax, kmax1, stream);
-}
-
-// The zero floors: v5c's operands (zero_fb) and v5d's (zero_rows), none of
-// them read -> words int32 [F, W] of zeros; fb divides F
-extern "C" int flake_prof_merge_zero_fb(
-    const int*, const int*, const int*, const int*, const int*, const int*,
-    const int*, const int*, const int*, const int*, const int*, const int*,
-    const int*, int* words, int F, int, int, int W, int fb,
-    cudaStream_t stream) {
-  return launch_zero(words, F, W, fb, stream);
-}
-
-extern "C" int flake_prof_merge_zero_rows(
-    const int*, const int*, const int*, const int*, const int*, const int*,
-    const int*, const int*, const int*, const int*, const int*, const int*,
-    const int*, int* words, int F, int, int, int W, int fb,
-    cudaStream_t stream) {
-  return launch_zero(words, F, W, fb, stream);
 }

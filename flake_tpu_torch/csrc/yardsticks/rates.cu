@@ -7,8 +7,10 @@
 // so neither latency nor memory limits the count. Each operation takes
 // its chain's own last result as an operand that it multiplies, so the
 // compiler cannot lift a product out of the loop (with loop-invariant
-// factors it does, and the loop then times 64-bit adds). No path of the
-// package calls these; chip_smoke.py times them beside the kernels.
+// factors it does, and the loop then times 64-bit adds). Beside them, an
+// empty kernel: the fixed cost of a launch, timed back to back like the
+// short kernels it stands beside (the zero floor). No path of the package
+// calls these; chip_smoke.py times them beside the kernels.
 
 #include <cuda_runtime.h>
 
@@ -76,6 +78,8 @@ __global__ void dfma_kernel(double* out, int iters, double seed) {
   out[blockIdx.x * blockDim.x + threadIdx.x] = s;
 }
 
+__global__ void empty_kernel() {}
+
 }  // namespace
 
 // blocks x threads threads, each 8 * 16 * iters operations; out has one
@@ -95,5 +99,12 @@ extern "C" int flake_rate_imad(int* out, int blocks, int threads, int iters,
 extern "C" int flake_rate_dfma(double* out, int blocks, int threads,
                                int iters, cudaStream_t stream) {
   dfma_kernel<<<blocks, threads, 0, stream>>>(out, iters, 0.5);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// an empty kernel of blocks x threads threads
+extern "C" int flake_launch_floor(int blocks, int threads,
+                                  cudaStream_t stream) {
+  empty_kernel<<<blocks, threads, 0, stream>>>();
   return static_cast<int>(cudaGetLastError());
 }

@@ -32,8 +32,9 @@ the events time the card and not the host (:func:`device_ms`):
 The four variants are **U1**: they replace the TPU kernels that
 ``util/prof_merge.py:141 _mk`` builds around ``k_static2``, ``k_fixedrow``,
 ``k_nowin`` and ``k_zero``. Their CUDA source is
-``flake_tpu_torch/csrc/prof_merge.cu``; each has its plain PyTorch version
-here, which a CPU tensor takes.
+``flake_tpu_torch/csrc/prof_merge.cu``, and for ``zero`` the tools' one
+zero floor, ``flake_tpu_torch/csrc/zero_floor.cu``; each has its plain
+PyTorch version here, which a CPU tensor takes.
 
     python3 -m flake_tpu_torch.util.prof_merge [--device cpu] [--frames N]
 

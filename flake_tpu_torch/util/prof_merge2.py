@@ -34,11 +34,17 @@ function of its inputs that is K5's sum with three differences:
 four word rows, row0 always and row0 + 1..3 where the chunk reaches them
 (:func:`flake_tpu_torch.util.prof_merge.merge_first_rows_plain`).
 
-Neither writes a word row at or past the block's. ``fb`` is launch
-geometry and does not change the words: one CUDA block takes ``fb``
+Neither writes a word row at or past the block's. ``fb``, the frames a
+TPU program takes, does not change the words; both wrappers keep it and
+refuse one that does not divide the frames, as the TPU grid does. For
+``merge_v3`` it is launch geometry: one CUDA block takes ``fb``
 consecutive frames, one after the other through one word block in shared
-memory. The CUDA source is ``flake_tpu_torch/csrc/prof_merge2.cu``; a CPU
-tensor takes the plain version beside each wrapper.
+memory. ``merge_v2`` launches one block a frame whatever ``fb`` is, and
+builds the carry rows by a prefix minimum
+(:func:`v2_carry_rows_prefix_min`), which needs chunk bounds that do not
+decrease, as :func:`flake_tpu_torch.ops.bitpack.aligned_parts` makes them.
+The CUDA source is ``flake_tpu_torch/csrc/prof_merge2.cu``; a CPU tensor
+takes the plain version beside each wrapper.
 
     python3 -m flake_tpu_torch.util.prof_merge2 [--v3] [--device cpu] [--frames N]
 
@@ -90,6 +96,19 @@ def v2_carry_rows(chunk_bits: torch.Tensor) -> torch.Tensor:
     return torch.stack(rows, dim=1)
 
 
+def v2_carry_rows_prefix_min(chunk_bits: torch.Tensor) -> torch.Tensor:
+    """:func:`v2_carry_rows` in the closed form ``merge_v2``'s kernel
+    computes with a warp prefix minimum, int64 [F, nc]: ``ra_c = 2 c +
+    min(2, min_{j <= c} (r_j - 2 j))`` with ``r_j = chunk_bits[j] >> 12``.
+    It equals the recurrence where the rows do not decrease and start at
+    or above 0: the carry then never stands past ``r_c``, so the
+    recurrence's ``max`` keeps nothing and unrolls to ``min(2 (c + 1),
+    min_{j <= c} (r_j + 2 (c - j)))``."""
+    r = chunk_bits[:, :-1].to(torch.int64) >> 12
+    two_c = 2 * torch.arange(r.shape[1], device=r.device)
+    return two_c + torch.clamp(torch.cummin(r - two_c, dim=1).values, max=2)
+
+
 def merge_v2_plain(w0t, hit, lot, chunk_bits, word_rows):
     """Plain version of ``merge_v2``: K5's sum with the three differences
     the module's docstring lists."""
@@ -116,10 +135,11 @@ def merge_v3_plain(w0t, hit, lot, chunk_bits, word_rows):
                                   rows=4, reach=True)
 
 
-def _prototype(name: str, plain):
+def _prototype(name: str, plain, fb_blocks: bool):
     """The wrapper of one U2 kernel: K5's signature plus ``fb``, the frames
-    one CUDA block takes. A CPU tensor takes ``plain``; a CUDA tensor
-    launches the kernel."""
+    a TPU program takes, which must divide the frames; with ``fb_blocks``
+    one CUDA block takes ``fb`` frames, else one frame. A CPU tensor takes
+    ``plain``; a CUDA tensor launches the kernel."""
 
     def run(w0t, hit, lot, chunk_bits, word_rows, fb: int = 8):
         F = w0t.shape[0]
@@ -135,7 +155,8 @@ def _prototype(name: str, plain):
         words = torch.empty((F, word_rows, LANE), dtype=torch.int32,
                             device=w0t.device)
         _cuda.launch(f"flake_prof_merge_{name}", w0t.device, chunk_bits, w0t,
-                     hit, lot, words, F, nc, word_rows * LANE, fb)
+                     hit, lot, words, F, nc, word_rows * LANE,
+                     *((fb,) if fb_blocks else ()))
         run.launches += 1
         return words
 
@@ -145,8 +166,8 @@ def _prototype(name: str, plain):
     return run
 
 
-merge_v2 = _prototype("v2", merge_v2_plain)
-merge_v3 = _prototype("v3", merge_v3_plain)
+merge_v2 = _prototype("v2", merge_v2_plain, fb_blocks=False)
+merge_v3 = _prototype("v3", merge_v3_plain, fb_blocks=True)
 
 
 def _run(name, kernel, time_fbs, device, frames, iters):

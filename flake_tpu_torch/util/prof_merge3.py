@@ -45,9 +45,11 @@ array in rows; v5c reads each ``w0`` from the chunk layout, with a stride
 of ``nc`` ints between neighbouring threads. **U3e, merge_zero_fb** and
 **U3f, merge_zero_rows** (``:847``, ``:1019``) take v5c's and v5d's
 operands, read nothing and write zeros: the launch-and-store floor of the
-two. The CUDA source of the four is
-``flake_tpu_torch/csrc/prof_merge3_rows.cu``; :func:`merge_v5_rows_plain`
-is the plain version of both merges and ``torch.zeros`` that of the floors.
+two. The CUDA source of the merges is
+``flake_tpu_torch/csrc/prof_merge3_rows.cu``, that of the floors the tools'
+one zero floor, ``flake_tpu_torch/csrc/zero_floor.cu``, whose launch does
+not depend on ``fb``; :func:`merge_v5_rows_plain` is the plain version of
+both merges and ``torch.zeros`` that of the floors.
 
 The tool runs on the ``music`` and ``noise`` batches of
 :mod:`flake_tpu_torch.util.prof_merge2`, compares the merges' words with
@@ -312,8 +314,9 @@ def _zero_floor(name: str, dual: bool):
 
     run.launches = 0
     run.__name__ = run.__qualname__ = f"merge_{name}"
-    run.__doc__ = (f"U3 ``merge_{name}``: zeros int32 [F, word_rows, 128], "
-                   "``fb`` frames a block; reads nothing.")
+    run.__doc__ = (f"U3 ``merge_{name}``: zeros int32 [F, word_rows, 128]; "
+                   "``fb`` must divide F and does not shape the launch; "
+                   "reads nothing.")
     return run
 
 

@@ -27,7 +27,11 @@ at fb = 1, 8 and 16 and the combined-node merges ``merge_v5a`` and
 width and on those random tables, where they leave K5's words or flag both
 spill sets; the row-layout merges ``merge_v5d`` and ``merge_v5c`` on the
 same four at fb = 1 and 8 and at four and two static rows (the random
-tables and two rows overflow), and their zero floors.
+tables and two rows overflow), and their zero floors; ``merge_v2`` (one
+block a frame) at fb = 1, 4, 8, 16 and 32 and on inputs off a 16-byte
+boundary, the one zero floor behind U1's zero variant and U3e / U3f at fb
+= 1, 8, 16 and 32 and on a ragged 3 x 128 ints, and both writing into a
+view of a sentinel-filled buffer, on and off a 16-byte boundary.
 """
 
 import numpy as np
@@ -459,6 +463,111 @@ def test_row_layout_merge_kernels(dev, case, kmax):
                                              kmax - 1), want)
     assert torch.equal(prof_merge3.merge_v5c(*dual[:6], cb2, cb1, wr, 8, kmax,
                                              kmax - 1), want)
+
+
+@pytest.mark.parametrize("case", PROTOTYPE_CASES)
+def test_merge_v2_kernel_every_fb(dev, case):
+    """``merge_v2``, one block a frame, against its plain version at every
+    fb the tools use and at 32, one launch counted a call; an fb that does
+    not divide the frames is refused."""
+    slots, wr = _prototype_slots(dev, case)
+    parts = bitpack.aligned_parts(*slots)
+    want = prof_merge2.merge_v2_plain(*parts, wr)
+    for fb in (1, 4, 8, 16, 32):
+        before = prof_merge2.merge_v2.launches
+        got = prof_merge2.merge_v2(*parts, wr, fb)
+        assert prof_merge2.merge_v2.launches == before + 1
+        assert torch.equal(got, want), fb
+    with pytest.raises(ValueError, match="multiple"):
+        prof_merge2.merge_v2(*parts, wr, 5)
+
+
+def test_merge_v2_kernel_unaligned_inputs(dev):
+    """Input arrays that start off a 16-byte boundary take the kernel's
+    slot-by-slot loads and give the same words."""
+    slots, wr = _prototype_slots(dev, "random")
+    parts = bitpack.aligned_parts(*slots)
+    shifted = []
+    for t in parts[:3]:
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+        flat[1:] = t.flatten()
+        shifted.append(flat[1:].view(t.shape))
+    got = prof_merge2.merge_v2(*shifted, parts[3], wr, 8)
+    assert torch.equal(got, prof_merge2.merge_v2_plain(*parts, wr))
+
+
+def _floor_operands(dev, F):
+    """K5's parts and v5d's and v5c's operands of F random frames: what
+    the three zero floors take (and do not read)."""
+    slots, _ = _random_slots(F, 300, seed=F)
+    slots = tuple(t.to(dev) for t in slots)
+    *rows, _ = prof_merge3.v5d_parts(*slots)
+    *dual, _ = prof_merge3.v5c_parts(*slots)
+    return bitpack.aligned_parts(*slots), rows, dual
+
+
+@pytest.mark.parametrize("F,word_rows,fbs", [(64, 34, (1, 8, 16, 32)),
+                                             (3, 1, (1, 3))])
+def test_zero_floor_kernels(dev, F, word_rows, fbs):
+    """The one zero floor behind U1's zero variant and U3e / U3f gives
+    zeros at every fb, also where F * W is no multiple of a block's
+    stores (F = 3, one word row), one launch counted a call; an fb that
+    does not divide the frames is refused."""
+    parts, rows, dual = _floor_operands(dev, F)
+    zeros = torch.zeros((F, word_rows, 128), dtype=torch.int32, device=dev)
+    before = prof_merge.merge_zero.launches
+    assert torch.equal(prof_merge.merge_zero(*parts, word_rows), zeros)
+    assert prof_merge.merge_zero.launches == before + 1
+    for floor, kin in ((prof_merge3.merge_zero_rows, rows),
+                       (prof_merge3.merge_zero_fb, dual)):
+        for fb in fbs:
+            before = floor.launches
+            assert torch.equal(floor(*kin, word_rows, fb), zeros), fb
+            assert floor.launches == before + 1
+        with pytest.raises(ValueError, match="multiple"):
+            floor(*kin, word_rows, 2 if F == 3 else 5)
+
+
+SENTINEL = 0x5A5A5A5A
+
+
+@pytest.mark.parametrize("offset", [0, 1, 2, 3, 4])
+@pytest.mark.parametrize("F,word_rows", [(8, 34), (3, 1)])
+def test_kernels_write_their_block_only(dev, F, word_rows, offset):
+    """Each zero floor entry and ``merge_v2`` write into a view ``offset``
+    ints into a larger buffer prefilled with a sentinel: every word of the
+    [F, W] block is written and nothing around it is touched, whether the
+    view starts on a 16-byte boundary or not."""
+    from flake_tpu_torch import _cuda
+
+    parts, rows, dual = _floor_operands(dev, F)
+    W = word_rows * 128
+    nc = parts[0].shape[-1]
+    launches = {
+        "flake_prof_merge_zero": lambda out: (*parts[3:], *parts[:3], out, F,
+                                              nc, W),
+        "flake_prof_merge_zero_rows": lambda out: (
+            rows[6], rows[7], rows[0], *rows[1], rows[2], *rows[3], rows[4],
+            *rows[5], out, F, rows[1][0].shape[1], rows[5][0].shape[1], W,
+            1),
+        "flake_prof_merge_zero_fb": lambda out: (
+            dual[6], dual[7], dual[0], *dual[1], dual[2], *dual[3], dual[4],
+            *dual[5], out, F, dual[1][0].shape[1], dual[5][0].shape[1], W,
+            F),
+        "flake_prof_merge_v2": lambda out: (*parts[3:], *parts[:3], out, F,
+                                            nc, W)}
+    wants = {name: torch.zeros(F * W, dtype=torch.int32, device=dev)
+             for name in launches}
+    wants["flake_prof_merge_v2"] = prof_merge2.merge_v2_plain(
+        *parts, word_rows).flatten()
+    for name, args in launches.items():
+        buf = torch.full((offset + F * W + 7,), SENTINEL, dtype=torch.int32,
+                         device=dev)
+        _cuda.launch(name, dev, *args(buf[offset:offset + F * W]))
+        torch.cuda.synchronize()
+        assert bool((buf[:offset] == SENTINEL).all()), name
+        assert bool((buf[offset + F * W:] == SENTINEL).all()), name
+        assert torch.equal(buf[offset:offset + F * W], wants[name]), name
 
 
 def test_spin_and_device_ms(dev):
