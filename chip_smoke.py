@@ -25,13 +25,16 @@ over the peak rate of their type outside the tensor cores, whichever is
 larger; the sweeps' also at the float64 tensor cores' rate) and, where
 one PyTorch call computes the same function, that call's time (for K1 a
 grouped float64 ``conv1d``, held against K1's plain version first).
-K1-K4, ``merge_v2`` and the zero floor are also timed beside their first
-designs (``flake_tpu_torch/csrc/yardsticks``, built into a library of
-their own and held against the plain versions too): K1-K3 on the level-8
-batch, K1 and K4 on the level-12 8192 bucket, ``merge_v2`` at 1, 4, 8 and
-16 frames a TPU program and the zero floors at 1, 8, 16 and 32 on the
-tools' ``music`` batch (the floor also beside its form by bulk
-asynchronous stores), and K2 on every order-32 shape of the
+K1-K4, ``merge_v2``, ``merge_v3``, ``merge_v5d``, ``merge_v5c`` and the
+zero floor are also timed beside their first designs
+(``flake_tpu_torch/csrc/yardsticks``, built into a library of their own and
+held against the plain versions too): K1-K3 on the level-8 batch, K1 and
+K4 on the level-12 8192 bucket, ``merge_v2`` at 1, 4, 8 and 16 frames a
+TPU program, ``merge_v3`` at 1, 8 and 16, ``merge_v5d`` at 1, 8, 16 and 32,
+``merge_v5c`` at 1, 4, 8 and 16 and the zero floors at 1, 8, 16 and 32 on
+the tools' ``music`` batch (the row-layout merges on ``noise`` too, the
+floor also beside its form by bulk asynchronous stores), and K2 on every
+order-32 shape of the
 level-12 stream, where K4 is timed beside them wherever it can sum the
 shape (the table of the K2/K4 route). K3 is timed in both its
 instantiations (a frame's words staged in shared memory, or ORed into
@@ -39,7 +42,13 @@ device memory, which frames above its shared-memory cap take), K4 beside
 the same design on the integer pipes (``csrc/yardsticks/
 sweep_granules_int.cu``, held against the plain version too). Rate probes
 from the same folder measure the card's 32x32->64-bit and 32-bit integer
-multiply-add and float64 FMA rates. U2 and
+multiply-add and float64 FMA rates. ``merge_v3`` is timed beside
+``merge_v2`` and K5, ``merge_v5c`` beside ``merge_v5d`` on the same nodes,
+``merge_v5d`` and ``merge_v3`` with a cold L2 (a 64 MiB buffer written, or
+read, between calls), and the row-layout merges at other block sizes and
+grids (``csrc/yardsticks/prof_merge3_rows_alt.cu``). Every kernel's
+registers, spills and static shared bytes are printed from ``ptxas -v``
+as one JSON line. U2 and
 U3 are held against their plain versions bit for bit
 on the ``music`` and ``noise`` batches of their tools (512 frames of 4096;
 the noise frames are verbatim, in chunks of 68 words, past the first
@@ -48,7 +57,9 @@ thousands of bits, where ``merge_v2`` drops and misplaces parts,
 ``merge_v3`` drops rows and both spill sets of the combined nodes are
 flagged; ``merge_v5a``, ``merge_v5b``, K5 and K3 must give the same words
 on all three, and K5 is held against its plain version and K3 on the noise
-batch too. ``merge_v5d`` and ``merge_v5c`` (at 1 and 8 frames a block) must
+batch too; ``merge_v2`` and ``merge_v3`` are held at every fb they are
+timed at.
+``merge_v5d`` and ``merge_v5c`` (at every fb they are timed at) must
 equal their plain version on all three, K5's and K3's words on the two
 batches, where no frame may overflow the static rows, and K5's words on the
 frames of the made-up table that do not overflow them (some must); the zero
@@ -127,6 +138,11 @@ WIDE_STREAMS = {"24-bit/96 kHz stereo": (2, 24, 96000, 8, 30),
                 "8-channel/96 kHz 24-bit": (8, 24, 96000, 5, 4)}
 WIDE_PARITY_SECONDS = 2  # of each, through the CPU and the CUDA encoder
 K1_REL_TOL = 5e-11      # tests/test_pallas_autocorr.py:55
+# the frames a TPU program takes at which the merge prototypes are held and
+# timed: those their tools time, and 1 and 8 (merge_v5d) and 1 (merge_v5c)
+# besides
+U2_FBS = {"v2": (1, 4, 8, 16), "v3": (1, 8, 16)}
+U3_FBS = {"merge_v5d": (1, 8, 16, 32), "merge_v5c": (1, 4, 8, 16)}
 # Published peaks of one H100 SXM (NVIDIA's data sheet): 3.35 TB/s of HBM3;
 # 67 TFLOP/s float32 outside the tensor cores, float64 at half of it. An SM
 # has half as many int32 lanes as float32 lanes, so int32 operations peak
@@ -260,12 +276,16 @@ def nbytes(*tensors) -> int:
 
 def build_yardsticks():
     """Build ``flake_tpu_torch/csrc/yardsticks`` (the first designs of K1-K4,
-    of ``merge_v2`` and of the zero floor, K4's design on the integer pipes,
-    the zero floor by bulk asynchronous stores and the card's rate probes)
-    into a library of their own. Returns (the compiler's report, a dict of
-    functions): ``k1_before`` to ``k4_before`` and ``v2_before`` take the
-    wrappers' arguments and launch the first designs (K3's zeroes its
-    words first, as its wrapper did), ``zero_before(F, word_rows, fb)`` and
+    of ``merge_v2``, ``merge_v3``, ``merge_v5d``, ``merge_v5c`` and of the
+    zero floor, the row-layout merges at other geometries, K4's design on
+    the integer pipes, the zero floor by bulk asynchronous stores and the
+    card's rate probes) into a library of their own. Returns (the
+    compiler's report, a dict of functions): ``k1_before`` to ``k4_before``,
+    ``v2_before``, ``v3_before``, ``v5d_before`` and ``v5c_before`` take the
+    wrappers' arguments and launch the first designs (K3's zeroes its words
+    first, as its wrapper did), ``rows_form(dual, threads, stage_spill,
+    blocks, operands, word_rows)`` launches ``merge_v5d`` (``dual`` 0) or
+    ``merge_v5c`` (1) in another form, ``zero_before(F, word_rows, fb)`` and
     ``zero_bulk(F, word_rows)`` write the zero floor, ``k4_int`` is K4's
     design on the integer pipes, ``launch_floor(blocks, threads)``
     launches an empty kernel; ``mad_wide``, ``imad`` and ``dfma`` measure
@@ -292,6 +312,11 @@ def build_yardsticks():
     lib.flake_rate_imad.argtypes = [P, I, I, I, P]
     lib.flake_rate_dfma.argtypes = [P, I, I, I, P]
     lib.flake_prof_merge_v2_v1.argtypes = [P] * 5 + [I] * 4 + [P]
+    lib.flake_prof_merge_v3_v1.argtypes = [P] * 5 + [I] * 4 + [P]
+    lib.flake_prof_merge_v5d_v1.argtypes = [P] * 14 + [I] * 7 + [P]
+    lib.flake_prof_merge_v5c_v1.argtypes = [P] * 14 + [I] * 7 + [P]
+    lib.flake_prof_merge_rows_alt.argtypes = [I] * 4 + [P] * 14 + [I] * 6 \
+        + [P]
     lib.flake_zero_floor_v1.argtypes = [P, I, I, I, P]
     lib.flake_zero_floor_bulk.argtypes = [P, I, I, P]
     lib.flake_launch_floor.argtypes = [I, I, P]
@@ -336,12 +361,34 @@ def build_yardsticks():
              gs.bit_length() - 1)
         return out
 
-    def v2_before(w0t, hit, lot, chunk_bits, word_rows, fb):
+    def u2_before(fn, w0t, hit, lot, chunk_bits, word_rows, fb):
         F, _, nc = w0t.shape
         words = torch.empty((F, word_rows, 128), dtype=torch.int32,
                             device=w0t.device)
-        call(lib.flake_prof_merge_v2_v1, chunk_bits, w0t, hit, lot, words, F,
-             nc, word_rows * 128, fb)
+        call(fn, chunk_bits, w0t, hit, lot, words, F, nc, word_rows * 128,
+             fb)
+        return words
+
+    def rows_operands(kin):
+        """The pointers of a row-layout merge, in the entry points' order."""
+        mainw, mainr, sp2w, sp2r, sp1w, sp1r, cb2, cb1 = kin
+        return (cb2, cb1, mainw, *mainr, sp2w, *sp2r, sp1w, *sp1r)
+
+    def rows_shape(kin, word_rows):
+        F, nc2, _ = kin[1][0].shape
+        return (torch.empty((F, word_rows, 128), dtype=torch.int32,
+                            device=kin[0].device),
+                F, nc2, kin[5][0].shape[1], word_rows * 128)
+
+    def rows_before(fn, kin, word_rows, fb, kmax=4, kmax1=3):
+        words, *dims = rows_shape(kin, word_rows)
+        call(fn, *rows_operands(kin), words, *dims, fb, kmax, kmax1)
+        return words
+
+    def rows_form(dual, threads, stage_spill, blocks, kin, word_rows):
+        words, *dims = rows_shape(kin, word_rows)
+        call(lib.flake_prof_merge_rows_alt, dual, threads, stage_spill,
+             blocks, *rows_operands(kin), words, *dims, 4, 3)
         return words
 
     def zero_floor(fn, F, word_rows, *fb):
@@ -362,7 +409,11 @@ def build_yardsticks():
         "k3_before": k3_before,
         "k4_before": lambda *a: k4_on(lib.flake_sweep_granules_v1, *a),
         "k4_int": lambda *a: k4_on(lib.flake_sweep_granules_int, *a),
-        "v2_before": v2_before,
+        "v2_before": lambda *a: u2_before(lib.flake_prof_merge_v2_v1, *a),
+        "v3_before": lambda *a: u2_before(lib.flake_prof_merge_v3_v1, *a),
+        "v5d_before": lambda *a: rows_before(lib.flake_prof_merge_v5d_v1, *a),
+        "v5c_before": lambda *a: rows_before(lib.flake_prof_merge_v5c_v1, *a),
+        "rows_form": rows_form,
         "zero_before": lambda F, wr, fb: zero_floor(lib.flake_zero_floor_v1,
                                                     F, wr, fb),
         "zero_bulk": lambda F, wr: zero_floor(lib.flake_zero_floor_bulk, F,
@@ -372,6 +423,51 @@ def build_yardsticks():
         "mad_wide": lambda: rate(lib.flake_rate_mad_wide, torch.int64),
         "imad": lambda: rate(lib.flake_rate_imad, torch.int32),
         "dfma": lambda: rate(lib.flake_rate_dfma, torch.float64)}
+
+
+def ptxas_table(report: str) -> dict:
+    """Each kernel's registers, spill bytes and static shared bytes from
+    ``ptxas -v``'s report, by demangled name (template arguments kept,
+    parameters dropped)."""
+    import re
+
+    table, name = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            table[name] = {"registers": None, "spill_stores": 0,
+                           "spill_loads": 0, "smem": 0}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            table[name]["spill_stores"], table[name]["spill_loads"] = map(
+                int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            table[name]["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            table[name]["smem"] = int(m.group(1)) if m else 0
+    names = list(table)
+    try:
+        plain = subprocess.run(["c++filt"], input="\n".join(names),
+                               capture_output=True, text=True,
+                               timeout=60).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        plain = names
+    if len(plain) != len(names):
+        plain = names
+    out = {}
+    for n, p in zip(names, plain):
+        # a kernel in an anonymous namespace carries its file's name
+        m = re.search(r"GLOBAL__N__\w+?_\d+_(\w+?)_cu_", n)
+        p = p.replace("(anonymous namespace)::", "").split("(")[0]
+        out[f"{m.group(1) + '.cu: ' if m else ''}"
+            f"{p.removeprefix('void ')}"] = table[n]
+    return out
 
 
 def time_turns(*fns, loop=(), reps: int = 20):
@@ -440,17 +536,18 @@ def main() -> None:
     report = _cuda.build()
     print(f"build kernels {[str(s.relative_to(ROOT)) for s in _cuda.SOURCES]}"
           f": {time.perf_counter() - t0:.1f} s", flush=True)
-    for line in report.splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            print("  ptxas:", line.strip())
+    ptxas = {"package": ptxas_table(report)}
+    t0 = time.perf_counter()
     report, yard = build_yardsticks()
-    print("build the yardsticks: K1's to K4's, merge_v2's and the zero "
-          "floor's first designs, K4 on the integer pipes, the zero floor by "
-          "bulk asynchronous stores, the rate probes and an empty kernel "
-          "(flake_tpu_torch/csrc/yardsticks)", flush=True)
-    for line in report.splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            print("  ptxas:", line.strip())
+    ptxas["yardsticks"] = ptxas_table(report)
+    print("build the yardsticks: K1's to K4's, merge_v2's, merge_v3's, "
+          "merge_v5d's, merge_v5c's and the zero floor's first designs, the "
+          "row-layout merges at other geometries, K4 on the integer pipes, "
+          "the zero floor by bulk asynchronous stores, the rate probes and "
+          "an empty kernel (flake_tpu_torch/csrc/yardsticks): "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    # registers, spill bytes and static shared bytes of every kernel
+    print(json.dumps({"ptxas": ptxas}), flush=True)
     rates = {"mad_wide_per_ms": yard["mad_wide"](),
              "imad_per_ms": yard["imad"](),
              "dfma_per_ms": yard["dfma"]()}
@@ -581,13 +678,14 @@ def main() -> None:
         if before is not None:
             kernels[-1]["ms_before"] = ms_before
 
-    def at_every_fb(name, fbs, kern_at, before_at, plain):
+    def at_every_fb(name, fbs, kern_at, before_at, plain, prefix=""):
         """Hold a kernel and its first design against the plain version's
         ``plain`` words at every ``fb`` of ``fbs``, and time both in turns
         at each: ``ms_by_fb`` and ``ms_before_by_fb`` of the kernel's last
-        entry."""
+        entry, after ``prefix`` (for another batch than the phase's)."""
         entry = kernels[-1]
-        entry["ms_by_fb"], entry["ms_before_by_fb"] = {}, {}
+        by_fb, before_by_fb = f"{prefix}ms_by_fb", f"{prefix}ms_before_by_fb"
+        entry[by_fb], entry[before_by_fb] = {}, {}
         for fb in fbs:
             for label, fn in (("the kernel", kern_at),
                               ("the first design", before_at)):
@@ -596,14 +694,33 @@ def main() -> None:
                 if not torch.equal(got, plain):
                     fail(f"{name}: {label} at fb {fb} disagrees with the "
                          "plain version")
-            entry["ms_by_fb"][fb], entry["ms_before_by_fb"][fb] = time_turns(
+            entry[by_fb][fb], entry[before_by_fb][fb] = time_turns(
                 lambda: kern_at(fb), lambda: before_at(fb))
         print(f"{name} at fb {list(fbs)}, each bit-exact against the plain "
               f"version: kernel "
-              f"{[round(v, 4) for v in entry['ms_by_fb'].values()]} ms, "
+              f"{[round(v, 5) for v in entry[by_fb].values()]} ms, "
               f"first design "
-              f"{[round(v, 4) for v in entry['ms_before_by_fb'].values()]} "
+              f"{[round(v, 5) for v in entry[before_by_fb].values()]} "
               "ms", flush=True)
+
+    # a 64 MiB buffer, above the card's 50 MB L2: written (or read) between
+    # two calls, it leaves none of their operands in the cache
+    flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+
+    def cold_ms(fn):
+        """``fn``'s ms with a cold L2: the flush and ``fn`` back to back,
+        less the flush alone, in turns; by a flush that writes the buffer
+        and by one that reads it (which leaves no dirty line to write
+        back)."""
+        def write():
+            flush_buf.fill_(1)
+
+        def read():
+            flush_buf.sum()
+
+        w, wk, r, rk = time_turns(write, lambda: (write(), fn()), read,
+                                  lambda: (read(), fn()))
+        return wk - w, rk - r
 
     def k1_library_on(x, window, max_order):
         """K1's library yardstick: one grouped float64 ``conv1d`` gives
@@ -944,7 +1061,7 @@ def main() -> None:
                                   ("v3", tool2.merge_v3,
                                    tool2.merge_v3_plain)):
             want = plain(*al, wr_c)
-            for fb in (1, 8):
+            for fb in U2_FBS[name]:
                 got = kern(*al, wr_c, fb)
                 torch.cuda.synchronize()
                 if not torch.equal(got, want):
@@ -964,7 +1081,8 @@ def main() -> None:
                  f"{label}")
         ext = int(tool2.chunk_ext_words(al[3]).max())
         flagged = [float((cb[:, :-1] < 0).double().mean()) for cb in v5[3:]]
-        print(f"U2, U3 on {label}: merge_v2, merge_v3 (fb 1, 8), merge_v5a, "
+        print(f"U2, U3 on {label}: merge_v2 (fb {U2_FBS['v2']}), merge_v3 "
+              f"(fb {U2_FBS['v3']}), merge_v5a, "
               f"merge_v5b bit-exact against their plain versions; v5a = v5b "
               f"= K5 = K3 words; widest chunk {ext} words; v2 gives K5's "
               f"words {same['v2']}, v3 {same['v3']}; flagged chunks sp2 "
@@ -983,7 +1101,7 @@ def main() -> None:
         for kern, floor, kin in (
                 (tool3.merge_v5d, tool3.merge_zero_rows, rows),
                 (tool3.merge_v5c, tool3.merge_zero_fb, dual)):
-            for fb in (1, 8):
+            for fb in U3_FBS[kern.__name__]:
                 got, nothing = kern(*kin, wr_c, fb), floor(*kin, wr_c, fb)
                 torch.cuda.synchronize()
                 if not torch.equal(got, want):
@@ -1001,39 +1119,46 @@ def main() -> None:
             fail(f"the row-layout merges' words differ from K5's or K3's on "
                  f"{label}")
         changed = int((want != k5_words).flatten(1).any(-1).sum())
-        print(f"U3c-U3f on {label}: merge_v5d, merge_v5c (fb 1, 8) bit-exact "
+        print(f"U3c-U3f on {label}: merge_v5d (fb {U3_FBS['merge_v5d']}), "
+              f"merge_v5c (fb {U3_FBS['merge_v5c']}) bit-exact "
               f"against their plain version, merge_zero_rows, merge_zero_fb "
               f"against torch.zeros; {n_over} of {want.shape[0]} frames "
               f"overflow {tool3.KMAX} / {tool3.KMAX1} static rows, {changed} "
               f"differ from K5's words, the others equal them", flush=True)
 
     # times and bounds on the music batch, the shapes the tools time; v2 and
-    # v3 at fb = 8, the JAX tool's default, v2 (and its first design) also
-    # at every fb its tool times. One scatter_add_ gives their words too,
+    # v3 at fb = 8, the JAX tool's default, and beside their first designs at
+    # every fb their tool times. One scatter_add_ gives their words too,
     # since they equal K5's there.
     for name, line, body, ops in (("v2", 224, "k_v2 :193", 12),
                                   ("v3", 353, "k_v3 :328", 10)):
         kern = getattr(tool2, f"merge_{name}")
         plain = getattr(tool2, f"merge_{name}_plain")
+        before = yard[f"{name}_before"]
         phase(f"prof_merge_{name}", "flake_tpu_torch/csrc/prof_merge2.cu",
               f"util/prof_merge2.py:{line} ({body})",
               lambda kern=kern: kern(*parts, twr, 8),
               lambda plain=plain: plain(*parts, twr), cmp_exact,
               (cbits, w0t, hit, lot), ops * w0t.numel(), INT32_OPS_PER_MS,
               library=k5_library,
-              before=(lambda: yard["v2_before"](*parts, twr, 8))
-              if name == "v2" else None)
-        kernels[-1]["fb"] = 8
-        if name == "v2":
-            at_every_fb("merge_v2", (1, 4, 8, 16),
-                        lambda fb: kern(*parts, twr, fb),
-                        lambda fb: yard["v2_before"](*parts, twr, fb),
-                        plain(*parts, twr))
-            v2_ms, k5_same_ms = time_turns(lambda: kern(*parts, twr, 8),
-                                           k5_run)
-            kernels[-1].update(k5_ms_same_inputs=k5_same_ms)
-            print(f"info: merge_v2 {v2_ms:.4f} ms beside K5 {k5_same_ms:.4f} "
-                  "ms on the same parts", flush=True)
+              before=lambda before=before: before(*parts, twr, 8))
+        kernels[-1].update(fb=8)
+        at_every_fb(f"merge_{name}", U2_FBS[name],
+                    lambda fb, kern=kern: kern(*parts, twr, fb),
+                    lambda fb, before=before: before(*parts, twr, fb),
+                    plain(*parts, twr))
+    v2_ms, v3_ms, k5_same_ms = time_turns(
+        lambda: tool2.merge_v2(*parts, twr, 8),
+        lambda: tool2.merge_v3(*parts, twr, 8), k5_run)
+    kernels[-2].update(k5_ms_same_inputs=k5_same_ms)
+    kernels[-1].update(k5_ms_same_inputs=k5_same_ms,
+                       v2_ms_same_inputs=v2_ms)
+    v3_cold = cold_ms(lambda: tool2.merge_v3(*parts, twr, 8))
+    kernels[-1].update(cold_write_ms=v3_cold[0], cold_read_ms=v3_cold[1])
+    print(f"info: on the same parts merge_v3 {v3_ms:.5f} ms, merge_v2 "
+          f"{v2_ms:.5f} ms, K5 {k5_same_ms:.5f} ms; merge_v3 with a cold L2 "
+          f"{v3_cold[0]:.5f} ms (64 MiB written between calls), "
+          f"{v3_cold[1]:.5f} ms (read)", flush=True)
 
     def v5_read_bytes(v5):
         """What the v5 kernels must read of ``v5``: both cb tables, the
@@ -1067,32 +1192,95 @@ def main() -> None:
     def v5a_run():
         return tool3.merge_v5a(*combined["music"], twr)
 
+    def rows_of(parts_of, kind):
+        *kin, _ = parts_of[kind]
+        return kin
+
+    # U3c, U3d: at fb = 8, the JAX tool's default, beside their first
+    # designs at every fb on both batches; v5a's nodes, bytes and operations
     for name, line, body, parts_of in (("v5d", 653, "k_v5d :612", in_rows),
-                                       ("v5c", 714, "k_v5c :677", in_dual)):
+                                      ("v5c", 714, "k_v5c :677", in_dual)):
         kern = getattr(tool3, f"merge_{name}")
-        *kin, _ = parts_of["music"]
-        *rows, _ = in_rows["music"]
-        # v5a's nodes, bytes and operations, at fb = 8, the JAX tool's default
+        before = yard[f"{name}_before"]
+        fbs = U3_FBS[f"merge_{name}"]
+        kin = rows_of(parts_of, "music")
         phase(f"prof_merge_{name}", "flake_tpu_torch/csrc/prof_merge3_rows.cu",
               f"util/prof_merge3.py:{line} ({body})",
               lambda kern=kern, kin=kin: kern(*kin, twr, 8),
-              lambda rows=rows: tool3.merge_v5_rows_plain(*rows, twr),
+              lambda: tool3.merge_v5_rows_plain(*rows_of(in_rows, "music"),
+                                                twr),
               cmp_exact, (), 8 * kin[0].numel(), INT32_OPS_PER_MS,
-              read_bytes=v5_read_bytes(combined["music"]))
-        *kin_n, _ = parts_of["noise"]
-        noise_ms, fb1_ms, v5a_ms = time_turns(
-            lambda kern=kern, kin_n=kin_n: kern(*kin_n, twr, 8),
-            lambda kern=kern, kin=kin: kern(*kin, twr, 1), v5a_run)
+              read_bytes=v5_read_bytes(combined["music"]),
+              before=lambda before=before, kin=kin: before(kin, twr, 8))
         noise_bound, _ = bound(v5_read_bytes(combined["noise"])
                                + tF * twr * 512, 0, INT32_OPS_PER_MS)
-        kernels[-1].update(fb=8, noise_ms=noise_ms,
-                           noise_bound_ms=noise_bound, fb1_ms=fb1_ms,
-                           v5a_ms_same_batch=v5a_ms)
-        print(f"info: prof_merge_{name} at fb 8 on the noise batch "
-              f"{noise_ms:.4f} ms, bound {noise_bound:.4f} ms by bytes; at fb "
-              f"1 on the music batch {fb1_ms:.4f} ms beside merge_v5a "
-              f"{v5a_ms:.4f} ms on the same nodes in chunk layout",
-              flush=True)
+        kernels[-1].update(fb=8, noise_bound_ms=noise_bound)
+        for kind, prefix in (("music", ""), ("noise", "noise_")):
+            kin = rows_of(parts_of, kind)
+            at_every_fb(f"merge_{name} on {kind}", fbs,
+                        lambda fb, kern=kern, kin=kin: kern(*kin, twr, fb),
+                        lambda fb, before=before, kin=kin: before(kin, twr,
+                                                                  fb),
+                        tool3.merge_v5_rows_plain(*rows_of(in_rows, kind),
+                                                  twr), prefix)
+        kernels[-1]["noise_ms"] = kernels[-1]["noise_ms_by_fb"][8]
+        kin = rows_of(parts_of, "music")
+        _, v5a_ms = time_turns(lambda kern=kern, kin=kin: kern(*kin, twr, 8),
+                               v5a_run)
+        kernels[-1].update(v5a_ms_same_batch=v5a_ms)
+        print(f"info: prof_merge_{name}: bound {noise_bound:.4f} ms by bytes "
+              f"on the noise batch; merge_v5a {v5a_ms:.5f} ms on the same "
+              "music nodes in chunk layout", flush=True)
+    v5d_entry, v5c_entry = kernels[-2], kernels[-1]
+    # v5c beside v5d on the same nodes, v5d with a cold L2, and the smoke's
+    # v5c at fb 8 as the tool times it (the least of three means)
+    same = {}
+    for kind in ("music", "noise"):
+        rows_k, dual_k = rows_of(in_rows, kind), rows_of(in_dual, kind)
+        same[kind] = time_turns(lambda: tool3.merge_v5d(*rows_k, twr, 8),
+                                lambda: tool3.merge_v5c(*dual_k, twr, 8))
+    v5c_entry["v5d_ms_same_nodes"] = {k: v[0] for k, v in same.items()}
+    v5c_entry["ms_same_nodes"] = {k: v[1] for k, v in same.items()}
+    v5d_cold = cold_ms(lambda: tool3.merge_v5d(*rows_of(in_rows, "music"),
+                                               twr, 8))
+    v5d_entry.update(cold_write_ms=v5d_cold[0], cold_read_ms=v5d_cold[1])
+    v5c_entry["tool_method_ms_fb8"] = tool.time_ms(
+        lambda: tool3.merge_v5c(*rows_of(in_dual, "music"), twr, 8), dev, 20,
+        back_to_back=True)
+    print(f"info: on the same nodes merge_v5c / merge_v5d "
+          f"{ {k: [round(x, 5) for x in v] for k, v in same.items()} } ms "
+          "(music, noise; fb 8); merge_v5d with a cold L2 "
+          f"{v5d_cold[0]:.5f} ms (64 MiB written between calls), "
+          f"{v5d_cold[1]:.5f} ms (read); merge_v5c at fb 8 timed as the tool "
+          f"times it {v5c_entry['tool_method_ms_fb8']:.5f} ms", flush=True)
+    # the body as it was before it was cut to the one form it launches, at
+    # other geometries (csrc/yardsticks/prof_merge3_rows_alt.cu): what chose
+    # 256 threads, one block a frame and v5c's w0 read in place
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    forms = {"v5d 128 threads": (0, 128, 0, 0),
+             "v5d 256 threads": (0, 256, 0, 0),
+             "v5d 512 threads": (0, 512, 0, 0),
+             f"v5d {sms} blocks": (0, 256, 0, sms),
+             f"v5d {2 * sms} blocks": (0, 256, 0, 2 * sms),
+             "v5c main w0 staged": (1, 256, 0, 0),
+             "v5c main and sp2 w0 staged": (1, 256, 1, 0)}
+    v5d_entry["forms_ms"] = {}
+    for kind in ("music", "noise"):
+        want = tool3.merge_v5_rows_plain(*rows_of(in_rows, kind), twr)
+        runs = []
+        for form in forms.values():
+            kin = rows_of(in_dual if form[0] else in_rows, kind)
+            got = yard["rows_form"](*form, kin, twr)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                fail(f"the row-layout form {form} disagrees with the plain "
+                     f"version on {kind}")
+            runs.append(lambda form=form, kin=kin: yard["rows_form"](
+                *form, kin, twr))
+        v5d_entry["forms_ms"][kind] = dict(zip(forms, time_turns(*runs)))
+    print(f"info: the row-layout merges' forms, each bit-exact: "
+          f"{ {k: {f: round(t, 5) for f, t in v.items()} for k, v in v5d_entry['forms_ms'].items()} } "
+          "ms", flush=True)
 
     def zeros_run():
         return torch.zeros((tF, twr, 128), dtype=torch.int32, device=dev)
@@ -1450,6 +1638,13 @@ def main() -> None:
         if any(v for k, v in res.items() if k.endswith("overflow_frames")):
             fail(f"{label}: frames of the tool's batches overflow the static "
                  f"rows: {res}")
+        if run is tool3.main_v5c:
+            v5c_entry["tool_ms_fb8"] = res["music_v5c_fb8_ms"]
+            print(f"info: merge_v5c at fb 8 on music: the tool "
+                  f"{res['music_v5c_fb8_ms']} ms, the smoke "
+                  f"{v5c_entry['ms_by_fb'][8]:.5f} ms in turns and "
+                  f"{v5c_entry['tool_method_ms_fb8']:.5f} ms as the tool "
+                  "times it", flush=True)
 
     def drive(label, cfg, stream, needs, never=()):
         """One main path through the encoder, cold then warm; the counts

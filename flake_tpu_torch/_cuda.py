@@ -44,16 +44,15 @@ SIGNATURES = {
     # w0t, hit, lot, words, F, S, W
     "flake_merge_aligned": [_P, _P, _P, _P, _I, _I, _I],
     # chunk_bits, w0t, hit, lot, words, F, nc, W (zero: csrc/zero_floor.cu;
-    # v2 launches one block a frame)
+    # v2 and v3 launch one block a frame)
     **{f"flake_prof_merge_{variant}": [_P, _P, _P, _P, _P, _I, _I, _I]
-       for variant in ("static2", "fixedrow", "nowin", "zero", "v2")},
-    # chunk_bits, w0t, hit, lot, words, F, nc, W, fb
-    "flake_prof_merge_v3": [_P, _P, _P, _P, _P, _I, _I, _I, _I],
+       for variant in ("static2", "fixedrow", "nowin", "zero", "v2", "v3")},
     # cb2, cb1, main x4, sp2 x4, sp1 x3, words, F, nc2, nc1, W
     **{f"flake_prof_merge_{proto}": [_P] * 14 + [_I] * 4
        for proto in ("v5a", "v5b")},
-    # the same with w0 in rows (v5d) or chunks (v5c), then fb, kmax, kmax1
-    **{f"flake_prof_merge_{proto}": [_P] * 14 + [_I] * 7
+    # the same with w0 in rows (v5d) or chunks (v5c), then kmax, kmax1 (one
+    # block a frame)
+    **{f"flake_prof_merge_{proto}": [_P] * 14 + [_I] * 6
        for proto in ("v5d", "v5c")},
     # their zero floors (csrc/zero_floor.cu): the same operands, F, nc2, nc1,
     # W, fb

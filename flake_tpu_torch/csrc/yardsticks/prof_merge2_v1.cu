@@ -1,17 +1,17 @@
-// The first design of this kernel, kept unchanged apart from the entry
-// point's name, only as a yardstick: chip_smoke.py builds it beside the
+// The first designs of these kernels, kept unchanged apart from the entry
+// points' names, only as yardsticks: chip_smoke.py builds them beside the
 // current design (../prof_merge2.cu) and times both on the same inputs in one
-// run. No path of the package calls it; it is not part of the package's
+// run. No path of the package calls them; they are not part of the package's
 // kernel library (flake_tpu_torch/_cuda.py builds csrc/*.cu only).
 //
-// U2a merge_v2 (util/prof_merge2.py:224, body k_v2 :193, _frame_body :111):
-// K5's sum out[w0] += hi, out[w0 + 1] += lo, in int32 with wraparound,
-// restricted and displaced as ../prof_merge2.cu states. The first design kept
-// the TPU's geometry: a block of 512 threads takes fb consecutive frames, one
-// after the other through one word block in shared memory, so the grid has
-// F / fb blocks; per frame thread 0 alone walks the chunks for the carry
-// rows while the others wait, and every slot pays a j % nc and three 4-byte
-// loads.
+// U2a merge_v2 (util/prof_merge2.py:224, body k_v2 :193, _frame_body :111)
+// and U2b merge_v3 (:353, body k_v3 :328, _frame_body_s2w :295): K5's sum
+// out[w0] += hi, out[w0 + 1] += lo, in int32 with wraparound, restricted and
+// displaced as ../prof_merge2.cu states. The first designs kept the TPU's
+// geometry: a block of 512 threads takes fb consecutive frames, one after
+// the other through one word block in shared memory, so the grid has F / fb
+// blocks; every slot pays a j % nc and three 4-byte loads, and for v2 thread
+// 0 alone walks the chunks for the carry rows while the others wait.
 
 #include <cuda_runtime.h>
 
@@ -83,6 +83,34 @@ v2_kernel(const int* __restrict__ chunk_bits, const int* __restrict__ w0t,
   }
 }
 
+// shared memory: word block [W], chunk bounds [nc + 1]
+__global__ void __launch_bounds__(kThreads)
+v3_kernel(const int* __restrict__ chunk_bits, const int* __restrict__ w0t,
+          const int* __restrict__ hit, const int* __restrict__ lot,
+          int* __restrict__ words, int nc, int W, int fb) {
+  extern __shared__ int smem[];
+  int* cb = smem + W;
+  const int S = kLane * nc;
+  for (int i = 0; i < fb; ++i) {
+    const size_t f = static_cast<size_t>(blockIdx.x) * fb + i;
+    stage(smem, cb, chunk_bits, f, nc, W);
+    for (int j = threadIdx.x; j < S; j += kThreads) {
+      const int w = w0t[f * S + j];
+      const int h = hit[f * S + j];
+      const int l = lot[f * S + j];
+      const int c = j % nc;
+      const int row0 = cb[c] >> 12;
+      const int last_row = (((cb[c + 1] - 1) >> 5) + 1) >> 7;
+      const int reach = last_row < row0 + 3 ? last_row : row0 + 3;
+      const int rh = w >> 7;
+      const int rl = (w + 1) >> 7;
+      if (rh == row0 || (rh > row0 && rh <= reach)) add_at(smem, w, h, W);
+      if (rl == row0 || (rl > row0 && rl <= reach)) add_at(smem, w + 1, l, W);
+    }
+    store(smem, words, f, W);
+  }
+}
+
 }  // namespace
 
 // chunk_bits int32 [F, nc + 1]; w0t, hit, lot int32 [F, 128, nc]
@@ -100,6 +128,24 @@ extern "C" int flake_prof_merge_v2_v1(
     if (rc != cudaSuccess) return static_cast<int>(rc);
   }
   v2_kernel<<<F / fb, kThreads, bytes, stream>>>(chunk_bits, w0t, hit, lot,
+                                                 words, nc, W, fb);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// as v2, the v3 rule
+extern "C" int flake_prof_merge_v3_v1(
+    const int* chunk_bits, const int* w0t, const int* hit, const int* lot,
+    int* words, int F, int nc, int W, int fb, cudaStream_t stream) {
+  if (F <= 0) return 0;
+  if (fb <= 0 || F % fb != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t bytes = (static_cast<size_t>(W) + nc + 1) * sizeof(int);
+  if (bytes > 48 * 1024) {
+    const cudaError_t rc = cudaFuncSetAttribute(
+        v3_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(bytes));
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+  }
+  v3_kernel<<<F / fb, kThreads, bytes, stream>>>(chunk_bits, w0t, hit, lot,
                                                  words, nc, W, fb);
   return static_cast<int>(cudaGetLastError());
 }

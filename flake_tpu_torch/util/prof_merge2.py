@@ -36,22 +36,22 @@ four word rows, row0 always and row0 + 1..3 where the chunk reaches them
 
 Neither writes a word row at or past the block's. ``fb``, the frames a
 TPU program takes, does not change the words; both wrappers keep it and
-refuse one that does not divide the frames, as the TPU grid does. For
-``merge_v3`` it is launch geometry: one CUDA block takes ``fb``
-consecutive frames, one after the other through one word block in shared
-memory. ``merge_v2`` launches one block a frame whatever ``fb`` is, and
-builds the carry rows by a prefix minimum
+refuse one that does not divide the frames, as the TPU grid does. Both
+kernels are one body (``flake_tpu_torch/csrc/prof_merge2.cu``) that
+launches one block a frame whatever ``fb`` is and reads each chunk's rule
+from a table: ``merge_v2`` builds its carry rows by a prefix minimum
 (:func:`v2_carry_rows_prefix_min`), which needs chunk bounds that do not
-decrease, as :func:`flake_tpu_torch.ops.bitpack.aligned_parts` makes them.
-The CUDA source is ``flake_tpu_torch/csrc/prof_merge2.cu``; a CPU tensor
-takes the plain version beside each wrapper.
+decrease, as :func:`flake_tpu_torch.ops.bitpack.aligned_parts` makes them;
+``merge_v3`` keeps a chunk's first row and span (:func:`v3_chunk_rows`)
+and needs no order of the bounds. A CPU tensor takes the plain version
+beside each wrapper.
 
     python3 -m flake_tpu_torch.util.prof_merge2 [--v3] [--device cpu] [--frames N]
 
 Runs on the GPU unless ``--device cpu`` is given. Each ``*_ms`` key is one
 kernel timed back to back with CUDA events
-(:func:`flake_tpu_torch.util.prof_merge.time_ms`); on the CPU the plain
-versions on the host clock.
+(:func:`flake_tpu_torch.util.prof_merge.time_ms`), in ms to four decimals;
+on the CPU the plain versions on the host clock.
 """
 
 from __future__ import annotations
@@ -109,6 +109,22 @@ def v2_carry_rows_prefix_min(chunk_bits: torch.Tensor) -> torch.Tensor:
     return two_c + torch.clamp(torch.cummin(r - two_c, dim=1).values, max=2)
 
 
+def v3_chunk_rows(chunk_bits: torch.Tensor):
+    """``merge_v3``'s table, int64 [F, nc] each, in the form its kernel
+    computes: ``row0 = chunk_bits[c] >> 12`` and ``span = max(0,
+    min(last_row, row0 + 3) - row0)`` with ``last_row = (((chunk_bits[c +
+    1] - 1) >> 5) + 1) >> 7`` in int32 (``- 1`` wraps at the int32
+    minimum, as on the TPU). A word of row ``r`` adds where ``0 <= r - row0
+    <= span``: row0 always, and row0 + 1..3 where ``last_row`` reaches them
+    (``_frame_body_s2w`` :308-325), whatever order the bounds have."""
+    cb = chunk_bits.to(torch.int64)
+    row0 = cb[:, :-1] >> 12
+    last = wrap_int32(cb[:, 1:] - 1).to(torch.int64)
+    last_row = ((last >> 5) + 1) >> 7
+    span = torch.clamp(torch.minimum(last_row, row0 + 3) - row0, min=0)
+    return row0, span
+
+
 def merge_v2_plain(w0t, hit, lot, chunk_bits, word_rows):
     """Plain version of ``merge_v2``: K5's sum with the three differences
     the module's docstring lists."""
@@ -135,11 +151,11 @@ def merge_v3_plain(w0t, hit, lot, chunk_bits, word_rows):
                                   rows=4, reach=True)
 
 
-def _prototype(name: str, plain, fb_blocks: bool):
+def _prototype(name: str, plain):
     """The wrapper of one U2 kernel: K5's signature plus ``fb``, the frames
-    a TPU program takes, which must divide the frames; with ``fb_blocks``
-    one CUDA block takes ``fb`` frames, else one frame. A CPU tensor takes
-    ``plain``; a CUDA tensor launches the kernel."""
+    a TPU program takes, which must divide the frames and does not shape
+    the launch (one CUDA block a frame). A CPU tensor takes ``plain``; a
+    CUDA tensor launches the kernel."""
 
     def run(w0t, hit, lot, chunk_bits, word_rows, fb: int = 8):
         F = w0t.shape[0]
@@ -155,8 +171,7 @@ def _prototype(name: str, plain, fb_blocks: bool):
         words = torch.empty((F, word_rows, LANE), dtype=torch.int32,
                             device=w0t.device)
         _cuda.launch(f"flake_prof_merge_{name}", w0t.device, chunk_bits, w0t,
-                     hit, lot, words, F, nc, word_rows * LANE,
-                     *((fb,) if fb_blocks else ()))
+                     hit, lot, words, F, nc, word_rows * LANE)
         run.launches += 1
         return words
 
@@ -166,8 +181,8 @@ def _prototype(name: str, plain, fb_blocks: bool):
     return run
 
 
-merge_v2 = _prototype("v2", merge_v2_plain, fb_blocks=False)
-merge_v3 = _prototype("v3", merge_v3_plain, fb_blocks=True)
+merge_v2 = _prototype("v2", merge_v2_plain)
+merge_v3 = _prototype("v3", merge_v3_plain)
 
 
 def _run(name, kernel, time_fbs, device, frames, iters):
@@ -190,7 +205,7 @@ def _run(name, kernel, time_fbs, device, frames, iters):
                 ref, kernel(*parts, wr, fb))
         if kind == "music":
             def ms(fn):
-                return round(time_ms(fn, dev, iters, back_to_back=True), 3)
+                return round(time_ms(fn, dev, iters, back_to_back=True), 4)
 
             if name == "v2":
                 res["merge_v1_ms"] = ms(lambda: merge_aligned(*parts, wr))

@@ -38,14 +38,16 @@ its chunk ``c``, a node's word k (A, B, C for k = 0, 1, 2) is added at
 ``t = w0 + k`` only where ``w0 >= row0 * 128`` and ``t < (row0 + K) * 128``.
 ``K`` is ``kmax`` for the main and sp2 sets (both by cb2's ``row0``) and
 ``kmax1`` for sp1 (cb1's). Where no chunk of a frame spans more rows (the
-overflow flag is clear) the words are v5a's and K5's; ``fb``, the frames a
-block takes, changes no word. The TPU body of v5d always takes a chunk's
-first two rows, so it is this function for ``kmax >= 2``. v5d reads every
-array in rows; v5c reads each ``w0`` from the chunk layout, with a stride
-of ``nc`` ints between neighbouring threads. **U3e, merge_zero_fb** and
-**U3f, merge_zero_rows** (``:847``, ``:1019``) take v5c's and v5d's
-operands, read nothing and write zeros: the launch-and-store floor of the
-two. The CUDA source of the merges is
+overflow flag is clear) the words are v5a's and K5's. ``fb``, the frames a
+TPU program takes, changes no word: the wrappers keep it and refuse one
+that does not divide the frames, as the TPU grid does, and the kernels
+launch one block a frame whatever it is. The TPU body of v5d always takes a
+chunk's first two rows, so it is this function for ``kmax >= 2``. v5d reads
+every array in rows; v5c reads each ``w0`` from the chunk layout (the
+kernel reads it in place, a node at a time).
+**U3e, merge_zero_fb** and **U3f, merge_zero_rows** (``:847``, ``:1019``)
+take v5c's and v5d's operands, read nothing and write zeros: the
+launch-and-store floor of the two. The CUDA source of the merges is
 ``flake_tpu_torch/csrc/prof_merge3_rows.cu``, that of the floors the tools'
 one zero floor, ``flake_tpu_torch/csrc/zero_floor.cu``, whose launch does
 not depend on ``fb``; :func:`merge_v5_rows_plain` is the plain version of
@@ -75,7 +77,8 @@ whether v5c at ``fb = 8`` gives K5's words, v5c at ``fb`` 4, 8 and 16,
     python3 -m flake_tpu_torch.util.prof_merge3 [--v5d | --v5c] [--kmax K]
         [--device cpu] [--frames N]
 
-Runs on the GPU unless ``--device cpu`` is given.
+Runs on the GPU unless ``--device cpu`` is given. Each ``*_ms`` key is in
+ms to four decimals.
 """
 
 from __future__ import annotations
@@ -287,14 +290,14 @@ def _merge_rows(name: str, dual: bool):
                                      for w in (mainw, sp2w, sp1w))
             return merge_v5_rows_plain(mainw, mainr, sp2w, sp2r, sp1w, sp1r,
                                        cb2, cb1, word_rows, kmax, kmax1)
-        return _launch_rows(run, name, dev, operands, word_rows, fb, kmax,
-                            kmax1)
+        return _launch_rows(run, name, dev, operands, word_rows, kmax, kmax1)
 
     run.launches = 0
     run.__name__ = run.__qualname__ = f"merge_{name}"
     run.__doc__ = (f"U3 ``merge_{name}``: see :func:`merge_v5_rows_plain`; "
                    + ("each ``w0`` int32 [F, 128, nc], " if dual else "")
-                   + "every other node array int32 [F, nc, 128].")
+                   + "every other node array int32 [F, nc, 128]; ``fb`` "
+                   "must divide F and does not shape the launch.")
     return run
 
 
@@ -353,7 +356,7 @@ def main(device="cuda", frames: int = FRAMES, iters: int = 20) -> dict:
         res[f"{kind}_match_b"] = torch.equal(ref, merge_v5b(*parts, wr))
 
         def ms(fn, back_to_back=True):
-            return round(time_ms(fn, dev, iters, back_to_back), 3)
+            return round(time_ms(fn, dev, iters, back_to_back), 4)
 
         res[f"{kind}_merge_v1_ms"] = ms(lambda: merge_aligned(*aligned, wr))
         res[f"{kind}_merge_v5a_ms"] = ms(lambda: merge_v5a(*parts, wr))
@@ -388,7 +391,7 @@ def main_v5d(device="cuda", frames: int = FRAMES, iters: int = 20,
         res[f"{kind}_match"] = torch.equal(ref[~overflow], got[~overflow])
 
         def ms(fn, back_to_back=True):
-            return round(time_ms(fn, dev, iters, back_to_back), 3)
+            return round(time_ms(fn, dev, iters, back_to_back), 4)
 
         for fb in (16, 32):
             res[f"{kind}_v5d_fb{fb}_slope_ms"] = ms(
@@ -429,7 +432,7 @@ def main_v5c(device="cuda", frames: int = FRAMES, iters: int = 20,
             res[f"{kind}_nbad"] = bad.shape[0]
 
         def ms(fn, back_to_back=True):
-            return round(time_ms(fn, dev, iters, back_to_back), 3)
+            return round(time_ms(fn, dev, iters, back_to_back), 4)
 
         if kind == "music":
             for fb in (1, 8):

@@ -26,11 +26,14 @@ at fb = 1, 8 and 16 and the combined-node merges ``merge_v5a`` and
 ``merge_v5b`` on the tools' ``music`` and ``noise`` batches at full frame
 width and on those random tables, where they leave K5's words or flag both
 spill sets; the row-layout merges ``merge_v5d`` and ``merge_v5c`` on the
-same four at fb = 1 and 8 and at four and two static rows (the random
-tables and two rows overflow), and their zero floors; ``merge_v2`` (one
-block a frame) at fb = 1, 4, 8, 16 and 32 and on inputs off a 16-byte
-boundary, the one zero floor behind U1's zero variant and U3e / U3f at fb
-= 1, 8, 16 and 32 and on a ragged 3 x 128 ints, and both writing into a
+same four at fb = 1, 8, 16 and 32 and at four and two static rows (the
+random tables and two rows overflow), with every spill chunk flagged and on
+node arrays off a 16-byte boundary, and their zero floors; ``merge_v2``
+(one block a frame) at fb = 1, 4, 8, 16 and 32 and on inputs off a 16-byte
+boundary, ``merge_v3`` on inputs off it and on chunk bounds in no order,
+negative ones among them; the one zero floor behind U1's zero variant and
+U3e / U3f at fb = 1, 8, 16 and 32 and on a ragged 3 x 128 ints, and these,
+``merge_v2``, ``merge_v3``, ``merge_v5d`` and ``merge_v5c`` writing into a
 view of a sentinel-filled buffer, on and off a 16-byte boundary.
 """
 
@@ -440,7 +443,7 @@ def test_row_layout_merge_kernels(dev, case, kmax):
     for kernel, floor, kin in (
             (prof_merge3.merge_v5d, prof_merge3.merge_zero_rows, rows),
             (prof_merge3.merge_v5c, prof_merge3.merge_zero_fb, dual)):
-        for fb in (1, 8):
+        for fb in (1, 8, 16, 32):
             before = kernel.launches, floor.launches
             got = kernel(*kin, wr, fb, kmax, kmax - 1)
             nothing = floor(*kin, wr, fb)
@@ -463,6 +466,76 @@ def test_row_layout_merge_kernels(dev, case, kmax):
                                              kmax - 1), want)
     assert torch.equal(prof_merge3.merge_v5c(*dual[:6], cb2, cb1, wr, 8, kmax,
                                              kmax - 1), want)
+
+
+@pytest.mark.parametrize("case", PROTOTYPE_CASES)
+def test_row_layout_merges_every_chunk_flagged(dev, case):
+    """With bit 31 set in every chunk entry of cb2 and cb1 the kernels read
+    every spill chunk, and still give the plain version's words."""
+    slots, wr = _prototype_slots(dev, case)
+    *rows, _ = prof_merge3.v5d_parts(*slots)
+    *dual, _ = prof_merge3.v5c_parts(*slots)
+    cb2, cb1 = (cb | prof_merge3.FLAG for cb in rows[6:])
+    assert bool((cb2[:, :-1] < 0).all()) and bool((cb1[:, :-1] < 0).all())
+    want = prof_merge3.merge_v5_rows_plain(*rows[:6], cb2, cb1, wr)
+    for kernel, kin in ((prof_merge3.merge_v5d, rows),
+                        (prof_merge3.merge_v5c, dual)):
+        assert torch.equal(kernel(*kin[:6], cb2, cb1, wr, 8), want), \
+            kernel.__name__
+
+
+def _shifted(t, by=1):
+    """``t`` in a buffer ``by`` ints off a 16-byte boundary."""
+    flat = torch.empty(t.numel() + by, dtype=t.dtype, device=t.device)
+    flat[by:] = t.flatten()
+    return flat[by:].view(t.shape)
+
+
+@pytest.mark.parametrize("case", ["noise", "random"])
+def test_row_layout_merges_unaligned_inputs(dev, case):
+    """Node arrays that start off a 16-byte boundary take the kernels'
+    node-by-node loads and give the same words."""
+    slots, wr = _prototype_slots(dev, case)
+    *rows, _ = prof_merge3.v5d_parts(*slots)
+    *dual, _ = prof_merge3.v5c_parts(*slots)
+    want = prof_merge3.merge_v5_rows_plain(*rows, wr)
+    for kernel, kin in ((prof_merge3.merge_v5d, rows),
+                        (prof_merge3.merge_v5c, dual)):
+        w0s = [_shifted(kin[i]) for i in (0, 2, 4)]
+        vals = [tuple(_shifted(t) for t in kin[i]) for i in (1, 3, 5)]
+        got = kernel(w0s[0], vals[0], w0s[1], vals[1], w0s[2], vals[2],
+                     *kin[6:], wr, 8)
+        assert torch.equal(got, want), kernel.__name__
+
+
+def test_merge_v3_kernel_unaligned_inputs(dev):
+    """As ``merge_v2``'s: the slot-by-slot loads give the same words."""
+    slots, wr = _prototype_slots(dev, "random")
+    parts = bitpack.aligned_parts(*slots)
+    got = prof_merge2.merge_v3(*(_shifted(t) for t in parts[:3]), parts[3],
+                               wr, 8)
+    assert torch.equal(got, prof_merge2.merge_v3_plain(*parts, wr))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_merge_v3_kernel_unordered_bounds(dev, seed):
+    """``merge_v3`` needs no order of the chunk bounds: random bounds,
+    decreasing and negative ones among them, and words around and outside
+    the block give the plain version's words."""
+    rng = np.random.default_rng(seed)
+    F, nc, wr = 16, 40, 20
+    W = wr * 128
+    cb = rng.integers(-6 * 4096, (wr + 6) * 4096, (F, nc + 1))
+    cb[0] = np.sort(cb[0])[::-1]
+    w0t = rng.integers(-300, W + 300, (F, 128, nc))
+    hit, lot = (rng.integers(-1 << 31, 1 << 31, (F, 128, nc))
+                for _ in range(2))
+    parts = [torch.from_numpy(a.astype(np.int32)).to(dev)
+             for a in (w0t, hit, lot, cb)]
+    got = prof_merge2.merge_v3(*parts, wr, 8)
+    want = prof_merge2.merge_v3_plain(*parts, wr)
+    assert torch.equal(got, want)
+    assert bool(want.any())
 
 
 @pytest.mark.parametrize("case", PROTOTYPE_CASES)
@@ -534,10 +607,11 @@ SENTINEL = 0x5A5A5A5A
 @pytest.mark.parametrize("offset", [0, 1, 2, 3, 4])
 @pytest.mark.parametrize("F,word_rows", [(8, 34), (3, 1)])
 def test_kernels_write_their_block_only(dev, F, word_rows, offset):
-    """Each zero floor entry and ``merge_v2`` write into a view ``offset``
-    ints into a larger buffer prefilled with a sentinel: every word of the
-    [F, W] block is written and nothing around it is touched, whether the
-    view starts on a 16-byte boundary or not."""
+    """Each zero floor entry, ``merge_v2``, ``merge_v3``, ``merge_v5d`` and
+    ``merge_v5c`` write into a view ``offset`` ints into a larger buffer
+    prefilled with a sentinel: every word of the [F, W] block is written and
+    nothing around it is touched, whether the view starts on a 16-byte
+    boundary or not (the 16-byte and the one-at-a-time instantiations)."""
     from flake_tpu_torch import _cuda
 
     parts, rows, dual = _floor_operands(dev, F)
@@ -555,11 +629,23 @@ def test_kernels_write_their_block_only(dev, F, word_rows, offset):
             *dual[5], out, F, dual[1][0].shape[1], dual[5][0].shape[1], W,
             F),
         "flake_prof_merge_v2": lambda out: (*parts[3:], *parts[:3], out, F,
-                                            nc, W)}
+                                            nc, W),
+        "flake_prof_merge_v3": lambda out: (*parts[3:], *parts[:3], out, F,
+                                            nc, W),
+        **{f"flake_prof_merge_{name}": lambda out, kin=kin: (
+            kin[6], kin[7], kin[0], *kin[1], kin[2], *kin[3], kin[4],
+            *kin[5], out, F, kin[1][0].shape[1], kin[5][0].shape[1], W,
+            prof_merge3.KMAX, prof_merge3.KMAX1)
+           for name, kin in (("v5d", rows), ("v5c", dual))}}
     wants = {name: torch.zeros(F * W, dtype=torch.int32, device=dev)
              for name in launches}
     wants["flake_prof_merge_v2"] = prof_merge2.merge_v2_plain(
         *parts, word_rows).flatten()
+    wants["flake_prof_merge_v3"] = prof_merge2.merge_v3_plain(
+        *parts, word_rows).flatten()
+    wants["flake_prof_merge_v5d"] = wants["flake_prof_merge_v5c"] = \
+        prof_merge3.merge_v5_rows_plain(*rows, word_rows).flatten()
+    assert bool(wants["flake_prof_merge_v5d"].any())
     for name, args in launches.items():
         buf = torch.full((offset + F * W + 7,), SENTINEL, dtype=torch.int32,
                          device=dev)

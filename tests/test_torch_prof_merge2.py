@@ -8,7 +8,9 @@ slots at reduced block sizes (levels 2, 5, 8 and loud 24-bit content that
 falls back to verbatim), where both give K5's words, and on a random slot
 table with unary runs of thousands of bits, whose chunks pass 256 words
 and start three rows past the one before, so that ``merge_v2`` drops and
-misplaces parts and ``merge_v3`` drops rows.
+misplaces parts and ``merge_v3`` drops rows; ``merge_v3``'s also on random
+chunk bounds in no order, where its kernel's table must keep what the body
+keeps.
 """
 
 import functools
@@ -28,6 +30,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from flake_tpu_torch.ops import bitmerge as tbitmerge
 from flake_tpu_torch.ops import bitpack as tbitpack
+from flake_tpu_torch.ops.common import wrap_int32
 from flake_tpu_torch.util import prof_merge as tprof
 from flake_tpu_torch.util import prof_merge2 as tprof2
 
@@ -124,6 +127,42 @@ def test_prototype_plain_matches_pallas(jax_tool, proto, name, fb):
     # K5's words inside the prototype's domain, other words outside it
     k5 = tbitmerge.merge_aligned_plain(*parts, wr)
     assert got.any() and torch.equal(got, k5) == (name != "random")
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_v3_plain_matches_pallas_on_unordered_bounds(jax_tool, seed):
+    """``merge_v3``'s function needs no order of the chunk bounds: on random
+    bounds, decreasing and negative ones among them, the plain version and
+    the kernel's table (:func:`v3_chunk_rows`) keep what ``k_v3`` keeps.
+    Words stay below the block's last so that interpret mode, which clamps
+    a row past the block to its last, adds nothing there."""
+    rng = np.random.default_rng(seed)
+    F, nc, wr = 2, 12, 10
+    W = wr * LANE
+    cb = rng.integers(-6 * 4096, (wr + 6) * 4096, (F, nc + 1))
+    cb[0] = np.sort(cb[0])[::-1]
+    w0t = rng.integers(0, W - 1, (F, LANE, nc))
+    hit, lot = (rng.integers(-1 << 31, 1 << 31, (F, LANE, nc))
+                for _ in range(2))
+    arrays = [a.astype(np.int32) for a in (w0t, hit, lot, cb)]
+    jax_tool.wr = wr
+    want = np.asarray(_pallas_prototype(jax_tool, jax_tool.k_v3, F, nc, wr,
+                                        1)(*(jnp.asarray(a) for a in
+                                             (arrays[3], *arrays[:3]))))
+    parts = [torch.from_numpy(a) for a in arrays]
+    np.testing.assert_array_equal(tprof2.merge_v3_plain(*parts, wr).numpy(),
+                                  want)
+    row0, span = (t[:, None, None, :]
+                  for t in tprof2.v3_chunk_rows(parts[3]))
+    word = torch.stack([parts[0].long(), parts[0].long() + 1], 1)
+    rel = (word >> 7) - row0
+    keep = (rel >= 0) & (rel <= span)
+    val = torch.stack([parts[1], parts[2]], 1).long()
+    table = tbitmerge.sum_at(word.reshape(F, -1),
+                             torch.where(keep, val, 0).reshape(F, -1), W)
+    np.testing.assert_array_equal(
+        wrap_int32(table).reshape(F, wr, LANE).numpy(), want)
+    assert want.any()
 
 
 def test_random_case_leaves_both_domains():
