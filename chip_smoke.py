@@ -25,12 +25,14 @@ over the peak rate of their type outside the tensor cores, whichever is
 larger; the sweeps' also at the float64 tensor cores' rate) and, where
 one PyTorch call computes the same function, that call's time (for K1 a
 grouped float64 ``conv1d``, held against K1's plain version first).
-K1-K4, ``merge_v2``, ``merge_v3``, ``merge_v5d``, ``merge_v5c`` and the
-zero floor are also timed beside their first designs
+K1-K4, ``merge_v2``, ``merge_v3``, ``merge_v5a``, ``merge_v5b``,
+``merge_v5d``, ``merge_v5c`` and the zero floor are also timed beside their
+first designs
 (``flake_tpu_torch/csrc/yardsticks``, built into a library of their own and
 held against the plain versions too): K1-K3 on the level-8 batch, K1 and
 K4 on the level-12 8192 bucket, ``merge_v2`` at 1, 4, 8 and 16 frames a
-TPU program, ``merge_v3`` at 1, 8 and 16, ``merge_v5d`` at 1, 8, 16 and 32,
+TPU program, ``merge_v3`` at 1, 8 and 16, ``merge_v5a`` and ``merge_v5b``
+on ``music`` and ``noise``, ``merge_v5d`` at 1, 8, 16 and 32,
 ``merge_v5c`` at 1, 4, 8 and 16 and the zero floors at 1, 8, 16 and 32 on
 the tools' ``music`` batch (the row-layout merges on ``noise`` too, the
 floor also beside its form by bulk asynchronous stores), and K2 on every
@@ -44,9 +46,13 @@ sweep_granules_int.cu``, held against the plain version too). Rate probes
 from the same folder measure the card's 32x32->64-bit and 32-bit integer
 multiply-add and float64 FMA rates. ``merge_v3`` is timed beside
 ``merge_v2`` and K5, ``merge_v5c`` beside ``merge_v5d`` on the same nodes,
-``merge_v5d`` and ``merge_v3`` with a cold L2 (a 64 MiB buffer written, or
-read, between calls), and the row-layout merges at other block sizes and
-grids (``csrc/yardsticks/prof_merge3_rows_alt.cu``). Every kernel's
+``merge_v5a``, ``merge_v5d`` and ``merge_v3`` with a cold L2 (a 64 MiB
+buffer written, or read, between calls), ``merge_v5a`` beside the same
+merge with its spill sets read by flagged columns (``csrc/yardsticks/
+prof_merge3_columns.cu``) and on ``music`` with no, its own and every sp2
+chunk flagged, its bounds also at 32-byte sectors, and the row-layout
+merges at other block sizes and grids
+(``csrc/yardsticks/prof_merge3_rows_alt.cu``). Every kernel's
 registers, spills and static shared bytes are printed from ``ptxas -v``
 as one JSON line. U2 and
 U3 are held against their plain versions bit for bit
@@ -55,8 +61,8 @@ the noise frames are verbatim, in chunks of 68 words, past the first
 window of ``merge_v2``) and on a made-up slot table with unary runs of
 thousands of bits, where ``merge_v2`` drops and misplaces parts,
 ``merge_v3`` drops rows and both spill sets of the combined nodes are
-flagged; ``merge_v5a``, ``merge_v5b``, K5 and K3 must give the same words
-on all three, and K5 is held against its plain version and K3 on the noise
+flagged; ``merge_v5a``, ``merge_v5b`` (and their first designs and the
+flagged-column form), K5 and K3 must give the same words on all three, and K5 is held against its plain version and K3 on the noise
 batch too; ``merge_v2`` and ``merge_v3`` are held at every fb they are
 timed at.
 ``merge_v5d`` and ``merge_v5c`` (at every fb they are timed at) must
@@ -276,14 +282,17 @@ def nbytes(*tensors) -> int:
 
 def build_yardsticks():
     """Build ``flake_tpu_torch/csrc/yardsticks`` (the first designs of K1-K4,
-    of ``merge_v2``, ``merge_v3``, ``merge_v5d``, ``merge_v5c`` and of the
-    zero floor, the row-layout merges at other geometries, K4's design on
-    the integer pipes, the zero floor by bulk asynchronous stores and the
-    card's rate probes) into a library of their own. Returns (the
-    compiler's report, a dict of functions): ``k1_before`` to ``k4_before``,
-    ``v2_before``, ``v3_before``, ``v5d_before`` and ``v5c_before`` take the
-    wrappers' arguments and launch the first designs (K3's zeroes its words
-    first, as its wrapper did), ``rows_form(dual, threads, stage_spill,
+    of ``merge_v2``, ``merge_v3``, ``merge_v5a``, ``merge_v5b``,
+    ``merge_v5d``, ``merge_v5c`` and of the zero floor, the combined-node
+    merge with its spill sets read by flagged columns, the row-layout merges
+    at other geometries, K4's design on the integer pipes, the zero floor by
+    bulk asynchronous stores and the card's rate probes) into a library of
+    their own. Returns (the compiler's report, a dict of functions):
+    ``k1_before`` to ``k4_before``, ``v2_before``, ``v3_before``,
+    ``v5a_before``, ``v5b_before``, ``v5d_before`` and ``v5c_before`` take
+    the wrappers' arguments and launch the first designs (K3's zeroes its
+    words first, as its wrapper did), ``v5_columns`` takes ``merge_v5a``'s
+    and reads the spill sets by columns, ``rows_form(dual, threads, stage_spill,
     blocks, operands, word_rows)`` launches ``merge_v5d`` (``dual`` 0) or
     ``merge_v5c`` (1) in another form, ``zero_before(F, word_rows, fb)`` and
     ``zero_bulk(F, word_rows)`` write the zero floor, ``k4_int`` is K4's
@@ -313,6 +322,9 @@ def build_yardsticks():
     lib.flake_rate_dfma.argtypes = [P, I, I, I, P]
     lib.flake_prof_merge_v2_v1.argtypes = [P] * 5 + [I] * 4 + [P]
     lib.flake_prof_merge_v3_v1.argtypes = [P] * 5 + [I] * 4 + [P]
+    for v5 in ("v5a_v1", "v5b_v1", "v5_columns"):
+        getattr(lib, f"flake_prof_merge_{v5}").argtypes = [P] * 14 + [I] * 4 \
+            + [P]
     lib.flake_prof_merge_v5d_v1.argtypes = [P] * 14 + [I] * 7 + [P]
     lib.flake_prof_merge_v5c_v1.argtypes = [P] * 14 + [I] * 7 + [P]
     lib.flake_prof_merge_rows_alt.argtypes = [I] * 4 + [P] * 14 + [I] * 6 \
@@ -369,6 +381,14 @@ def build_yardsticks():
              fb)
         return words
 
+    def v5_on(fn, v5, word_rows):
+        main, sp2, sp1, cb2, cb1 = v5
+        words = torch.empty((main[0].shape[0], word_rows, 128),
+                            dtype=torch.int32, device=main[0].device)
+        call(fn, cb2, cb1, *main, *sp2, *sp1, words, main[0].shape[0],
+             main[0].shape[-1], sp1[0].shape[-1], word_rows * 128)
+        return words
+
     def rows_operands(kin):
         """The pointers of a row-layout merge, in the entry points' order."""
         mainw, mainr, sp2w, sp2r, sp1w, sp1r, cb2, cb1 = kin
@@ -411,6 +431,9 @@ def build_yardsticks():
         "k4_int": lambda *a: k4_on(lib.flake_sweep_granules_int, *a),
         "v2_before": lambda *a: u2_before(lib.flake_prof_merge_v2_v1, *a),
         "v3_before": lambda *a: u2_before(lib.flake_prof_merge_v3_v1, *a),
+        "v5a_before": lambda *a: v5_on(lib.flake_prof_merge_v5a_v1, *a),
+        "v5b_before": lambda *a: v5_on(lib.flake_prof_merge_v5b_v1, *a),
+        "v5_columns": lambda *a: v5_on(lib.flake_prof_merge_v5_columns, *a),
         "v5d_before": lambda *a: rows_before(lib.flake_prof_merge_v5d_v1, *a),
         "v5c_before": lambda *a: rows_before(lib.flake_prof_merge_v5c_v1, *a),
         "rows_form": rows_form,
@@ -541,8 +564,9 @@ def main() -> None:
     report, yard = build_yardsticks()
     ptxas["yardsticks"] = ptxas_table(report)
     print("build the yardsticks: K1's to K4's, merge_v2's, merge_v3's, "
-          "merge_v5d's, merge_v5c's and the zero floor's first designs, the "
-          "row-layout merges at other geometries, K4 on the integer pipes, "
+          "merge_v5a's, merge_v5b's, merge_v5d's, merge_v5c's and the zero "
+          "floor's first designs, the combined-node merge by flagged columns, "
+          "the row-layout merges at other geometries, K4 on the integer pipes, "
           "the zero floor by bulk asynchronous stores, the rate probes and "
           "an empty kernel (flake_tpu_torch/csrc/yardsticks): "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
@@ -1069,12 +1093,19 @@ def main() -> None:
                          f"version on {label}")
             same[name] = torch.equal(want, k5_words)
         want = tool3.merge_v5_plain(*v5, wr_c)
-        for name, kern in (("v5a", tool3.merge_v5a), ("v5b", tool3.merge_v5b)):
-            got = kern(*v5, wr_c)
+        for name, run in (
+                ("merge_v5a", lambda: tool3.merge_v5a(*v5, wr_c)),
+                ("merge_v5b", lambda: tool3.merge_v5b(*v5, wr_c)),
+                ("merge_v5a's first design",
+                 lambda: yard["v5a_before"](v5, wr_c)),
+                ("merge_v5b's first design",
+                 lambda: yard["v5b_before"](v5, wr_c)),
+                ("the combined-node merge by flagged columns",
+                 lambda: yard["v5_columns"](v5, wr_c))):
+            got = run()
             torch.cuda.synchronize()
             if not torch.equal(got, want):
-                fail(f"merge_{name} disagrees with its plain version on "
-                     f"{label}")
+                fail(f"{name} disagrees with its plain version on {label}")
         if not torch.equal(want, k5_words) or not torch.equal(
                 want, k3_mod.merge_words(*slots_c, wr_c)[0]):
             fail(f"the combined nodes' words differ from K5's or K3's on "
@@ -1083,7 +1114,8 @@ def main() -> None:
         flagged = [float((cb[:, :-1] < 0).double().mean()) for cb in v5[3:]]
         print(f"U2, U3 on {label}: merge_v2 (fb {U2_FBS['v2']}), merge_v3 "
               f"(fb {U2_FBS['v3']}), merge_v5a, "
-              f"merge_v5b bit-exact against their plain versions; v5a = v5b "
+              f"merge_v5b (and their first designs, and the spill sets by "
+              f"flagged columns) bit-exact against their plain versions; v5a = v5b "
               f"= K5 = K3 words; widest chunk {ext} words; v2 gives K5's "
               f"words {same['v2']}, v3 {same['v3']}; flagged chunks sp2 "
               f"{flagged[0]:.4f}, sp1 {flagged[1]:.4f}", flush=True)
@@ -1169,25 +1201,91 @@ def main() -> None:
         return nbytes(cb2, cb1, *main_p) + 128 * 4 * (4 * flagged2
                                                       + 3 * flagged1)
 
+    def v5_sector_bytes(v5):
+        """What a reader of ``v5`` in chunk layout moves at the 32-byte
+        sectors the card reads: both cb tables, the main set, and each
+        sector of a spill set that holds a node of a flagged chunk (a
+        frame's arrays start on a sector: 512 nc bytes apart)."""
+        main_p, sp2, sp1, cb2, cb1 = v5
+        moved = nbytes(cb2, cb1, *main_p)
+        for nodes, cb in ((sp2, cb2), (sp1, cb1)):
+            F, _, nc = nodes[0].shape
+            flagged = (cb[:, None, :-1] < 0).expand(F, 128, nc)
+            moved += 32 * len(nodes) * int(
+                flagged.reshape(F, -1, 8).any(-1).sum())
+        return moved
+
+    out_bytes = tF * twr * 512
     for name, line, body in (("v5a", 344, "k_v5a :307"),
                              ("v5b", 440, "k_v5b :403")):
         kern = getattr(tool3, f"merge_{name}")
-        v5 = combined["music"]
+        before = yard[f"{name}_before"]
+        v5, v5n = combined["music"], combined["noise"]
         # about 8 int32 operations per node: bounds checks and three atomics
         phase(f"prof_merge_{name}", "flake_tpu_torch/csrc/prof_merge3.cu",
               f"util/prof_merge3.py:{line} ({body})",
               lambda kern=kern, v5=v5: kern(*v5, twr),
               lambda v5=v5: tool3.merge_v5_plain(*v5, twr), cmp_exact, (),
               8 * v5[0][0].numel(), INT32_OPS_PER_MS,
-              read_bytes=v5_read_bytes(v5))
-        # the noise batch, every sp2 chunk flagged, beside it
-        v5n = combined["noise"]
-        noise_ms, = time_turns(lambda kern=kern, v5n=v5n: kern(*v5n, twr))
-        noise_bound, _ = bound(v5_read_bytes(v5n) + tF * twr * 512, 0,
+              read_bytes=v5_read_bytes(v5),
+              before=lambda before=before, v5=v5: before(v5, twr))
+        # the noise batch, every sp2 chunk flagged, beside it; the bounds
+        # also at sector level
+        noise_ms, noise_before = time_turns(
+            lambda kern=kern: kern(*v5n, twr),
+            lambda before=before: before(v5n, twr))
+        noise_bound, _ = bound(v5_read_bytes(v5n) + out_bytes, 0,
                                INT32_OPS_PER_MS)
-        kernels[-1].update(noise_ms=noise_ms, noise_bound_ms=noise_bound)
-        print(f"info: prof_merge_{name} on the noise batch {noise_ms:.4f} ms, "
-              f"bound {noise_bound:.4f} ms by bytes", flush=True)
+        sector_mb = {k: (v5_sector_bytes(combined[k]) + out_bytes) / 1e6
+                     for k in ("music", "noise")}
+        kernels[-1].update(
+            noise_ms=noise_ms, noise_ms_before=noise_before,
+            noise_bound_ms=noise_bound, sector_mb=sector_mb,
+            sector_bound_ms={k: bound(mb * 1e6, 0, INT32_OPS_PER_MS)[0]
+                             for k, mb in sector_mb.items()})
+        print(f"info: prof_merge_{name} on the noise batch {noise_ms:.5f} ms "
+              f"(first design {noise_before:.5f} ms), bound "
+              f"{noise_bound:.5f} ms by bytes; at 32-byte sectors "
+              f"{ {k: round(v, 2) for k, v in sector_mb.items()} } MB, "
+              f"{ {k: round(v, 5) for k, v in kernels[-1]['sector_bound_ms'].items()} } "
+              "ms (music, noise)", flush=True)
+    v5a_entry = kernels[-2]
+    # the spill sets read by flagged columns beside the kernel's masked
+    # quads on both batches, and merge_v5a with a cold L2
+    v5a_entry["forms_ms"] = {}
+    for kind in ("music", "noise"):
+        v5k = combined[kind]
+        v5a_entry["forms_ms"][kind] = dict(zip(
+            ("quads", "columns"),
+            time_turns(lambda: tool3.merge_v5a(*v5k, twr),
+                       lambda: yard["v5_columns"](v5k, twr))))
+    v5a_cold = cold_ms(lambda: tool3.merge_v5a(*combined["music"], twr))
+    v5a_entry.update(cold_write_ms=v5a_cold[0], cold_read_ms=v5a_cold[1])
+    # what the chunk layout costs: the music nodes with no spill chunk
+    # flagged (main alone), as they are (sp2's chunk 0 of 17), and with
+    # every sp2 chunk flagged, held against the plain version each
+    main_p, sp2_p, sp1_p, cb2_m, cb1_m = combined["music"]
+    patterns = {"none": (cb2_m & tool3.MASK31, cb1_m & tool3.MASK31),
+                "as is": (cb2_m, cb1_m),
+                "every sp2": (cb2_m | tool3.FLAG, cb1_m)}
+    for label, cbs in patterns.items():
+        got = tool3.merge_v5a(main_p, sp2_p, sp1_p, *cbs, twr)
+        torch.cuda.synchronize()
+        if not torch.equal(got, tool3.merge_v5_plain(main_p, sp2_p, sp1_p,
+                                                     *cbs, twr)):
+            fail(f"merge_v5a disagrees with its plain version on music with "
+                 f"{label} flagged")
+    v5a_entry["music_flagged_ms"] = dict(zip(patterns, time_turns(
+        *(lambda cbs=cbs: tool3.merge_v5a(main_p, sp2_p, sp1_p, *cbs, twr)
+          for cbs in patterns.values()))))
+    print(f"info: merge_v5a's spill sets by masked quads / by flagged "
+          f"columns (csrc/yardsticks/prof_merge3_columns.cu) "
+          f"{ {k: {f: round(t, 5) for f, t in v.items()} for k, v in v5a_entry['forms_ms'].items()} } "
+          f"ms; merge_v5a with a cold L2 {v5a_cold[0]:.5f} ms (64 MiB "
+          f"written between calls), {v5a_cold[1]:.5f} ms (read); on music "
+          f"with no, its own and every sp2 chunk flagged "
+          f"{ {k: round(t, 5) for k, t in v5a_entry['music_flagged_ms'].items()} } "
+          "ms", flush=True)
 
     def v5a_run():
         return tool3.merge_v5a(*combined["music"], twr)

@@ -47,7 +47,8 @@ SIGNATURES = {
     # v2 and v3 launch one block a frame)
     **{f"flake_prof_merge_{variant}": [_P, _P, _P, _P, _P, _I, _I, _I]
        for variant in ("static2", "fixedrow", "nowin", "zero", "v2", "v3")},
-    # cb2, cb1, main x4, sp2 x4, sp1 x3, words, F, nc2, nc1, W
+    # cb2, cb1, main x4, sp2 x4, sp1 x3, words, F, nc2, nc1, W (one kernel,
+    # one block a frame)
     **{f"flake_prof_merge_{proto}": [_P] * 14 + [_I] * 4
        for proto in ("v5a", "v5b")},
     # the same with w0 in rows (v5d) or chunks (v5c), then kmax, kmax1 (one

@@ -18,8 +18,10 @@
 //             the chunk's hi words on all 128 lanes.
 //
 // row0 = chunk_bits[c] >> 12 and last_row = max((((chunk_bits[c + 1] - 1)
-// >> 5) + 1) >> 7, row0), with signed shifts, as the TPU kernels compute
-// them. A row at or past the block's word rows is never written.
+// >> 5) + 1) >> 7, row0), with signed shifts and the subtraction wrapping
+// in int32 (an end of INT32_MIN gives the largest row, 524,288), as the TPU
+// kernels compute them. A row at or past the block's word rows is never
+// written.
 //
 // What bounds them on the card: bytes (12 bytes per slot read, the word
 // block written once), as K5. Design as K5: one block per frame, the
@@ -43,7 +45,9 @@ constexpr int kLane = 128;
 __device__ __forceinline__ void chunk_rows(const int* cb, int c, int* row0,
                                            int* last_row) {
   *row0 = cb[c] >> 12;
-  const int last = (((cb[c + 1] - 1) >> 5) + 1) >> 7;
+  // unsigned, so that an end of INT32_MIN wraps instead of overflowing
+  const int end = static_cast<int>(static_cast<unsigned>(cb[c + 1]) - 1u);
+  const int last = ((end >> 5) + 1) >> 7;
   *last_row = last > *row0 ? last : *row0;
 }
 

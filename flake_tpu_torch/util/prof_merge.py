@@ -66,10 +66,14 @@ FRAMES, BLOCK, CHANNELS, BPS, SAMPLE_RATE = 512, 4096, 2, 16, 44100
 def chunk_rows(chunk_bits: torch.Tensor):
     """The first and last word row each chunk can touch, int64 [F, nc]
     (``pallas_bitmerge.py:240-244``): the last is the row of the lo spill
-    of a payload that ends at the chunk's end bit."""
+    of a payload that ends at the chunk's end bit. ``row0 = cb[c] >> 12``;
+    ``cb[c + 1] - 1`` is taken in int32, as the TPU bodies take it
+    (``util/prof_merge.py:191,217``, ``util/prof_merge2.py:309``), so a
+    chunk end of INT32_MIN wraps to the largest row, 524,288."""
     cb = chunk_bits.to(torch.int64)
     row0 = cb[:, :-1] >> 12
-    last_row = torch.maximum((((cb[:, 1:] - 1) >> 5) + 1) >> 7, row0)
+    last = wrap_int32(cb[:, 1:] - 1).to(torch.int64)
+    last_row = torch.maximum(((last >> 5) + 1) >> 7, row0)
     return row0, last_row
 
 

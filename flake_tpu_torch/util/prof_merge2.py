@@ -68,6 +68,7 @@ from flake_tpu_torch.ops.bitmerge import (LANE, check_aligned, merge_aligned,
                                           sum_at)
 from flake_tpu_torch.ops.common import wrap_int32
 from flake_tpu_torch.util.prof_merge import (FRAMES, batch_slots,
+                                             chunk_rows,
                                              merge_first_rows_plain, time_ms)
 
 PASS_WORDS = 64     # words a window covers
@@ -116,13 +117,11 @@ def v3_chunk_rows(chunk_bits: torch.Tensor):
     1] - 1) >> 5) + 1) >> 7`` in int32 (``- 1`` wraps at the int32
     minimum, as on the TPU). A word of row ``r`` adds where ``0 <= r - row0
     <= span``: row0 always, and row0 + 1..3 where ``last_row`` reaches them
-    (``_frame_body_s2w`` :308-325), whatever order the bounds have."""
-    cb = chunk_bits.to(torch.int64)
-    row0 = cb[:, :-1] >> 12
-    last = wrap_int32(cb[:, 1:] - 1).to(torch.int64)
-    last_row = ((last >> 5) + 1) >> 7
-    span = torch.clamp(torch.minimum(last_row, row0 + 3) - row0, min=0)
-    return row0, span
+    (``_frame_body_s2w`` :308-325), whatever order the bounds have. The
+    rows are :func:`~flake_tpu_torch.util.prof_merge.chunk_rows`', whose
+    ``last_row`` is at least ``row0``, so the span needs no clamp at 0."""
+    row0, last_row = chunk_rows(chunk_bits)
+    return row0, torch.minimum(last_row, row0 + 3) - row0
 
 
 def merge_v2_plain(w0t, hit, lot, chunk_bits, word_rows):

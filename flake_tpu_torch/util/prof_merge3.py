@@ -23,11 +23,11 @@ frame is the int32 (wrapping) sum of every A with ``w0 == w``, B with
 chunks whose ``cb2`` entry has bit 31 set and the sp1 chunks (A and B only)
 whose ``cb1`` entry has; a word at or past the block's end adds nothing.
 On the TPU they differ in how the loop over a chunk's word rows is
-unrolled, which a scatter does not have; on the GPU v5a tests each node's
-chunk flag, and v5b first reduces a frame's flags and skips a spill set
-that has none. The CUDA source is ``flake_tpu_torch/csrc/prof_merge3.cu``;
-:func:`merge_v5_plain` is the plain version of both, which a CPU tensor
-takes.
+unrolled, which a scatter does not have, so on the GPU both launch one
+kernel (each with its own entry point and launch count): every set read in
+memory order, a spill set only where a frame flags its chunks. The CUDA
+source is ``flake_tpu_torch/csrc/prof_merge3.cu``; :func:`merge_v5_plain`
+is the plain version of both, which a CPU tensor takes.
 
 **U3c, merge_v5d** and **U3d, merge_v5c** replace ``:653 merge_v5d`` (body
 ``k_v5d`` :612) and ``:714 merge_v5c`` (body ``k_v5c`` :677), which place a

@@ -349,11 +349,13 @@ def test_aligned_merge_kernel(dev, case):
     assert torch.equal(got, k3.merge_words(*slots, wr)[0])
 
 
-@pytest.mark.parametrize("case", ["level8", "random", "random_120_rows"])
+@pytest.mark.parametrize("case", ["level8", "random", "random_120_rows",
+                                  "level8_int32_min_end"])
 @pytest.mark.parametrize("variant", list(prof_merge.VARIANTS))
 def test_prof_merge_kernels(dev, variant, case):
-    """Each U1 kernel against its plain version."""
-    if case == "level8":
+    """Each U1 kernel against its plain version; in the last case a chunk
+    ends at INT32_MIN, where ``cb[c + 1] - 1`` wraps to the largest row."""
+    if case.startswith("level8"):
         slots, wr = _level8_slots(dev)
     else:
         slots, wr = _random_slots(5, 3000, seed=9)
@@ -361,6 +363,11 @@ def test_prof_merge_kernels(dev, variant, case):
         if case == "random_120_rows":
             wr = 120
     parts = bitpack.aligned_parts(*slots)
+    if case == "level8_int32_min_end":
+        cb = parts[3].clone()
+        cb[0, 3] = -1 << 31     # frame 0's chunks 2 and 3 hold parts
+        parts = (*parts[:3], cb)
+        assert int(prof_merge.chunk_rows(cb)[1][0, 2]) == 1 << 19
     kernel, plain = prof_merge.VARIANTS[variant]
     before = kernel.launches
     got = kernel(*parts, wr)
@@ -427,6 +434,88 @@ def test_combined_merge_kernels(dev, case):
     want = prof_merge3.merge_v5_plain(*parts[:3], cb2, cb1, wr)
     for kernel in (prof_merge3.merge_v5a, prof_merge3.merge_v5b):
         assert torch.equal(kernel(*parts[:3], cb2, cb1, wr), want)
+
+
+def _combined_both(parts, wr, want):
+    """``merge_v5a`` and ``merge_v5b`` on ``parts`` each give ``want``, one
+    launch counted a call."""
+    for kernel in (prof_merge3.merge_v5a, prof_merge3.merge_v5b):
+        before = kernel.launches
+        got = kernel(*parts, wr)
+        assert kernel.launches == before + 1
+        assert torch.equal(got, want), kernel.__name__
+
+
+@pytest.mark.parametrize("flags", ["every", "none", "last"])
+@pytest.mark.parametrize("case", ["music", "random"])
+def test_combined_merges_flag_patterns(dev, case, flags):
+    """Frames that flag every chunk of sp2 and sp1, none, or only the last
+    one of each: the kernels read the flagged chunks' nodes and skip the
+    rest."""
+    slots, wr = _prototype_slots(dev, case)
+    main, sp2, sp1, cb2, cb1 = prof_merge3.v5_parts(*slots)
+    cbs = []
+    for cb in (cb2, cb1):
+        cb = cb & prof_merge3.MASK31
+        if flags == "every":
+            cb[:, :-1] |= prof_merge3.FLAG
+        elif flags == "last":
+            cb[:, -2] |= prof_merge3.FLAG
+        cbs.append(cb)
+    want = prof_merge3.merge_v5_plain(main, sp2, sp1, *cbs, wr)
+    _combined_both((main, sp2, sp1, *cbs), wr, want)
+    if flags == "every":
+        unflagged = prof_merge3.merge_v5_plain(
+            main, sp2, sp1, *(cb & prof_merge3.MASK31 for cb in cbs), wr)
+        assert not torch.equal(want, unflagged)
+
+
+@pytest.mark.parametrize("case", ["noise", "random"])
+def test_combined_merges_unaligned_inputs(dev, case):
+    """Node arrays and an output off a 16-byte boundary take the kernels'
+    int-by-int loads and give the same words."""
+    slots, wr = _prototype_slots(dev, case)
+    main, sp2, sp1, cb2, cb1 = prof_merge3.v5_parts(*slots)
+    want = prof_merge3.merge_v5_plain(main, sp2, sp1, cb2, cb1, wr)
+    shifted = [tuple(_shifted(t) for t in group) for group in (main, sp2, sp1)]
+    _combined_both((*shifted, cb2, cb1), wr, want)
+
+
+@pytest.mark.parametrize("F,nc2,nc1", [(5, 5, 3), (3, 1, 2), (4, 6, 0),
+                                       (0, 5, 3)])
+def test_combined_merges_random_nodes(dev, F, nc2, nc1):
+    """Random nodes with ``nc2`` no multiple of 4 (and an empty sp1, and no
+    frame at all): words at and around both ends of the block and at the
+    int32 extremes, zeros among the values, about half the spill chunks
+    flagged."""
+    rng = np.random.default_rng(F * 100 + nc2 * 10 + nc1)
+    wr = 3
+    W = wr * 128
+
+    def nodes(nc, k):
+        w0 = rng.integers(-4, W + 4, (F, 128, nc))
+        w0[..., ::7, :] = rng.choice([-(1 << 31), -2, -1, W - 2, W - 1,
+                                      (1 << 31) - 3, (1 << 31) - 1],
+                                     w0[..., ::7, :].shape)
+        vals = [np.where(rng.random((F, 128, nc)) < 0.2, 0,
+                         rng.integers(-(1 << 31), 1 << 31, (F, 128, nc)))
+                for _ in range(k)]
+        return tuple(torch.from_numpy(a.astype(np.int32)).to(dev)
+                     for a in (w0, *vals))
+
+    def table(nc):
+        cb = rng.integers(0, 1 << 20, (F, nc + 1))
+        cb[:, :-1] |= np.where(rng.random((F, nc)) < 0.5, 1 << 31, 0)
+        return torch.from_numpy(cb.astype(np.uint32).view(np.int32)).to(dev)
+
+    parts = (nodes(nc2, 3), nodes(nc2, 3), nodes(nc1, 2), table(nc2),
+             table(nc1))
+    if F:
+        want = prof_merge3.merge_v5_plain(*parts, wr)
+        assert bool(want.any())
+    else:   # no frame: nothing is launched, and the plain version needs one
+        want = torch.zeros((0, wr, 128), dtype=torch.int32, device=dev)
+    _combined_both(parts, wr, want)
 
 
 @pytest.mark.parametrize("kmax", [4, 2])
@@ -520,13 +609,15 @@ def test_merge_v3_kernel_unaligned_inputs(dev):
 @pytest.mark.parametrize("seed", [0, 1])
 def test_merge_v3_kernel_unordered_bounds(dev, seed):
     """``merge_v3`` needs no order of the chunk bounds: random bounds,
-    decreasing and negative ones among them, and words around and outside
-    the block give the plain version's words."""
+    decreasing and negative ones among them, a chunk that ends at
+    INT32_MIN, and words around and outside the block give the plain
+    version's words."""
     rng = np.random.default_rng(seed)
     F, nc, wr = 16, 40, 20
     W = wr * 128
     cb = rng.integers(-6 * 4096, (wr + 6) * 4096, (F, nc + 1))
     cb[0] = np.sort(cb[0])[::-1]
+    cb[1, 5:7] = [2 * 4096 + 7, -1 << 31]
     w0t = rng.integers(-300, W + 300, (F, 128, nc))
     hit, lot = (rng.integers(-1 << 31, 1 << 31, (F, 128, nc))
                 for _ in range(2))
@@ -571,12 +662,13 @@ def test_merge_v2_kernel_unaligned_inputs(dev):
 
 def _floor_operands(dev, F):
     """K5's parts and v5d's and v5c's operands of F random frames: what
-    the three zero floors take (and do not read)."""
+    the three zero floors take (and do not read); then v5a's."""
     slots, _ = _random_slots(F, 300, seed=F)
     slots = tuple(t.to(dev) for t in slots)
     *rows, _ = prof_merge3.v5d_parts(*slots)
     *dual, _ = prof_merge3.v5c_parts(*slots)
-    return bitpack.aligned_parts(*slots), rows, dual
+    return (bitpack.aligned_parts(*slots), rows, dual,
+            prof_merge3.v5_parts(*slots))
 
 
 @pytest.mark.parametrize("F,word_rows,fbs", [(64, 34, (1, 8, 16, 32)),
@@ -586,7 +678,7 @@ def test_zero_floor_kernels(dev, F, word_rows, fbs):
     zeros at every fb, also where F * W is no multiple of a block's
     stores (F = 3, one word row), one launch counted a call; an fb that
     does not divide the frames is refused."""
-    parts, rows, dual = _floor_operands(dev, F)
+    parts, rows, dual, _ = _floor_operands(dev, F)
     zeros = torch.zeros((F, word_rows, 128), dtype=torch.int32, device=dev)
     before = prof_merge.merge_zero.launches
     assert torch.equal(prof_merge.merge_zero(*parts, word_rows), zeros)
@@ -607,14 +699,15 @@ SENTINEL = 0x5A5A5A5A
 @pytest.mark.parametrize("offset", [0, 1, 2, 3, 4])
 @pytest.mark.parametrize("F,word_rows", [(8, 34), (3, 1)])
 def test_kernels_write_their_block_only(dev, F, word_rows, offset):
-    """Each zero floor entry, ``merge_v2``, ``merge_v3``, ``merge_v5d`` and
-    ``merge_v5c`` write into a view ``offset`` ints into a larger buffer
-    prefilled with a sentinel: every word of the [F, W] block is written and
-    nothing around it is touched, whether the view starts on a 16-byte
-    boundary or not (the 16-byte and the one-at-a-time instantiations)."""
+    """Each zero floor entry, ``merge_v2``, ``merge_v3``, ``merge_v5a``,
+    ``merge_v5b``, ``merge_v5d`` and ``merge_v5c`` write into a view
+    ``offset`` ints into a larger buffer prefilled with a sentinel: every
+    word of the [F, W] block is written and nothing around it is touched,
+    whether the view starts on a 16-byte boundary or not (the 16-byte and
+    the one-at-a-time instantiations)."""
     from flake_tpu_torch import _cuda
 
-    parts, rows, dual = _floor_operands(dev, F)
+    parts, rows, dual, combined = _floor_operands(dev, F)
     W = word_rows * 128
     nc = parts[0].shape[-1]
     launches = {
@@ -636,7 +729,11 @@ def test_kernels_write_their_block_only(dev, F, word_rows, offset):
             kin[6], kin[7], kin[0], *kin[1], kin[2], *kin[3], kin[4],
             *kin[5], out, F, kin[1][0].shape[1], kin[5][0].shape[1], W,
             prof_merge3.KMAX, prof_merge3.KMAX1)
-           for name, kin in (("v5d", rows), ("v5c", dual))}}
+           for name, kin in (("v5d", rows), ("v5c", dual))},
+        **{f"flake_prof_merge_{name}": lambda out: (
+            *combined[3:], *combined[0], *combined[1], *combined[2], out, F,
+            combined[0][0].shape[-1], combined[2][0].shape[-1], W)
+           for name in ("v5a", "v5b")}}
     wants = {name: torch.zeros(F * W, dtype=torch.int32, device=dev)
              for name in launches}
     wants["flake_prof_merge_v2"] = prof_merge2.merge_v2_plain(
@@ -645,7 +742,10 @@ def test_kernels_write_their_block_only(dev, F, word_rows, offset):
         *parts, word_rows).flatten()
     wants["flake_prof_merge_v5d"] = wants["flake_prof_merge_v5c"] = \
         prof_merge3.merge_v5_rows_plain(*rows, word_rows).flatten()
+    wants["flake_prof_merge_v5a"] = wants["flake_prof_merge_v5b"] = \
+        prof_merge3.merge_v5_plain(*combined, word_rows).flatten()
     assert bool(wants["flake_prof_merge_v5d"].any())
+    assert bool(wants["flake_prof_merge_v5a"].any())
     for name, args in launches.items():
         buf = torch.full((offset + F * W + 7,), SENTINEL, dtype=torch.int32,
                          device=dev)

@@ -132,15 +132,18 @@ def test_prototype_plain_matches_pallas(jax_tool, proto, name, fb):
 @pytest.mark.parametrize("seed", [0, 1])
 def test_v3_plain_matches_pallas_on_unordered_bounds(jax_tool, seed):
     """``merge_v3``'s function needs no order of the chunk bounds: on random
-    bounds, decreasing and negative ones among them, the plain version and
-    the kernel's table (:func:`v3_chunk_rows`) keep what ``k_v3`` keeps.
-    Words stay below the block's last so that interpret mode, which clamps
-    a row past the block to its last, adds nothing there."""
+    bounds, decreasing and negative ones among them, and a chunk that ends
+    at INT32_MIN (``cb[c + 1] - 1`` wraps to the largest row, so ``k_v3``
+    keeps its rows row0 to row0 + 3), the plain version and the kernel's
+    table (:func:`v3_chunk_rows`) keep what ``k_v3`` keeps. Words stay
+    below the block's last so that interpret mode, which clamps a row past
+    the block to its last, adds nothing there."""
     rng = np.random.default_rng(seed)
     F, nc, wr = 2, 12, 10
     W = wr * LANE
     cb = rng.integers(-6 * 4096, (wr + 6) * 4096, (F, nc + 1))
     cb[0] = np.sort(cb[0])[::-1]
+    cb[1, 5:7] = [2 * 4096 + 7, -1 << 31]
     w0t = rng.integers(0, W - 1, (F, LANE, nc))
     hit, lot = (rng.integers(-1 << 31, 1 << 31, (F, LANE, nc))
                 for _ in range(2))
