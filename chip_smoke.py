@@ -105,7 +105,26 @@ the three streams at other widths (30 s, 30 s and 4 s; K1 and K3, and K4
 at level 8; the 8-channel stream must launch K3's device-memory
 instantiation, the others its shared one). Every stream is decoded with
 the port's independent decoder (``flake_tpu_torch.decoder``), MD5
-included, and its STREAMINFO must give its channels, bits and rate.
+included, and its STREAMINFO must give its channels, bits and rate. Each
+stream is encoded once more, untimed, with the host emission
+(``pack_backend="host"``, the native packer), whose bytes must equal K3's
+and which must launch no K3. Each stream prints its peak device memory
+above what the smoke holds at the reset; levels 8 and 12 also print it by
+stage (``analyze_frames``, the Rice scans, the k scan, the emission).
+
+Then the file path, as a user runs it (``flake_tpu_torch.cli.main``, the
+launch counts set to 0 around each run), on WAV files written by the
+port's ``write_wave``: BASELINE config 1 at full width (``-5 -b 4608`` on
+600 s of 16-bit / 44.1 kHz stereo with a partial last block; ``wavinfo``
+printed; K1 and K3 must launch, the sweeps not), cold and warm under each
+emission, whose files must be equal and decode to the samples the port's
+reader reads, with STREAMINFO blocks of 4608; the 24-bit / 96 kHz stream
+at ``-8``, whose file must equal ``encode_stream``'s (the command line
+reads in chunks); the recorded plucks of ``tests/data`` (AIFF and WAV,
+16- and 24-bit, 11,025 Hz) at ``-5``, each file equal to
+``encode_stream``'s on the samples it decodes to; and ``-8 --lpc-dtype
+float32`` on 30 s (lossless; K1 must not launch, K4 and K3 must) beside
+float64.
 
     python3 chip_smoke.py
 
@@ -120,6 +139,7 @@ import json
 import pathlib
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -134,6 +154,12 @@ FIXED_PARITY_WINDOW = (99, 102)  # of the fixed-block stream, levels 5 and 7
 # seconds of the fixed-block stream per level below 8 (level 8 takes it all)
 LEVEL_SECONDS = {5: 180, 7: 60, 3: 30, 2: 30, 1: 30, 0: 30}
 SCENE = 10              # seconds per scene of that stream
+# BASELINE.json config 1 (the default flake CLI run: level 5, fixed
+# 4608-sample blocks) through the command line on a WAV file of this
+# length; 600 s end in an 864-sample partial block
+CONFIG1_SECONDS = 600
+CONFIG1_BLOCK = 4608
+FLOAT32_SECONDS = 30    # of the fixed-block stream at --lpc-dtype float32
 # streams at other widths: label -> (channels, bits per sample, sample
 # rate, level, seconds). The 6-channel frames take 49,664 bytes of words,
 # above the 48 KiB that needs K3's shared-memory opt-in; the 8-channel
@@ -168,16 +194,16 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def make_stream(seed: int) -> "np.ndarray":
-    """180 s of int32 [n, 2] 16-bit stereo: two different low tone pairs
-    (every lag up to 12 stays well correlated), light noise, a silent
-    second at 60 s (CONSTANT subframes) and a second of full-scale binary
-    noise at 100 s (verbatim frames). The first batch (47.5 s) is
-    tonal."""
+def make_stream(seed: int, seconds: int = SECONDS) -> "np.ndarray":
+    """``seconds`` (180 unless asked) of int32 [n, 2] 16-bit stereo: two
+    different low tone pairs (every lag up to 12 stays well correlated),
+    light noise, a silent second at 60 s (CONSTANT subframes) and a second
+    of full-scale binary noise at 100 s (verbatim frames). The first batch
+    (47.5 s) is tonal."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
-    n = SECONDS * SAMPLE_RATE
+    n = seconds * SAMPLE_RATE
     t = np.arange(n) / SAMPLE_RATE
     env = 0.6 + 0.4 * np.sin(2 * np.pi * t / 23.0)
     left = env * (9000 * np.sin(2 * np.pi * 220 * t)
@@ -540,19 +566,23 @@ def main() -> None:
         fail(f"need compute capability (9, 0), got {cap}")
     dev = torch.device("cuda", 0)
 
-    from flake_tpu_torch import _cuda, decoder, native
+    from flake_tpu_torch import _cuda, cli, decoder, native, wavinfo
+    from flake_tpu_torch import encoder as encoder_mod
     from flake_tpu_torch import params as P
+    from flake_tpu_torch.io import open_pcm
+    from flake_tpu_torch.io.wav import write_wave
     from flake_tpu_torch.encoder import Encoder, vbs_layout, vbs_section_sums
     from flake_tpu_torch.ops import autocorr as k1_mod
     from flake_tpu_torch.ops import bitmerge as k3_mod
-    from flake_tpu_torch.ops import bitpack, frame, lpc
+    from flake_tpu_torch.ops import bitpack, frame, lpc, rice
     from flake_tpu_torch.ops import sweep as sweep_mod
     from flake_tpu_torch.util import prof_merge as tool
     from flake_tpu_torch.util import prof_merge2 as tool2
     from flake_tpu_torch.util import prof_merge3 as tool3
 
     if "jax" in sys.modules:
-        fail("importing flake_tpu_torch imported jax")
+        fail("importing flake_tpu_torch (its io, wavinfo and cli "
+             "included) imported jax")
 
     # -- 2. builds ----------------------------------------------------------
     t0 = time.perf_counter()
@@ -583,7 +613,7 @@ def main() -> None:
     t0 = time.perf_counter()
     native.build()
     native.get_verifier()
-    print(f"build crc_patch.cpp and verifier.cpp: "
+    print(f"build packer.cpp and verifier.cpp: "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     def stream_config(level):
@@ -1744,17 +1774,21 @@ def main() -> None:
                   f"{v5c_entry['tool_method_ms_fb8']:.5f} ms as the tool "
                   "times it", flush=True)
 
+    blobs = {}              # label -> the bytes of the stream's cold run
+
     def drive(label, cfg, stream, needs, never=()):
         """One main path through the encoder, cold then warm; the counts
-        are those of the cold run."""
+        are those of the cold run. Then, untimed, the host emission must
+        give the same bytes without K3."""
         torch.cuda.reset_peak_memory_stats(dev)
+        held = torch.cuda.memory_allocated(dev)
         rate, pcm_bytes = cfg.sample_rate, stream.size * cfg.bits_per_sample / 8
         enc = Encoder(cfg, device="cuda")
         t0 = time.perf_counter()
         blob = count_launches(label, lambda: enc.encode_stream(stream),
                               needs, never)
         cold = time.perf_counter() - t0
-        peak = torch.cuda.max_memory_allocated(dev)
+        peak = torch.cuda.max_memory_allocated(dev) - held
         print(f"{label}: batches {enc.stats['batches']}, frames "
               f"{enc.stats['frames']}: total_bits == 8*frame_bytes held for "
               "every batch", flush=True)
@@ -1770,9 +1804,20 @@ def main() -> None:
               f"({secs / cold:.1f}x realtime), warm {warm:.3f} s "
               f"({secs / warm:.1f}x realtime); {len(blob)} bytes "
               f"({len(blob) / pcm_bytes:.4f} of the PCM bytes); "
-              f"peak device memory {peak / 2**20:.0f} MiB; warm stats "
-              f"{ {k: round(v, 4) for k, v in enc2.stats.items()} }",
+              f"peak device memory {peak / 2**20:.0f} MiB above the "
+              f"{held / 2**20:.0f} MiB the smoke held at the reset; warm "
+              f"stats { {k: round(v, 4) for k, v in enc2.stats.items()} }",
               flush=True)
+        host_blob = count_launches(
+            f"{label}, host emission",
+            lambda: Encoder(cfg, device="cuda",
+                            pack_backend="host").encode_stream(stream),
+            tuple(n for n in needs if n != "merge_words"),
+            tuple(never) + ("merge_words",))
+        if host_blob != blob:
+            fail(f"{label}: the host emission's bytes differ from K3's")
+        print(f"{label}: the host emission (native packer) gives K3's "
+              f"{len(blob)} bytes", flush=True)
         t0 = time.perf_counter()
         dec = decoder.decode_stream(blob)
         if not dec.md5_ok:
@@ -1783,9 +1828,67 @@ def main() -> None:
               f"STREAMINFO block sizes {dec.streaminfo.min_block_size}-"
               f"{dec.streaminfo.max_block_size} "
               f"({time.perf_counter() - t0:.1f} s)", flush=True)
+        blobs[label] = blob
         return dec
 
+    def stage_peaks(label, cfg, stream):
+        """One more (untimed) encode with the peak device memory of each
+        stage above the memory allocated when it begins: analyze_frames,
+        the sweep's Rice scan (``subframe_bits_from_sums``), the final
+        Rice search (``calc_rice_params_dynamic``), the k scan inside both
+        (``find_optimal_k_u32``) and pack_frames_device. A stage that
+        begins inside another hands its peak to the outer one, so each
+        reading is that of the stage with everything it calls."""
+        hooks = [(encoder_mod, "analyze_frames"),
+                 (frame, "subframe_bits_from_sums"),
+                 (frame, "calc_rice_params_dynamic"),
+                 (rice, "find_optimal_k_u32"),
+                 (bitpack, "pack_frames_device")]
+        # [start, top] of the whole encode, then of each stage entered
+        stack, peaks = [], {}
+
+        def wrap(name, orig):
+            def run(*args, **kwargs):
+                top = torch.cuda.max_memory_allocated(dev)
+                for entry in stack:
+                    entry[1] = max(entry[1], top)
+                torch.cuda.reset_peak_memory_stats(dev)
+                start = torch.cuda.memory_allocated(dev)
+                stack.append([start, start])
+                try:
+                    return orig(*args, **kwargs)
+                finally:
+                    entry = stack.pop()
+                    top = max(entry[1], torch.cuda.max_memory_allocated(dev))
+                    for outer in stack:
+                        outer[1] = max(outer[1], top)
+                    if top - entry[0] > peaks.get(name, (0,))[0]:
+                        shape = getattr(args[0], "shape", None)
+                        peaks[name] = (top - entry[0],
+                                       shape and tuple(shape))
+            return run
+
+        originals = [(mod, name, getattr(mod, name)) for mod, name in hooks]
+        for mod, name, orig in originals:
+            setattr(mod, name, wrap(name, orig))
+        try:
+            torch.cuda.reset_peak_memory_stats(dev)
+            held = torch.cuda.memory_allocated(dev)
+            stack.append([held, held])
+            Encoder(cfg, device="cuda").encode_stream(stream)
+            torch.cuda.synchronize()
+            whole = max(stack.pop()[1], torch.cuda.max_memory_allocated(dev))
+        finally:
+            for mod, name, orig in originals:
+                setattr(mod, name, orig)
+        print(f"{label}: peak device memory by stage, MiB above the stage's "
+              "start (the first argument's shape at that peak): "
+              f"{ {k: (round(v / 2**20, 1), sh) for k, (v, sh) in peaks.items()} }"
+              f"; the whole encode {(whole - held) / 2**20:.1f} MiB above "
+              f"the {held / 2**20:.0f} MiB held", flush=True)
+
     dec8 = drive("level 8", cfg8, pcm, k1234)
+    stage_peaks("level 8", cfg8, pcm)
     if dec8.streaminfo.min_block_size != BLOCK:
         fail("level 8: STREAMINFO min block is not the block size")
     # the silent and noise seconds take the CONSTANT and VERBATIM branches
@@ -1816,6 +1919,7 @@ def main() -> None:
         dec = drive(f"level {level}", stream_config(level), vpcm, k1234)
         if dec.streaminfo.min_block_size != 16:
             fail(f"level {level}: STREAMINFO min block is not 16")
+    stage_peaks("level 12", stream_config(12), vpcm)
 
     for label, stream in wide.items():
         cfg = wide_config(label)
@@ -1833,6 +1937,139 @@ def main() -> None:
                for form in ("shared", "global")):
         fail(f"the main paths did not launch both K3 instantiations: "
              f"{k3_launched_by}")
+
+    # -- 7b. the file path: WAV files through the command line --------------
+    def run_cli(label, argv, needs=None, never=()):
+        """One command-line run as a user calls it, with the launch counts
+        of this path (uncounted where ``needs`` is None: a warm run);
+        returns its wall seconds."""
+        t0 = time.perf_counter()
+        if needs is None:
+            rc = cli.main(list(map(str, argv)))
+            torch.cuda.synchronize()
+        else:
+            rc = count_launches(label,
+                                lambda: cli.main(list(map(str, argv))),
+                                needs, never)
+        wall = time.perf_counter() - t0
+        if rc != 0:
+            fail(f"{label}: the command line exited {rc}")
+        return wall
+
+    def check_file(label, flac, wav, block=None):
+        """The FLAC file decodes with its MD5 to the samples the port's
+        reader reads from the WAV, and its STREAMINFO gives the WAV's
+        rate, channels and bits (and ``block`` as both block sizes)."""
+        with open(wav, "rb") as f:
+            reader = open_pcm(f)
+            info, want = reader.info, reader.read_all()
+        t0 = time.perf_counter()
+        dec = decoder.decode_stream(flac)
+        si = dec.streaminfo
+        if not dec.md5_ok or not np.array_equal(dec.samples, want):
+            fail(f"{label}: the file does not decode to the input's samples "
+                 "with its MD5")
+        got = (si.sample_rate, si.channels, si.bits_per_sample)
+        if got != (info.sample_rate, info.channels, info.bits_per_sample) \
+                or (block and (si.min_block_size, si.max_block_size)
+                    != (block, block)):
+            fail(f"{label}: STREAMINFO says {si}")
+        print(f"{label} decode: lossless, MD5 ok, {dec.frames} frames, "
+              f"STREAMINFO {si.min_block_size}/{si.max_block_size} samples "
+              f"a block, {si.sample_rate} Hz, {si.channels} ch, "
+              f"{si.bits_per_sample} bit ({time.perf_counter() - t0:.1f} s)",
+              flush=True)
+        return want
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        # BASELINE config 1 at full width: 600 s of 16-bit/44.1 kHz stereo
+        wav = tmp / "config1.wav"
+        write_wave(wav, make_stream(SEED, CONFIG1_SECONDS), SAMPLE_RATE, 16)
+        print(f"config 1 input, wavinfo of {CONFIG1_SECONDS} s "
+              f"({wav.stat().st_size} bytes):", flush=True)
+        if wavinfo.main([str(wav)]) != 0:
+            fail("wavinfo could not read the config-1 WAV")
+        pcm_bytes = CONFIG1_SECONDS * SAMPLE_RATE * 4
+        c1 = ["-q", "-5", "-b", CONFIG1_BLOCK]
+        for backend, needs, never in (
+                ("device", ("autocorr", "merge_words"), sweeps),
+                ("host", ("autocorr",), sweeps + ("merge_words",))):
+            out = tmp / f"config1_{backend}.flac"
+            argv = c1 + ["--pack-backend", backend, wav, "-o", out]
+            cold = run_cli(f"cli config 1 ({backend} emission)", argv,
+                           needs, never)
+            warm = run_cli(f"cli config 1 ({backend} emission), warm", argv)
+            size = out.stat().st_size
+            print(f"cli -5 -b {CONFIG1_BLOCK}, {CONFIG1_SECONDS} s WAV, "
+                  f"{backend} emission, on {card}: cold {cold:.3f} s "
+                  f"({CONFIG1_SECONDS / cold:.1f}x realtime), warm "
+                  f"{warm:.3f} s ({CONFIG1_SECONDS / warm:.1f}x realtime); "
+                  f"{size} bytes ({size / pcm_bytes:.4f} of the PCM bytes)",
+                  flush=True)
+        c1_blob = (tmp / "config1_device.flac").read_bytes()
+        if (tmp / "config1_host.flac").read_bytes() != c1_blob:
+            fail("cli config 1: the host emission's file differs from K3's")
+        print("cli config 1: the host emission's file equals K3's", flush=True)
+        check_file("cli config 1", c1_blob, wav, CONFIG1_BLOCK)
+
+        # the command line reads in chunks of up to 1024 frames, which must
+        # not change a byte: the 24-bit stream's file equals encode_stream's
+        label = "24-bit/96 kHz stereo"
+        channels, bps, rate, level, _ = WIDE_STREAMS[label]
+        wav = tmp / "wide24.wav"
+        write_wave(wav, wide[label], rate, bps)
+        out = tmp / "wide24.flac"
+        run_cli(f"cli -{level} on the {label} WAV",
+                ["-q", f"-{level}", wav, "-o", out],
+                needs_of_level[level])
+        if out.read_bytes() != blobs[label]:
+            fail(f"cli on the {label} WAV: its file differs from "
+                 "encode_stream's on the same samples")
+        print(f"cli -{level} on the {label} WAV: the file equals "
+              f"encode_stream's {len(blobs[label])} bytes", flush=True)
+
+        # recorded input: 11,025 Hz guitar plucks (the custom-rate header
+        # field) in every container the readers take
+        for name in ("pluck-pcm16.aiff", "pluck-pcm16.wav",
+                     "pluck-pcm24.wav"):
+            src = ROOT / "tests" / "data" / name
+            out = tmp / f"{name}.flac"
+            run_cli(f"cli -5 on {name}", ["-q", "-5", src, "-o", out],
+                    ("autocorr", "merge_words"), sweeps)
+            blob = out.read_bytes()
+            samples = check_file(f"cli -5 on {name}", blob, src)
+            with open(src, "rb") as f:
+                info = open_pcm(f).info
+            want = Encoder(P.StreamConfig(
+                channels=info.channels, sample_rate=info.sample_rate,
+                bits_per_sample=info.bits_per_sample,
+                params=P.set_defaults(5)), device="cuda").encode_stream(
+                    samples)
+            if blob != want:
+                fail(f"cli -5 on {name}: the file differs from "
+                     "encode_stream's on its samples")
+            print(f"cli -5 on {name}: {samples.shape[0]} samples at "
+                  f"{info.sample_rate} Hz, {info.bits_per_sample} bit; the "
+                  f"file equals encode_stream's {len(want)} bytes", flush=True)
+
+        # --lpc-dtype float32 at level 8: no K1, the sweep and K3 run
+        wav = tmp / "float32.wav"
+        seg = pcm[:FLOAT32_SECONDS * SAMPLE_RATE]
+        write_wave(wav, seg, SAMPLE_RATE, 16)
+        sizes = {}
+        for dtype, needs, never in (
+                ("float32", ("sweep_granules", "merge_words"), ("autocorr",)),
+                ("float64", k1234, ())):
+            out = tmp / f"{dtype}.flac"
+            run_cli(f"cli -8 --lpc-dtype {dtype}",
+                    ["-q", "-8", "--lpc-dtype", dtype, wav, "-o", out],
+                    needs, never)
+            sizes[dtype] = out.stat().st_size
+            check_file(f"cli -8 --lpc-dtype {dtype}", out.read_bytes(), wav)
+        print(f"cli -8 on {FLOAT32_SECONDS} s: float32 {sizes['float32']} "
+              f"bytes, float64 {sizes['float64']} bytes "
+              f"({sizes['float32'] / sizes['float64'] - 1:+.5%})", flush=True)
 
     # -- 8. results -----------------------------------------------------------
     for k in kernels:

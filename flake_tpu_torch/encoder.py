@@ -3,12 +3,21 @@
 The stream is cut into fixed-size frames; a batch of up to
 ``batch_frames`` frames is uploaded as int16, analysed on the device
 (:func:`~flake_tpu_torch.ops.frame.analyze_frames`, kernels K1, and K2
-or K4) and emitted as FLAC bytes on the device
-(:func:`~flake_tpu_torch.ops.bitpack.pack_frames_device`, kernel K3).
-The host fetches only the compacted frame bytes and patches their CRCs,
-while MD5 runs over the raw input on a worker thread. Batches run two
-deep: batch i+1 is enqueued before batch i is copied back. The final
-partial frame takes the same device path as a batch of one frame.
+or K4) and emitted by one of two backends (``pack_backend``):
+
+- ``"device"`` (and ``"auto"``, which the JAX package resolves to the
+  device emission for every legal config): FLAC bytes on the device
+  (:func:`~flake_tpu_torch.ops.bitpack.pack_frames_device`, kernel K3);
+  the host fetches only the compacted frame bytes and patches their CRCs.
+- ``"host"``: the host fetches the analysis tensors and packs whole
+  frames with the native packer (:func:`~flake_tpu_torch.native.
+  pack_frames`), which checks its lengths against the device's
+  ``frame_bytes``.
+
+MD5 runs over the raw input on a worker thread. Batches run two deep:
+batch i+1 is enqueued before batch i is copied back. The final partial
+frame takes the same device analysis as a batch of one frame, then the
+chosen emission.
 
 Variable block sizes (levels 9-12, ``encoder.py:520-571`` of the JAX
 package): each block is a superblock of eight sections whose
@@ -20,9 +29,10 @@ each bucket is encoded as batches of its own block size. Under
 
 API lifecycle mirrors the reference (flake.h:217-234): construct ->
 header() -> encode chunks -> streaminfo() rewrite. Every preset level
-0-12 encodes. The port has no device mesh, no host packing, no
-save/load of encoder state and no Vorbis comment entries: its
-constructor takes no such argument.
+0-12 encodes. The constructor takes the JAX package's arguments
+(``lpc_dtype``, ``vorbis_entries``, ``pack_backend``) except ``mesh``:
+the port runs on one device. ``save_state`` / ``load_state`` resume an
+interrupted encode.
 """
 
 from __future__ import annotations
@@ -36,9 +46,11 @@ import torch
 
 from flake_tpu_torch import metadata
 from flake_tpu_torch import params as P
-from flake_tpu_torch.native import crc_patch
+from flake_tpu_torch.native import crc_patch, pack_frames
 from flake_tpu_torch.ops import bitpack
-from flake_tpu_torch.ops.frame import FrameConfig, analyze_frames
+from flake_tpu_torch.ops.frame import LPC_DTYPES, FrameConfig, analyze_frames
+
+PACK_BACKENDS = ("auto", "device", "host")
 
 SPLIT_THRESHOLD = 50    # vbs.c:26
 
@@ -98,15 +110,33 @@ class Encoder:
 
     def __init__(self, cfg: P.StreamConfig, *, device,
                  batch_frames: int = 512,
-                 vendor_string: str | None = None):
+                 lpc_dtype: str = "float64",
+                 vendor_string: str | None = None,
+                 vorbis_entries: list[str] | None = None,
+                 pack_backend: str = "auto"):
+        """``lpc_dtype``: "float64" (the reference's doubles; K1) or
+        "float32" (plain float32 autocorrelation and recursions; the
+        stream stays lossless). ``vorbis_entries``: "NAME=value" strings
+        for the VORBIS_COMMENT block; an invalid one raises ``ValueError``
+        from :meth:`header`. ``pack_backend``: "device", "host" or "auto"
+        (= "device"); the bytes are the same."""
         self.device = resolve_device(device)
         P.validate_params(cfg)
         p = cfg.params
         if batch_frames < 1:
             raise ValueError("batch_frames must be >= 1")
+        if lpc_dtype not in LPC_DTYPES:
+            raise ValueError(f"bad lpc_dtype {lpc_dtype!r}")
+        if pack_backend not in PACK_BACKENDS:
+            raise ValueError(f"bad pack_backend {pack_backend!r}")
+        self.lpc_dtype = lpc_dtype
+        self.pack_backend = pack_backend
+        self.vorbis_entries = list(vorbis_entries or [])
         # device_wait_seconds: blocked on device results (device work not
-        # hidden by the two-deep pipeline); fetch_seconds: compaction and
-        # the device-to-host copy; pack_seconds: host CRC patching
+        # hidden by the two-deep pipeline); fetch_seconds: the
+        # device-to-host copy (of the compacted bytes, or of the analysis
+        # tensors under the host emission); pack_seconds: host CRC
+        # patching, or host packing
         self.stats = {"frames": 0, "batches": 0,
                       "device_wait_seconds": 0.0, "fetch_seconds": 0.0,
                       "pack_seconds": 0.0, "bytes_out": 0}
@@ -118,6 +148,8 @@ class Encoder:
         self.batch_frames = batch_frames
         self.vendor_string = vendor_string or metadata.DEFAULT_VENDOR
         self.sr_code = P.samplerate_code(cfg.sample_rate)
+        self.bps_code = P.bps_code(cfg.bits_per_sample)
+        self.ch_code = cfg.channels - 1
         self.max_frame_size = P.max_frame_size(p.block_size, self.channels,
                                                self.bps)
         self.frame_count = 0          # frames, or samples when allow_vbs
@@ -141,6 +173,9 @@ class Encoder:
 
     def header(self) -> bytes:
         vc = metadata.VorbisComment(vendor_string=self.vendor_string)
+        for entry in self.vorbis_entries:
+            if not metadata.add_vorbiscomment_entry(vc, entry):
+                raise ValueError(f"invalid vorbis comment {entry!r}")
         return metadata.write_headers(self.streaminfo(),
                                       self.params.padding_size, vc)
 
@@ -212,6 +247,30 @@ class Encoder:
         blob += body
         blob[8:8 + 34] = metadata.write_streaminfo(self.streaminfo())
         return bytes(blob)
+
+    # -- checkpoint / resume ---------------------------------------------
+
+    def save_state(self) -> dict:
+        """The encoder's state for resuming after an interruption: FLAC is
+        append-only (header first, frames appended, STREAMINFO patched at
+        the end), so a resume reopens the output at the last flushed byte
+        and continues from here (``flake_tpu/encoder.py:217-237``)."""
+        return {
+            "frame_count": self.frame_count,
+            "max_frame_size": self.max_frame_size,
+            "sample_count": self.sample_count,
+            "md5_state": self.md5.copy(),
+            "pending": self._pending.copy(),
+            "finished": self._finished,
+        }
+
+    def load_state(self, state: dict) -> None:
+        self.frame_count = state["frame_count"]
+        self.max_frame_size = state["max_frame_size"]
+        self.sample_count = state["sample_count"]
+        self.md5 = state["md5_state"].copy()
+        self._pending = state["pending"].copy()
+        self._finished = state["finished"]
 
     # -- internals -------------------------------------------------------
 
@@ -285,8 +344,10 @@ class Encoder:
         """Encode [F, block_size, C] frames in device batches, two deep.
         Returns (bytes, int64 [F] frame lengths)."""
         cfg = FrameConfig.from_params(self.params, self.channels, self.bps,
-                                      block_size=block_size)
+                                      block_size=block_size,
+                                      lpc_dtype=self.lpc_dtype)
         bs_code = P.blocksize_code(block_size)
+        on_host = self.pack_backend == "host"
         F = frames.shape[0]
         bsz = self.batch_frames
         # short batches pad to the smallest of a few fixed shapes
@@ -314,12 +375,51 @@ class Encoder:
             samples = self._upload_samples(chunk)
             # frame headers are whole bytes, CRC-8 included
             analysis = analyze_frames(samples, cfg, self._upload(hdr_nb * 8))
+            if on_host:
+                return analysis, cnums, n
             words, total_bits = bitpack.pack_frames_device(
                 analysis, self._upload(hdr_bytes), self._upload(hdr_nb),
                 cfg)
             return words, total_bits, analysis["frame_bytes"], hdr_nb, n
 
-        def drain(item):
+        def drain_host(item):
+            """Copy one batch's analysis tensors back and pack its frames
+            on the host (``flake_tpu/encoder.py:467-504``)."""
+            analysis, cnums, n = item
+            t0 = time.perf_counter()
+            analysis["frame_bytes"].cpu()            # waits for the device
+            t_ready = time.perf_counter()
+            host = {k: v[:n].cpu().numpy() for k, v in analysis.items()}
+            t1 = time.perf_counter()
+            blob, lengths = pack_frames(
+                host, cnums[:n].astype(np.uint64), block_size=block_size,
+                channels=self.channels, bps_code=self.bps_code,
+                sr_code=self.sr_code, bs_code=bs_code,
+                allow_vbs=self.params.allow_vbs, precision=cfg.precision,
+                ch_code=self.ch_code,
+                max_frame_size=P.max_frame_size(block_size, self.channels,
+                                                self.bps))
+            # the device-predicted sizes must equal the packed bytes
+            if not np.array_equal(host["frame_bytes"], lengths):
+                raise AssertionError(
+                    "device/host frame size mismatch: "
+                    f"{host['frame_bytes'][:8]} vs {lengths[:8]}")
+            finish(blob, lengths, n, t0, t_ready, t1)
+
+        def finish(blob, lengths, n, t0, t_ready, t1):
+            """Append one drained batch and count it."""
+            self.max_frame_size = max(self.max_frame_size,
+                                      int(lengths.max(initial=0)))
+            out.extend(blob)
+            all_lengths.append(lengths)
+            self.stats["frames"] += n
+            self.stats["batches"] += 1
+            self.stats["device_wait_seconds"] += t_ready - t0
+            self.stats["fetch_seconds"] += t1 - t_ready
+            self.stats["pack_seconds"] += time.perf_counter() - t1
+            self.stats["bytes_out"] += len(blob)
+
+        def drain_device(item):
             """Check one batch's bit counts, compact its frames to their
             exact bytes on the device, copy them back, patch the CRCs."""
             words, total_bits, frame_bytes, hdr_nb, n = item
@@ -335,17 +435,9 @@ class Encoder:
             t1 = time.perf_counter()
             lengths = fb[:n].astype(np.int64)
             crc_patch(buf, lengths, hdr_nb[:n])
-            self.max_frame_size = max(self.max_frame_size,
-                                      int(lengths.max(initial=0)))
-            out.extend(buf.tobytes())
-            all_lengths.append(lengths)
-            self.stats["frames"] += n
-            self.stats["batches"] += 1
-            self.stats["device_wait_seconds"] += t_ready - t0
-            self.stats["fetch_seconds"] += t1 - t_ready
-            self.stats["pack_seconds"] += time.perf_counter() - t1
-            self.stats["bytes_out"] += buf.shape[0]
+            finish(buf.tobytes(), lengths, n, t0, t_ready, t1)
 
+        drain = drain_host if on_host else drain_device
         inflight: list = []
         for start in range(0, F, bsz):
             inflight.append(dispatch(start))

@@ -4,7 +4,8 @@ Everything the reference does per frame, channel and candidate order
 runs as dense tensor ops over a [F, C, B] batch: stereo-mode estimation,
 wasted-bit removal, LPC analysis, order selection (optimize.c:196-261)
 and the Rice partition search. The LPC path runs K1 for the windowed
-autocorrelation and one of two kernels for the candidate-order sweep,
+autocorrelation (under ``lpc_dtype="float32"`` a plain float32 one, as
+the JAX package computes that dtype) and one of two kernels for the candidate-order sweep,
 chosen by the shape alone (``ops/sweep.uses_granule_kernel``): K4
 (granule sums) wherever its power-of-two granules fit the partitions,
 where it was the faster on an H100, and K2 (partition sums) for the
@@ -39,6 +40,7 @@ SF_CONSTANT = 0
 SF_VERBATIM = 1
 SF_FIXED = 8
 SF_LPC = 32
+LPC_DTYPES = {"float64": torch.float64, "float32": torch.float32}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,10 +59,16 @@ class FrameConfig:
     min_partition_order: int
     max_partition_order: int
     precision: int = P.LPC_PRECISION
+    # "float64" runs K1 and the recursions in the reference's doubles;
+    # "float32" computes the autocorrelation in plain float32 tensor ops,
+    # as the JAX package does outside its kernel, and the recursions in
+    # float32 (``flake_tpu/ops/frame.py:277,371``)
+    lpc_dtype: str = "float64"
 
     @classmethod
     def from_params(cls, p: P.EncodeParams, channels: int, bps: int,
-                    block_size: int | None = None) -> "FrameConfig":
+                    block_size: int | None = None,
+                    lpc_dtype: str = "float64") -> "FrameConfig":
         return cls(
             block_size=block_size or p.block_size,
             channels=channels, bps=bps,
@@ -71,6 +79,7 @@ class FrameConfig:
             max_prediction_order=int(p.max_prediction_order),
             min_partition_order=int(p.min_partition_order),
             max_partition_order=int(p.max_partition_order),
+            lpc_dtype=lpc_dtype,
         )
 
 
@@ -216,7 +225,8 @@ def finalize_analysis(cfg: FrameConfig, chans, obits, wasted_bits,
 
 def _lpc_search(cfg: FrameConfig, chans, obits):
     """The LPC path (optimize.c:192-275) on the flattened [N = F*C]
-    stream batch: K1, Levinson (under EST: Schur, then Levinson seeded
+    stream batch: K1 (in float64; the plain float32 autocorrelation under
+    ``lpc_dtype="float32"``), Levinson (under EST: Schur, then Levinson seeded
     with its reflection coefficients, lpc.c:125-162) and quantization, K2
     or K4 and the Rice scan for every candidate order where the order
     method reads bit counts, order selection, the final residual and its
@@ -228,9 +238,11 @@ def _lpc_search(cfg: FrameConfig, chans, obits):
     dev = chans.device
     cN = chans.reshape(N, n).contiguous()
     obitsN = obits.reshape(N)
-    window = lpc_ops.welch_window_on(n, dev)
-
-    autoc = autocorr(cN, window, max_o)                          # K1
+    if cfg.lpc_dtype == "float64":
+        autoc = autocorr(cN, lpc_ops.welch_window_on(n, dev), max_o)  # K1
+    else:
+        autoc = lpc_ops.autocorr(cN, max_o, lpc_ops.welch_window_on(
+            n, dev, LPC_DTYPES[cfg.lpc_dtype]))
     if cfg.order_method == P.OrderMethod.EST:
         refs = lpc_ops.schur_refs(autoc)
         lpc_rows = lpc_ops.levinson_from_refs(refs)

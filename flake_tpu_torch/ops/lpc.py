@@ -1,9 +1,12 @@
 """Batched LPC analysis: Welch window, autocorrelation, Levinson-Durbin,
 coefficient quantization (port of ``flake_tpu/ops/lpc.py``, lpc.c).
 
-- :func:`autocorr` is the plain float64 windowed autocorrelation: the
-  CPU path, and the version K1 (:mod:`flake_tpu_torch.ops.autocorr`) is
-  held against on the card.
+- :func:`autocorr` is the plain windowed autocorrelation. In float64 it
+  is the CPU path and the version K1
+  (:mod:`flake_tpu_torch.ops.autocorr`) is held against on the card; in
+  float32 it is the ``lpc_dtype="float32"`` path on every device, as the
+  JAX package computes that dtype outside its kernel. The recursions and
+  the quantizer below work in the dtype they are given.
 - :func:`levinson_all_orders` keeps the recursion's one sequential
   dependency as a Python loop of at most 32 batch-wide steps, with the
   JAX package's float operations in the same order, so given the same
@@ -52,11 +55,13 @@ def welch_window(n: int) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=64)
-def welch_window_on(n: int, device: torch.device) -> torch.Tensor:
-    """:func:`welch_window` as a float64 tensor on ``device``, copied
-    from pinned memory without blocking the host. Built once per (n,
-    device) and shared by every caller, which must not write to it."""
-    w = torch.from_numpy(welch_window(n))
+def welch_window_on(n: int, device: torch.device,
+                    dtype: torch.dtype = torch.float64) -> torch.Tensor:
+    """:func:`welch_window` as a ``dtype`` tensor on ``device`` (rounded
+    from float64), copied from pinned memory without blocking the host.
+    Built once per (n, device, dtype) and shared by every caller, which
+    must not write to it."""
+    w = torch.from_numpy(welch_window(n)).to(dtype)
     if device.type == "cuda":
         return w.pin_memory().to(device, non_blocking=True)
     return w.to(device)
@@ -64,14 +69,14 @@ def welch_window_on(n: int, device: torch.device) -> torch.Tensor:
 
 def autocorr(x: torch.Tensor, max_order: int,
              window: torch.Tensor) -> torch.Tensor:
-    """Windowed autocorrelation for lags 0..max_order in float64
-    (lpc.c:46-71), with the reference's +2.0 bias per lag.
+    """Windowed autocorrelation for lags 0..max_order in the window's
+    dtype (lpc.c:46-71), with the reference's +2.0 bias per lag.
 
-    ``x`` int32 [..., B]; ``window`` float64 [B]. Returns float64
-    [..., max_order+1]; a lag of B or more sums nothing (2.0), as K1
-    gives it for any B."""
+    ``x`` int32 [..., B]; ``window`` float64 or float32 [B]. Returns
+    [..., max_order+1] in that dtype; a lag of B or more sums nothing
+    (2.0), as K1 gives it for any B."""
     n = x.shape[-1]
-    d = x.to(torch.float64) * window
+    d = x.to(window.dtype) * window
     cols = [(d[..., lag:] * d[..., :max(n - lag, 0)]).sum(dim=-1) + 2.0
             for lag in range(max_order + 1)]
     return torch.stack(cols, dim=-1)
@@ -179,16 +184,21 @@ def estimate_order(refs: torch.Tensor, max_order: int) -> torch.Tensor:
     return above.amax(dim=-1).clamp_min(1)
 
 
-def _exp2i(s: torch.Tensor) -> torch.Tensor:
-    """2.0**s for integer s in [-1022, 1023], exact, from the bits."""
+def _exp2i(s: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """2.0**s for integer s, exact, from the bits: in float64 for s in
+    [-1022, 1023]; in float32 inf above 127, as ``exp2`` gives it, and
+    2^-126 below -126 (where the shift search reads the same)."""
+    if dtype == torch.float32:
+        s = s.to(torch.int32).clamp(-126, 128)
+        return ((s + 127) << 23).view(torch.float32)
     return ((s.to(torch.int64) + 1023) << 52).view(torch.float64)
 
 
 def quantize_lpc_coefs(lpc: torch.Tensor, precision: int):
     """Quantize per-order coefficient rows (lpc.c:167-219).
 
-    ``lpc`` float64 [..., n_orders, W], row o-1 using taps [:o]. Returns
-    (coefs int32 same shape, shift int32 [..., n_orders])."""
+    ``lpc`` float64 or float32 [..., n_orders, W], row o-1 using taps
+    [:o]. Returns (coefs int32 same shape, shift int32 [..., n_orders])."""
     n_orders, W = lpc.shape[-2], lpc.shape[-1]
     dev = lpc.device
     qmax = (1 << (precision - 1)) - 1
@@ -206,7 +216,7 @@ def quantize_lpc_coefs(lpc: torch.Tensor, precision: int):
     sh = torch.full_like(s0, -(1 << 20))
     for d in (-2, -1, 0, 1):
         s = s0 + d
-        ok = cmax * _exp2i(s) <= qmax
+        ok = cmax * _exp2i(s, lpc.dtype) <= qmax
         sh = torch.where(ok, torch.maximum(sh, s), sh)
     sh = torch.clamp(sh, 0, 15)
 
@@ -215,7 +225,7 @@ def quantize_lpc_coefs(lpc: torch.Tensor, precision: int):
         scale_down[..., None],
         lpc * (qmax / torch.where(cmax == 0, 1.0, cmax))[..., None], lpc)
 
-    mult = _exp2i(sh)
+    mult = _exp2i(sh, lpc.dtype)
     error = torch.zeros_like(cmax)
     qs = []
     for t in range(W):

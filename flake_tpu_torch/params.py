@@ -311,8 +311,6 @@ def from_reference(obj):
     if kind == "FrameConfig":
         from flake_tpu_torch.ops.frame import FrameConfig
 
-        if d.pop("lpc_dtype", "float64") != "float64":
-            raise NotImplementedError("the port analyses in float64 only")
         # autocorrelation / sweep backend selectors of the JAX package
         d.pop("autocorr_mode", None)
         d.pop("use_pallas", None)

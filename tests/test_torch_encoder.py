@@ -86,16 +86,22 @@ def test_refuses_what_is_not_ported():
     for level in range(13):          # every preset constructs
         flake_tpu_torch.Encoder(
             TP.StreamConfig(params=TP.set_defaults(level)), device="cpu")
-    # what the JAX Encoder takes and the port does not have
-    for kwargs in ({"mesh": object()}, {"pack_backend": "host"},
-                   {"vorbis_entries": ["TITLE=x"]}):
-        flake_tpu.Encoder(_level8(), **{k: v for k, v in kwargs.items()
-                                        if k != "mesh"})
-        with pytest.raises(TypeError):
-            flake_tpu_torch.Encoder(cfg, device="cpu", **kwargs)
+    # the JAX Encoder's arguments: the port takes every one but the mesh
+    # (it runs on one device)
+    for kwargs in ({"pack_backend": "host"}, {"pack_backend": "device"},
+                   {"vorbis_entries": ["TITLE=x"]},
+                   {"lpc_dtype": "float32"}):
+        flake_tpu.Encoder(_level8(), **kwargs)
+        enc = flake_tpu_torch.Encoder(cfg, device="cpu", **kwargs)
+        name, value = next(iter(kwargs.items()))
+        assert getattr(enc, name) == value
+    flake_tpu.Encoder(_level8(), mesh=None)
+    with pytest.raises(TypeError):
+        flake_tpu_torch.Encoder(cfg, device="cpu", mesh=object())
     enc = flake_tpu_torch.Encoder(cfg, device="cpu")
-    assert hasattr(flake_tpu.Encoder, "save_state")
-    assert not hasattr(enc, "save_state")
-    assert not hasattr(enc, "load_state")
+    for name in ("save_state", "load_state"):
+        assert hasattr(flake_tpu.Encoder, name) and hasattr(enc, name)
+    assert set(enc.save_state()) == set(
+        flake_tpu.Encoder(_level8()).save_state())
     with pytest.raises(ValueError):
         flake_tpu_torch.Encoder(cfg, device="meta")

@@ -34,7 +34,10 @@ boundary, ``merge_v3`` on inputs off it and on chunk bounds in no order,
 negative ones among them; the one zero floor behind U1's zero variant and
 U3e / U3f at fb = 1, 8, 16 and 32 and on a ragged 3 x 128 ints, and these,
 ``merge_v2``, ``merge_v3``, ``merge_v5d`` and ``merge_v5c`` writing into a
-view of a sentinel-filled buffer, on and off a 16-byte boundary.
+view of a sentinel-filled buffer, on and off a 16-byte boundary. The
+command line (``flake_tpu_torch.cli``) on the card writes the file it
+writes with ``--device cpu`` at ``-5 -b 4608`` (both emissions) and
+``-8``.
 """
 
 import numpy as np
@@ -899,3 +902,35 @@ def test_encoder_vbs_cuda_matches_cpu(dev):
     want = flake_tpu_torch.Encoder(cfg, device="cpu",
                                    batch_frames=16).encode_stream(pcm)
     assert got == want
+
+
+@pytest.mark.parametrize("args", [["-5", "-b", "4608"], ["-8"],
+                                  ["-5", "-b", "4608", "--pack-backend",
+                                   "host"]])
+def test_cli_on_the_card_equals_the_cpu(dev, tmp_path, args):
+    """The command line on the card writes the file it writes on the CPU
+    (BASELINE config 1 at a short length, level 8, and the host
+    emission), and decodes to the WAV's samples."""
+    from flake_tpu_torch import cli, decoder
+    from flake_tpu_torch.io.wav import write_wave
+
+    n = 7 * 4608 + 999
+    t = np.arange(n)
+    rng = np.random.default_rng(4608)
+    pcm = np.stack([9000 * np.sin(2 * np.pi * 220 * t / 44100),
+                    7000 * np.sin(2 * np.pi * 331 * t / 44100)], 1) \
+        + rng.normal(0, 150, (n, 2))
+    pcm[2 * 4608:3 * 4608] = 0
+    pcm = np.clip(np.rint(pcm), -32768, 32767).astype(np.int32)
+    wav = tmp_path / "in.wav"
+    write_wave(wav, pcm, 44100, 16)
+    out = {}
+    for device in ("cuda", "cpu"):
+        out[device] = tmp_path / f"{device}.flac"
+        assert cli.main(["-q", "--device", device, *args, str(wav), "-o",
+                         str(out[device])]) == 0
+    blob = out["cuda"].read_bytes()
+    assert blob == out["cpu"].read_bytes()
+    dec = decoder.decode_stream(blob)
+    assert dec.md5_ok
+    np.testing.assert_array_equal(dec.samples, pcm)
