@@ -126,6 +126,23 @@ reads in chunks); the recorded plucks of ``tests/data`` (AIFF and WAV,
 float32`` on 30 s (lossless; K1 must not launch, K4 and K3 must) beside
 float64.
 
+Then the sharded path (``flake_tpu_torch.parallel``): 30 s of the
+fixed-block stream at level 8 through ``Encoder(mesh=make_mesh(devices=
+[cuda:0, cuda:0]))`` under both emissions (and over distinct cards where
+there are two), whose bytes must equal one device's; BASELINE config 5 at
+full width (6 channels, 48 kHz, 16-bit, 3,600 s, level 8, made on the card
+by ``make_wide_stream``'s signal model) in one process, through the
+launcher (``python -m flake_tpu_torch.parallel.launch --spawn 2 --backend
+gloo --device cuda:0``) and through ``encode_stream_to_file_distributed``
+on two ranks, every rank reading the whole WAV: every rank's stream and
+both files must have the one process's sha256, STREAMINFO the PCM's MD5
+and 172,800,000 samples, and every rank must sit on the card and launch
+K1, K4 and K3; 60 s of the same signal through the two ranks, decoded in
+full with its MD5; and one NCCL rank (two on distinct cards where there
+are two) on the 60 s WAV, whose file must equal the gloo ranks'. The
+ranks' launches, summed, are their paths' (``dp mesh``, ``2 ranks gloo``,
+``1 rank nccl`` and the rest in ``launches_by_path``).
+
     python3 chip_smoke.py
 
 Needs one CUDA device of compute capability 9.0; fails without one. Any
@@ -160,6 +177,17 @@ SCENE = 10              # seconds per scene of that stream
 CONFIG1_SECONDS = 600
 CONFIG1_BLOCK = 4608
 FLOAT32_SECONDS = 30    # of the fixed-block stream at --lpc-dtype float32
+# the sharded path: 30 s of the fixed-block stream at level 8 through a dp
+# mesh of the card twice; BASELINE.json config 5 ("multichannel (6ch) +
+# hour-long streams frame-sharded over N>=2 hosts") at full width, two
+# ranks sharing the card; a 60 s stream of the same generator decoded in
+# full (the hour's decode would take about 11 minutes)
+DP_SECONDS = 30
+CONFIG5 = {"channels": 6, "bps": 16, "rate": 48000, "seconds": 3600,
+           "level": 8}
+CONFIG5_DECODE_SECONDS = 60
+RANK_DEVICE = "cuda:0"  # the card the ranks share
+RANK_TIMEOUT = 600      # seconds a job of ranks may take
 # streams at other widths: label -> (channels, bits per sample, sample
 # rate, level, seconds). The 6-channel frames take 49,664 bytes of words,
 # above the 48 KiB that needs K3's shared-memory opt-in; the 8-channel
@@ -273,6 +301,43 @@ def make_wide_stream(seed: int, channels: int, bps: int, rate: int,
     return np.clip(np.rint(pcm), -top - 1, top).astype(np.int32)
 
 
+def make_wide_stream_on(device, seed: int, channels: int, bps: int, rate: int,
+                        seconds: int) -> "np.ndarray":
+    """:func:`make_wide_stream`'s signal, made on ``device`` in float64 from
+    torch's generator (numpy takes about 100 s for an hour of 6 channels):
+    a tone pair a channel under a slow envelope with light noise, a silent
+    half second at a quarter of the stream and a half second of full-scale
+    binary noise at half of it. Returns int32 [n, channels] on the host."""
+    import math
+
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    n = seconds * rate
+    t = torch.arange(n, dtype=torch.float64, device=device) / rate
+    top = (1 << (bps - 1)) - 1
+    env = 0.6 + 0.4 * torch.sin(2 * math.pi * t / 13.0)
+    pcm = torch.randn((n, channels), generator=g, dtype=torch.float64,
+                      device=device).mul_(top / 200)
+    for ch in range(channels):
+        f0 = 110.0 * (1 + 0.37 * ch)
+        pcm[:, ch] += env * top * (0.4 * torch.sin(2 * math.pi * f0 * t + ch)
+                                   + 0.15 * torch.sin(2 * math.pi * 2.5 * f0
+                                                      * t))
+    del t, env
+    half = rate // 2
+    pcm[n // 4:n // 4 + half] = 0
+    m = min(half, n - n // 2)
+    pcm[n // 2:n // 2 + m] = torch.where(
+        torch.rand((m, channels), generator=g, device=device) < 0.5,
+        -top - 1.0, float(top))
+    out = pcm.round_().clamp_(-top - 1, top).to(torch.int32).cpu().numpy()
+    del pcm
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
 def make_slot_table(seed: int, frames: int, slots: int):
     """A made-up slot table, int32 numpy [frames, slots] x 3 (lengths,
     leading zero bits, payload) and the word rows that hold its longest
@@ -291,6 +356,295 @@ def make_slot_table(seed: int, frames: int, slots: int):
     word_rows = int(-(-lengths.sum(-1).max() // 4096)) + 1
     return (lengths.astype(np.int32), leading.astype(np.int32),
             payload.astype(np.uint32).view(np.int32)), word_rows
+
+
+# one rank of encode_stream_to_file_distributed: argv rank, ranks, port,
+# WAV, output, level, device; prints one JSON line of its counters
+TO_FILE_RANK = """
+import json, resource, sys, time
+import torch
+from flake_tpu_torch import params as P
+from flake_tpu_torch.io import open_pcm
+from flake_tpu_torch.ops import autocorr, bitmerge, sweep
+from flake_tpu_torch.parallel import distributed as D
+rank, nproc, port, wav, out, level, device = (
+    int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4], sys.argv[5],
+    int(sys.argv[6]), sys.argv[7])
+D.initialize(f"127.0.0.1:{port}", nproc, rank, "gloo")
+with open(wav, "rb") as fp:
+    reader = open_pcm(fp)
+    pcm, info = reader.read_all(), reader.info
+cfg = P.StreamConfig(channels=info.channels, sample_rate=info.sample_rate,
+                     bits_per_sample=info.bits_per_sample,
+                     samples=pcm.shape[0], params=P.set_defaults(level))
+kernels = {"autocorr": autocorr.autocorr, "sweep_sums": sweep.sweep_sums,
+           "sweep_granules": sweep.sweep_granules,
+           "merge_words": bitmerge.merge_words}
+for fn in kernels.values():
+    fn.launches = 0
+t0 = time.perf_counter()
+size = D.encode_stream_to_file_distributed(pcm, cfg, out, device=device)
+torch.cuda.synchronize(device)
+encode_s = time.perf_counter() - t0
+D.dist.destroy_process_group()
+assert "jax" not in sys.modules
+print(json.dumps({"rank": rank, "device": device, "bytes": size,
+                  "encode_s": encode_s,
+                  "peak_host_mib": resource.getrusage(
+                      resource.RUSAGE_SELF).ru_maxrss / 1024,
+                  "peak_device_mib": torch.cuda.max_memory_allocated(device)
+                  / 2**20,
+                  "launches": {k: fn.launches for k, fn in kernels.items()}}),
+      flush=True)
+"""
+
+
+def streaminfo_of(blob: bytes) -> dict:
+    """STREAMINFO's sample count and MD5, read from its fixed layout (the
+    first metadata block's 34 bytes after "fLaC" and the block header)."""
+    body = blob[8:42]
+    return {"samples": int.from_bytes(body[10:18], "big") & ((1 << 36) - 1),
+            "md5": body[18:34]}
+
+
+def run_ranks(label, cmds, launched, needs):
+    """Run one job of ranks (a command a rank, or one launcher command that
+    spawns them), each printing a JSON line of its counters; every rank
+    must sit on the card and launch each kernel of ``needs``. The ranks'
+    launches, summed, are the path's. Returns (wall seconds, the ranks'
+    lines in rank order)."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                              text=True) for cmd in cmds]
+    outs = []
+    try:
+        for proc in procs:
+            outs.append(proc.communicate(timeout=RANK_TIMEOUT)[0])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    wall = time.perf_counter() - t0
+    if any(proc.returncode for proc in procs):
+        fail(f"{label}: exit codes {[proc.returncode for proc in procs]}")
+    ranks = sorted((json.loads(line) for out in outs
+                    for line in out.splitlines() if line.startswith("{")),
+                   key=lambda r: r["rank"])
+    if [r["rank"] for r in ranks] != list(range(len(ranks))) or not ranks:
+        fail(f"{label}: the ranks' counters are missing: {outs}")
+    for r in ranks:
+        if not r["device"].startswith("cuda"):
+            fail(f"{label}: rank {r['rank']} ran on {r['device']}")
+        missing = [k for k in needs if r["launches"][k] < 1]
+        if missing:
+            fail(f"{label}: rank {r['rank']} never launched {missing}")
+    counts = {k: sum(r["launches"][k] for r in ranks)
+              for k in ranks[0]["launches"]}
+    print(f"{label}: launches {counts}, by rank "
+          f"{[{k: v for k, v in r['launches'].items() if v} for r in ranks]}",
+          flush=True)
+    for name, n in counts.items():
+        if n:
+            launched[name][label] = n
+    return wall, ranks
+
+
+def launcher(wav, out, ranks: int, backend: str, device: str, level: int):
+    """The launcher's command line for ``ranks`` local ranks."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    return [sys.executable, "-m", "flake_tpu_torch.parallel.launch",
+            "--spawn", str(ranks), "--backend", backend, "--device", device,
+            "--coordinator", f"127.0.0.1:{port}", "--level", str(level),
+            "--stats", str(wav), "-o", str(out)]
+
+
+def sharded_paths(card, pcm, count_launches, launched) -> None:
+    """Section 7c: the dp mesh in one process, then BASELINE config 5
+    through two ranks (the launcher, the to-file path) against one
+    process, a 60 s stream of its generator decoded, and NCCL."""
+    import hashlib
+    import socket
+
+    import numpy as np
+    import torch
+
+    from flake_tpu_torch import decoder
+    from flake_tpu_torch import params as P
+    from flake_tpu_torch.encoder import Encoder
+    from flake_tpu_torch.io.wav import write_wave
+    from flake_tpu_torch.md5 import Md5Chain, pcm_md5_bytes
+    from flake_tpu_torch.parallel.mesh import make_mesh
+    from flake_tpu_torch.parallel.runner import shard_ranges
+
+    k1234 = ("autocorr", "sweep_sums", "merge_words", "sweep_granules")
+    # config 5's tails (2,048 and 512 samples) take K4, so K2 need not run
+    on_card = ("autocorr", "sweep_granules", "merge_words")
+    cfg8 = P.StreamConfig(channels=2, sample_rate=SAMPLE_RATE,
+                          bits_per_sample=16, params=P.set_defaults(8))
+
+    # a. frames over a dp mesh of the card twice (and of distinct cards)
+    seg = pcm[:DP_SECONDS * SAMPLE_RATE]
+    t0 = time.perf_counter()
+    want = Encoder(cfg8, device=RANK_DEVICE).encode_stream(seg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    print(f"one device: {DP_SECONDS} s at level 8 in {wall:.3f} s "
+          f"({DP_SECONDS / wall:.1f}x realtime)", flush=True)
+    meshes = {"dp mesh": [RANK_DEVICE, RANK_DEVICE]}
+    if torch.cuda.device_count() >= 2:
+        meshes[f"dp mesh, {torch.cuda.device_count()} cards"] = [
+            f"cuda:{i}" for i in range(torch.cuda.device_count())]
+    for label, devices in meshes.items():
+        mesh = make_mesh(devices=devices)
+        for backend in ("device", "host"):
+            path = label if backend == "device" else f"{label}, host emission"
+            t0 = time.perf_counter()
+            got = count_launches(
+                path, lambda: Encoder(cfg8, mesh=mesh, pack_backend=backend)
+                .encode_stream(seg),
+                k1234 if backend == "device" else k1234[:2] + k1234[3:],
+                () if backend == "device" else ("merge_words",))
+            wall = time.perf_counter() - t0
+            if got != want:
+                fail(f"{path}: the bytes differ from one device's")
+            print(f"{path} ({mesh}): {DP_SECONDS} s at level 8 in "
+                  f"{wall:.3f} s ({DP_SECONDS / wall:.1f}x realtime); the "
+                  f"bytes equal one device's {len(want)}", flush=True)
+
+    # b. BASELINE config 5 at full width
+    c5 = CONFIG5
+    cfg5 = P.StreamConfig(channels=c5["channels"], sample_rate=c5["rate"],
+                          bits_per_sample=c5["bps"],
+                          params=P.set_defaults(c5["level"]))
+    t0 = time.perf_counter()
+    stream = make_wide_stream_on(RANK_DEVICE, SEED + 50, c5["channels"],
+                                 c5["bps"], c5["rate"], c5["seconds"])
+    n = stream.shape[0]
+    secs = n / c5["rate"]
+    pcm_md5 = hashlib.md5(stream.astype("<i2").tobytes()).digest()
+    print(f"config 5 input: {n} samples x {c5['channels']} channels "
+          f"({secs:g} s at {c5['rate']} Hz, {c5['bps']}-bit), made on the "
+          f"card and hashed in {time.perf_counter() - t0:.1f} s", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        wav = tmp / "config5.wav"
+        t0 = time.perf_counter()
+        write_wave(wav, stream, c5["rate"], c5["bps"])
+        print(f"config 5 WAV: {wav.stat().st_size} bytes, written in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+        torch.cuda.reset_peak_memory_stats(0)
+        held = torch.cuda.memory_allocated(0)
+        enc = Encoder(cfg5, device=RANK_DEVICE)
+        t0 = time.perf_counter()
+        one = count_launches("config 5, one process",
+                             lambda: enc.encode_stream(stream), on_card)
+        walls = {"one process": time.perf_counter() - t0}
+        peak = (torch.cuda.max_memory_allocated(0) - held) / 2**20
+        si = streaminfo_of(one)
+        digest = hashlib.sha256(one).hexdigest()
+        print(f"config 5, one process: {len(one)} bytes, sha256 {digest}; "
+              f"peak device memory {peak:.0f} MiB above the {held / 2**20:.0f}"
+              f" MiB held; stats "
+              f"{ {k: round(v, 4) for k, v in enc.stats.items()} }",
+              flush=True)
+        if si["samples"] != n or n != c5["seconds"] * c5["rate"]:
+            fail(f"config 5: STREAMINFO holds {si['samples']} samples, "
+                 f"not {c5['seconds'] * c5['rate']}")
+        if si["md5"] != pcm_md5:
+            fail("config 5: STREAMINFO's MD5 is not the PCM bytes' MD5")
+        # the MD5 ring's step on one rank: the chain over its span's sample
+        # bytes, which the ranks take in turn
+        lo, hi = shard_ranges(n, cfg5.params.block_size, 2)[0]
+        t0 = time.perf_counter()
+        chain = Md5Chain()
+        chain.update(pcm_md5_bytes(stream[lo:hi], c5["bps"]))
+        print(f"config 5: one rank's step of the MD5 ring (rank 0's "
+              f"{hi - lo} samples) {time.perf_counter() - t0:.3f} s on the "
+              "host", flush=True)
+        del stream
+
+        out = tmp / "config5_launcher.flac"
+        walls["2 ranks gloo"], ranks = run_ranks(
+            "2 ranks gloo",
+            [launcher(wav, out, 2, "gloo", RANK_DEVICE, c5["level"])],
+            launched, on_card)
+        if {r["sha256"] for r in ranks} != {digest} \
+                or hashlib.sha256(out.read_bytes()).hexdigest() != digest:
+            fail("config 5: the ranks' streams or the launcher's file differ "
+                 "from one process's")
+        out.unlink()
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        out = tmp / "config5_to_file.flac"
+        walls["2 ranks to file"], file_ranks = run_ranks(
+            "2 ranks gloo, to file",
+            [[sys.executable, "-c", TO_FILE_RANK, str(r), "2", str(port),
+              str(wav), str(out), str(c5["level"]), RANK_DEVICE]
+             for r in range(2)], launched, on_card)
+        if hashlib.sha256(out.read_bytes()).hexdigest() != digest:
+            fail("config 5: the to-file path's file differs from one "
+                 "process's stream")
+        out.unlink()
+        for label, wall in walls.items():
+            print(f"config 5 (6 ch, 48 kHz, 16-bit, {secs:g} s, level 8), "
+                  f"{label} on {card}: {wall:.3f} s ({secs / wall:.1f}x "
+                  "realtime); sha256 equal to one process's", flush=True)
+        for label, rows in (("launcher", ranks), ("to file", file_ranks)):
+            print(f"config 5 ranks ({label}): " + "; ".join(
+                f"rank {r['rank']} on {r['device']}: encode "
+                f"{r['encode_s']:.3f} s"
+                + (f", read {r['read_s']:.3f} s" if "read_s" in r else "")
+                + f", peak host {r['peak_host_mib']:.0f} MiB, peak device "
+                f"{r['peak_device_mib']:.0f} MiB" for r in rows), flush=True)
+        wav.unlink()
+
+        # c. 60 s of the same generator through the same two ranks, decoded
+        short = make_wide_stream_on(RANK_DEVICE, SEED + 51, c5["channels"],
+                                    c5["bps"], c5["rate"],
+                                    CONFIG5_DECODE_SECONDS)
+        wav = tmp / "config5_60s.wav"
+        write_wave(wav, short, c5["rate"], c5["bps"])
+        out = tmp / "config5_60s.flac"
+        wall, _ = run_ranks(
+            f"2 ranks gloo, {CONFIG5_DECODE_SECONDS} s",
+            [launcher(wav, out, 2, "gloo", RANK_DEVICE, c5["level"])],
+            launched, on_card)
+        blob = out.read_bytes()
+        t0 = time.perf_counter()
+        dec = decoder.decode_stream(blob)
+        if not dec.md5_ok or not np.array_equal(dec.samples, short):
+            fail(f"config 5, {CONFIG5_DECODE_SECONDS} s: the two ranks' "
+                 "stream does not decode to its samples with its MD5")
+        print(f"config 5, {CONFIG5_DECODE_SECONDS} s over 2 ranks: "
+              f"{wall:.3f} s; decode: "
+              f"lossless, MD5 ok, {dec.frames} frames "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+        # d. NCCL: one rank on the card (and a rank a card where there are
+        # two or more)
+        jobs = {"1 rank nccl": (1, RANK_DEVICE)}
+        if torch.cuda.device_count() >= 2:
+            jobs["2 ranks nccl"] = (2, "cuda")
+        for label, (nranks, device) in jobs.items():
+            out2 = tmp / f"{label.replace(' ', '_')}.flac"
+            wall, _ = run_ranks(
+                label, [launcher(wav, out2, nranks, "nccl", device,
+                                 c5["level"])],
+                launched, on_card)
+            if out2.read_bytes() != blob:
+                fail(f"{label}: the file differs from the gloo ranks'")
+            print(f"{label}, {CONFIG5_DECODE_SECONDS} s: {wall:.3f} s; the "
+                  "file equals the gloo ranks'", flush=True)
 
 
 def bound(bytes_moved: float, ops: float, ops_per_ms: float):
@@ -540,6 +894,7 @@ def time_turns(*fns, loop=(), reps: int = 20):
 
 
 def main() -> None:
+    t_smoke = time.perf_counter()
     try:
         import numpy as np
         import torch
@@ -567,7 +922,6 @@ def main() -> None:
     dev = torch.device("cuda", 0)
 
     from flake_tpu_torch import _cuda, cli, decoder, native, wavinfo
-    from flake_tpu_torch import encoder as encoder_mod
     from flake_tpu_torch import params as P
     from flake_tpu_torch.io import open_pcm
     from flake_tpu_torch.io.wav import write_wave
@@ -576,6 +930,7 @@ def main() -> None:
     from flake_tpu_torch.ops import bitmerge as k3_mod
     from flake_tpu_torch.ops import bitpack, frame, lpc, rice
     from flake_tpu_torch.ops import sweep as sweep_mod
+    from flake_tpu_torch.parallel import mesh as mesh_mod
     from flake_tpu_torch.util import prof_merge as tool
     from flake_tpu_torch.util import prof_merge2 as tool2
     from flake_tpu_torch.util import prof_merge3 as tool3
@@ -1839,7 +2194,8 @@ def main() -> None:
         (``find_optimal_k_u32``) and pack_frames_device. A stage that
         begins inside another hands its peak to the outer one, so each
         reading is that of the stage with everything it calls."""
-        hooks = [(encoder_mod, "analyze_frames"),
+        # the encoder analyses each batch through the mesh module's groups
+        hooks = [(mesh_mod, "analyze_frames"),
                  (frame, "subframe_bits_from_sums"),
                  (frame, "calc_rice_params_dynamic"),
                  (rice, "find_optimal_k_u32"),
@@ -2071,6 +2427,12 @@ def main() -> None:
               f"bytes, float64 {sizes['float64']} bytes "
               f"({sizes['float32'] / sizes['float64'] - 1:+.5%})", flush=True)
 
+    # -- 7c. the sharded path -------------------------------------------------
+    t0 = time.perf_counter()
+    sharded_paths(card, pcm, count_launches, launched)
+    print(f"the sharded path (section 7c): {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
     # -- 8. results -----------------------------------------------------------
     for k in kernels:
         k["launches"] = sum(launched[k["name"]].values())
@@ -2079,6 +2441,7 @@ def main() -> None:
         "launches_by_instantiation"] = {
             form: {path: by[form] for path, by in k3_launched_by.items()
                    if by[form]} for form in ("shared", "global")}
+    print(f"smoke wall {time.perf_counter() - t_smoke:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

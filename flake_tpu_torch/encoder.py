@@ -1,4 +1,5 @@
-"""Batched FLAC encoder on one GPU (port of ``flake_tpu/encoder.py``).
+"""Batched FLAC encoder on a GPU or a mesh of them (port of
+``flake_tpu/encoder.py``).
 
 The stream is cut into fixed-size frames; a batch of up to
 ``batch_frames`` frames is uploaded as int16, analysed on the device
@@ -30,9 +31,11 @@ each bucket is encoded as batches of its own block size. Under
 API lifecycle mirrors the reference (flake.h:217-234): construct ->
 header() -> encode chunks -> streaminfo() rewrite. Every preset level
 0-12 encodes. The constructor takes the JAX package's arguments
-(``lpc_dtype``, ``vorbis_entries``, ``pack_backend``) except ``mesh``:
-the port runs on one device. ``save_state`` / ``load_state`` resume an
-interrupted encode.
+(``lpc_dtype``, ``vorbis_entries``, ``pack_backend``, ``mesh``): with a
+mesh (:mod:`flake_tpu_torch.parallel.mesh`) each batch's frames split
+into one contiguous group a device, and the groups' bytes join in frame
+order; one device is the mesh of one group. ``save_state`` /
+``load_state`` resume an interrupted encode.
 """
 
 from __future__ import annotations
@@ -46,9 +49,10 @@ import torch
 
 from flake_tpu_torch import metadata
 from flake_tpu_torch import params as P
+from flake_tpu_torch.md5 import pcm_md5_bytes
 from flake_tpu_torch.native import crc_patch, pack_frames
 from flake_tpu_torch.ops import bitpack
-from flake_tpu_torch.ops.frame import LPC_DTYPES, FrameConfig, analyze_frames
+from flake_tpu_torch.ops.frame import LPC_DTYPES, FrameConfig
 
 PACK_BACKENDS = ("auto", "device", "host")
 
@@ -90,6 +94,16 @@ def vbs_layout(res: np.ndarray, sec: int):
         nsec.reshape(-1)[sel].astype(np.int64) * sec
 
 
+def upload(arr, device: torch.device) -> torch.Tensor:
+    """Host array (numpy or CPU tensor) -> tensor on ``device``; to a GPU
+    from pinned memory without blocking the host."""
+    t = arr if isinstance(arr, torch.Tensor) \
+        else torch.from_numpy(np.ascontiguousarray(arr))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t
+
+
 def resolve_device(device) -> torch.device:
     """The device the caller asked for; CUDA must be present when asked
     for (there is no fallback to the CPU)."""
@@ -108,19 +122,47 @@ def resolve_device(device) -> torch.device:
 class Encoder:
     """Batched FLAC encoder with the reference API lifecycle."""
 
-    def __init__(self, cfg: P.StreamConfig, *, device,
+    def __init__(self, cfg: P.StreamConfig, *, device=None,
                  batch_frames: int = 512,
                  lpc_dtype: str = "float64",
                  vendor_string: str | None = None,
                  vorbis_entries: list[str] | None = None,
-                 pack_backend: str = "auto"):
-        """``lpc_dtype``: "float64" (the reference's doubles; K1) or
+                 mesh=None, pack_backend: str = "auto"):
+        """``device``: where the batches run ("cuda", "cuda:N" or "cpu");
+        required unless ``mesh`` names the devices instead.
+        ``lpc_dtype``: "float64" (the reference's doubles; K1) or
         "float32" (plain float32 autocorrelation and recursions; the
         stream stays lossless). ``vorbis_entries``: "NAME=value" strings
         for the VORBIS_COMMENT block; an invalid one raises ``ValueError``
-        from :meth:`header`. ``pack_backend``: "device", "host" or "auto"
+        from :meth:`header`. ``mesh``: a
+        :class:`~flake_tpu_torch.parallel.mesh.Mesh`; each batch's frames
+        split over its devices (``batch_frames`` a multiple of its size),
+        with the same bytes. ``pack_backend``: "device", "host" or "auto"
         (= "device"); the bytes are the same."""
-        self.device = resolve_device(device)
+        from flake_tpu_torch.parallel.mesh import Mesh, make_mesh
+
+        if mesh is None:
+            if device is None:
+                raise TypeError("Encoder needs a device or a mesh")
+            self.device = resolve_device(device)
+        else:
+            if not isinstance(mesh, Mesh):
+                raise TypeError(f"mesh must be a Mesh, not {type(mesh)}")
+            if device is not None:
+                raise ValueError("give the Encoder a device or a mesh, "
+                                 "not both")
+            # frames split over every device of the mesh (dp, or dp and sp
+            # folded together), so the batch must divide by its size
+            if batch_frames % mesh.size:
+                raise ValueError(f"batch_frames {batch_frames} must divide "
+                                 f"by the mesh size {mesh.size}")
+            self.device = mesh.devices.flat[0]
+        self.mesh = mesh
+        # the groups a batch splits into: one without a mesh
+        self._groups = mesh if mesh is not None \
+            else make_mesh(devices=[self.device])
+        self._sharded_analyzers: dict = {}
+        self._sharded_packers: dict = {}
         P.validate_params(cfg)
         p = cfg.params
         if batch_frames < 1:
@@ -275,30 +317,34 @@ class Encoder:
     # -- internals -------------------------------------------------------
 
     def _md5_update(self, pcm: np.ndarray):
-        if pcm.shape[0] == 0:
-            return
-        bps_bytes = (self.bps + 7) >> 3
-        flat = np.ascontiguousarray(pcm.reshape(-1).astype("<i4"))
-        raw = flat.view(np.uint8).reshape(-1, 4)[:, :bps_bytes]
-        self.md5.update(np.ascontiguousarray(raw).tobytes())
+        if pcm.shape[0]:
+            self.md5.update(pcm_md5_bytes(pcm, self.bps))
 
-    def _upload(self, arr: np.ndarray) -> torch.Tensor:
-        """Host array -> device tensor; to a GPU from pinned memory
-        without blocking the host."""
-        t = torch.from_numpy(np.ascontiguousarray(arr))
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t
-
-    def _upload_samples(self, frames: np.ndarray) -> torch.Tensor:
-        """Samples to the device as int32; bps <= 16 samples travel as
+    def _narrow(self, frames: np.ndarray) -> np.ndarray:
+        """The samples as they travel to the device: bps <= 16 samples as
         int16 (exact, half the bytes), guarded by a range check so
         out-of-range input keeps int32."""
-        up = frames
         if self.bps <= 16 and frames.size \
                 and frames.min() >= -32768 and frames.max() < 32768:
-            up = frames.astype(np.int16)
-        return self._upload(up).to(torch.int32)
+            return frames.astype(np.int16)
+        return frames
+
+    def _upload_samples(self, frames: np.ndarray) -> torch.Tensor:
+        """Samples to the device as int32 (through :meth:`_narrow`)."""
+        return upload(self._narrow(frames), self.device).to(torch.int32)
+
+    def _sharded(self, cfg: FrameConfig, emit: bool):
+        """The sharded packer (``emit``) or analyzer of ``cfg`` over the
+        batch's groups, built once a config
+        (``flake_tpu/encoder.py:241-250,298-307``)."""
+        from flake_tpu_torch.parallel import mesh as mesh_mod
+
+        cache = self._sharded_packers if emit else self._sharded_analyzers
+        if cfg not in cache:
+            cache[cfg] = (
+                mesh_mod.make_sharded_packer(cfg, self._groups) if emit
+                else mesh_mod.make_sharded_analyzer(cfg, self._groups))
+        return cache[cfg]
 
     def _encode_full_frames(self, frames: np.ndarray,
                             quantize: bool = True) -> bytes:
@@ -350,19 +396,23 @@ class Encoder:
         on_host = self.pack_backend == "host"
         F = frames.shape[0]
         bsz = self.batch_frames
+        dp = self._groups.size
         # short batches pad to the smallest of a few fixed shapes
         # (encoder.py:323-331), so a stream's last batch does not pay a
-        # full batch_frames pass
-        allowed = sorted({max(1, bsz // 64), max(1, bsz // 8), bsz})
+        # full batch_frames pass; under a mesh, those that split over it
+        allowed = sorted({b for b in (max(1, bsz // 64), max(1, bsz // 8))
+                          if b % dp == 0} | {bsz})
         out = bytearray()
         all_lengths = []
 
         def dispatch(start):
-            """Enqueue one batch; returns device tensors still computing."""
+            """Enqueue one batch; returns, for each group of frames, device
+            tensors still computing."""
             chunk = frames[start:start + bsz]
             cnums = nums[start:start + bsz]
             n = chunk.shape[0]
-            shape = next(b for b in allowed if b >= n) if quantize else n
+            shape = next(b for b in allowed if b >= n) if quantize \
+                else -(-n // dp) * dp
             if n < shape:
                 chunk = np.concatenate(
                     [chunk, np.zeros((shape - n,) + chunk.shape[1:],
@@ -372,24 +422,32 @@ class Encoder:
             hdr_bytes, hdr_nb = bitpack.frame_header_bytes(
                 cnums, bs_code=bs_code, sr_code=self.sr_code,
                 allow_vbs=self.params.allow_vbs)
-            samples = self._upload_samples(chunk)
             # frame headers are whole bytes, CRC-8 included
-            analysis = analyze_frames(samples, cfg, self._upload(hdr_nb * 8))
+            hdr_bits = hdr_nb * 8
+            up = self._narrow(chunk)
             if on_host:
+                analysis = self._sharded(cfg, False)(up, hdr_bits)
+                analysis.pop("global_max_frame_bytes")
                 return analysis, cnums, n
-            words, total_bits = bitpack.pack_frames_device(
-                analysis, self._upload(hdr_bytes), self._upload(hdr_nb),
-                cfg)
-            return words, total_bits, analysis["frame_bytes"], hdr_nb, n
+            run, gather, _ = self._sharded(cfg, True)
+            packed = run(up, hdr_bits, hdr_bytes, hdr_nb)
+            return (packed["words"], packed["total_bits"],
+                    packed["frame_bytes"], gather, hdr_nb, n)
+
+        def fetch(groups: list) -> np.ndarray:
+            """The groups' tensors, to the host and joined in frame
+            order."""
+            return torch.cat([t.cpu() for t in groups]).numpy()
 
         def drain_host(item):
             """Copy one batch's analysis tensors back and pack its frames
             on the host (``flake_tpu/encoder.py:467-504``)."""
             analysis, cnums, n = item
             t0 = time.perf_counter()
-            analysis["frame_bytes"].cpu()            # waits for the device
+            for t in analysis["frame_bytes"]:        # waits for the devices
+                t.cpu()
             t_ready = time.perf_counter()
-            host = {k: v[:n].cpu().numpy() for k, v in analysis.items()}
+            host = {k: fetch(v)[:n] for k, v in analysis.items()}
             t1 = time.perf_counter()
             blob, lengths = pack_frames(
                 host, cnums[:n].astype(np.uint64), block_size=block_size,
@@ -422,16 +480,18 @@ class Encoder:
         def drain_device(item):
             """Check one batch's bit counts, compact its frames to their
             exact bytes on the device, copy them back, patch the CRCs."""
-            words, total_bits, frame_bytes, hdr_nb, n = item
+            words, total_bits, frame_bytes, gather, hdr_nb, n = item
             t0 = time.perf_counter()
-            tb = total_bits.cpu().numpy()            # waits for the device
-            fb = frame_bytes.cpu().numpy()
+            tb = fetch(total_bits)                   # waits for the devices
+            fb = fetch(frame_bytes)
             t_ready = time.perf_counter()
             if not np.array_equal(tb[:n], fb[:n] * 8):
                 raise AssertionError(
                     "device emission bit count mismatch: "
                     f"{tb[:8]} vs {fb[:8] * 8}")
-            buf = bitpack.compact(words[:n], frame_bytes[:n]).cpu().numpy()
+            # each group compacts on its device; the CRC patch below runs
+            # over the whole batch (flake_tpu/encoder.py:400-460)
+            buf = fetch(gather(words, frame_bytes, n))
             t1 = time.perf_counter()
             lengths = fb[:n].astype(np.int64)
             crc_patch(buf, lengths, hdr_nb[:n])

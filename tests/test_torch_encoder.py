@@ -18,10 +18,12 @@ import flake_tpu
 from flake_tpu import params as JP
 from flake_tpu.decoder import decode_stream
 from flake_tpu.ops.frame import FrameConfig, analyze_frames_jit
+from flake_tpu.parallel.mesh import make_mesh as jax_make_mesh
 
 import flake_tpu_torch
 from flake_tpu_torch import params as TP
 from flake_tpu_torch.ops import frame as tframe
+from flake_tpu_torch.parallel.mesh import make_mesh
 
 from conftest import make_test_signal
 
@@ -86,8 +88,7 @@ def test_refuses_what_is_not_ported():
     for level in range(13):          # every preset constructs
         flake_tpu_torch.Encoder(
             TP.StreamConfig(params=TP.set_defaults(level)), device="cpu")
-    # the JAX Encoder's arguments: the port takes every one but the mesh
-    # (it runs on one device)
+    # the JAX Encoder's arguments: the port takes every one, the mesh too
     for kwargs in ({"pack_backend": "host"}, {"pack_backend": "device"},
                    {"vorbis_entries": ["TITLE=x"]},
                    {"lpc_dtype": "float32"}):
@@ -95,9 +96,14 @@ def test_refuses_what_is_not_ported():
         enc = flake_tpu_torch.Encoder(cfg, device="cpu", **kwargs)
         name, value = next(iter(kwargs.items()))
         assert getattr(enc, name) == value
-    flake_tpu.Encoder(_level8(), mesh=None)
-    with pytest.raises(TypeError):
-        flake_tpu_torch.Encoder(cfg, device="cpu", mesh=object())
+    mesh = make_mesh(devices=["cpu"] * 4)
+    enc = flake_tpu_torch.Encoder(cfg, mesh=mesh, batch_frames=8)
+    assert enc.mesh is mesh
+    # as in the JAX package, the batch must divide by the mesh size
+    with pytest.raises(ValueError):
+        flake_tpu.Encoder(_level8(), mesh=jax_make_mesh(8), batch_frames=6)
+    with pytest.raises(ValueError):
+        flake_tpu_torch.Encoder(cfg, mesh=mesh, batch_frames=6)
     enc = flake_tpu_torch.Encoder(cfg, device="cpu")
     for name in ("save_state", "load_state"):
         assert hasattr(flake_tpu.Encoder, name) and hasattr(enc, name)
