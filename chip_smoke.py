@@ -78,9 +78,11 @@ Three-second windows must give the same bytes through
 and noise bursts, reaching both K2 and K4) and 99-102 s of the fixed-block
 stream (tones around the full-scale noise second) at levels 5, 7, 3, 2, 1
 and 0, and 2 s of each stream at another width (``WIDE_STREAMS``: 24-bit
-/ 96 kHz stereo at level 8, 6-channel / 48 kHz 16-bit at level 5, and
+/ 96 kHz stereo at level 8, 6-channel / 48 kHz 16-bit at level 5,
 8-channel / 96 kHz 24-bit at level 5, whose frames' words exceed K3's
-shared-memory cap). Each fixed-block stream (levels 8, 5, 7, 3, 2, 1, 0),
+shared-memory cap, 32-bit / 44.1 kHz stereo at level 8, and 24-bit / 96
+kHz stereo at level 12, whose side channels give K4 25-bit samples).
+Each fixed-block stream (levels 8, 5, 7, 3, 2, 1, 0),
 each of those and the level-12 and level-11 streams is encoded once with
 K1-K4 recorded, and every call they got, each batch and the partial last
 block, is held against the plain version again (K1 at 13, 9, 7 and 33
@@ -101,9 +103,11 @@ levels 3 (K1, K3) and 2, 1, 0 (block 1152, K3 only),
 a second deterministic stream with level jumps, bursts and silences
 at levels 12 and 11, whose variable block sizes must split into at least
 four sub-block sizes, 4096 and 8192 among them (K1-K4 must launch), and
-the three streams at other widths (30 s, 30 s and 4 s; K1 and K3, and K4
-at level 8; the 8-channel stream must launch K3's device-memory
-instantiation, the others its shared one). Every stream is decoded with
+the five streams at other widths (30 s, 30 s, 4 s, 10 s and 10 s; K1 and
+K3, and K4 at levels 8 and 12, K2 for the 32-bit tail and the level-12
+stream's odd sub-block sizes; the 8-channel stream must launch K3's
+device-memory instantiation, the others its shared one). Every stream is
+decoded with
 the port's independent decoder (``flake_tpu_torch.decoder``), MD5
 included, and its STREAMINFO must give its channels, bits and rate. Each
 stream is encoded once more, untimed, with the host emission
@@ -142,6 +146,26 @@ full with its MD5; and one NCCL rank (two on distinct cards where there
 are two) on the 60 s WAV, whose file must equal the gloo ranks'. The
 ranks' launches, summed, are their paths' (``dp mesh``, ``2 ranks gloo``,
 ``1 rank nccl`` and the rest in ``launches_by_path``).
+
+Then the sp path (section 7d, ``flake_tpu_torch.parallel.mesh``'s sp
+analysis: each frame's samples over two ranks): 30 s of the fixed-block
+stream at levels 8 and 5, 30 s of BASELINE config 3's 24-bit / 96 kHz
+stereo at level 8, and 10 s of the variable-block stream at level 12,
+each through ``Encoder(mesh=make_mesh(devices=..., sp=2))`` on sp 2 (the
+card twice), dp 2 x sp 2 (the card four times), and the distinct cards
+where there are two or four: every stream must decode with its MD5 and
+hold its sample count, give the same bytes twice, on distinct cards as on
+the card repeated, and under the host emission (no K3) as under the device
+one (K3); where every block size took the sp analysis, K1, K2 and K4 must
+not launch, and no plain version of a kernel may run on a CUDA tensor. The
+frames whose bytes differ from one device's are counted and printed, not
+gated; each such frame's sp autocorrelation must lie within K1_REL_TOL of
+the dense one. Each run prints its wall against one device's, each
+device's peak memory and its launches (``sp ...`` in
+``launches_by_path``). A level-8 sp batch runs under
+``profiling.trace``, whose top ten device ops and sp stages are printed;
+then ``graft_entry.dryrun_multichip(4)`` and ``graft_entry.entry()``'s
+function (K1, K4 and K3 must launch).
 
     python3 chip_smoke.py
 
@@ -187,6 +211,15 @@ CONFIG5 = {"channels": 6, "bps": 16, "rate": 48000, "seconds": 3600,
            "level": 8}
 CONFIG5_DECODE_SECONDS = 60
 RANK_DEVICE = "cuda:0"  # the card the ranks share
+# the sp path: each frame's samples over two ranks. Streams: label ->
+# (level, seconds, source); "config 3" is BASELINE.json config 3's
+# 24-bit/96 kHz stereo, made by WIDE_STREAMS' model. A level-8 batch of
+# SP_TRACE_FRAMES frames runs under the profiler
+SP_STREAMS = {"level 8": (8, DP_SECONDS, "fixed"),
+              "level 5": (5, DP_SECONDS, "fixed"),
+              "config 3, 24-bit/96 kHz stereo": (8, DP_SECONDS, "wide"),
+              "level 12": (12, 10, "vbs")}
+SP_TRACE_FRAMES = 256
 RANK_TIMEOUT = 600      # seconds a job of ranks may take
 # streams at other widths: label -> (channels, bits per sample, sample
 # rate, level, seconds). The 6-channel frames take 49,664 bytes of words,
@@ -195,7 +228,9 @@ RANK_TIMEOUT = 600      # seconds a job of ranks may take
 # its other instantiation
 WIDE_STREAMS = {"24-bit/96 kHz stereo": (2, 24, 96000, 8, 30),
                 "6-channel/48 kHz 16-bit": (6, 16, 48000, 5, 30),
-                "8-channel/96 kHz 24-bit": (8, 24, 96000, 5, 4)}
+                "8-channel/96 kHz 24-bit": (8, 24, 96000, 5, 4),
+                "32-bit/44.1 kHz stereo": (2, 32, 44100, 8, 10),
+                "24-bit/96 kHz stereo, level 12": (2, 24, 96000, 12, 10)}
 WIDE_PARITY_SECONDS = 2  # of each, through the CPU and the CUDA encoder
 K1_REL_TOL = 5e-11      # tests/test_pallas_autocorr.py:55
 # the frames a TPU program takes at which the merge prototypes are held and
@@ -645,6 +680,265 @@ def sharded_paths(card, pcm, count_launches, launched) -> None:
                 fail(f"{label}: the file differs from the gloo ranks'")
             print(f"{label}, {CONFIG5_DECODE_SECONDS} s: {wall:.3f} s; the "
                   "file equals the gloo ranks'", flush=True)
+
+
+def frame_spans(blob: bytes) -> list:
+    """(first byte, end byte, samples) of each frame of a FLAC stream,
+    found by decoding it frame by frame."""
+    from flake_tpu_torch import decoder
+
+    si, _, _, pos = decoder._parse_metadata(blob)
+    spans = []
+    while pos < len(blob):
+        samples, end, _ = decoder.decode_frame(blob, pos, si)
+        spans.append((pos, end, samples.shape[0]))
+        pos = end
+    return spans
+
+
+def device_ms(event) -> float:
+    """An averaged profiler event's own device time in ms."""
+    return event.self_device_time_total / 1000
+
+
+def sp_paths(card, streams, count_launches, launched) -> None:
+    """Section 7d: each frame's samples over two ranks. ``streams``: label
+    -> (StreamConfig, int32 samples). For each stream one device's bytes
+    and wall first, then on each mesh (sp 2 on the card twice, dp 2 x sp 2
+    on it four times, and the distinct cards where there are two or four)
+    the device emission cold and again, and the host emission: lossless
+    with the MD5, the same bytes twice and under both emissions, K3 under
+    the device emission and not under the host one, no K1, K2 or K4 where
+    every block size took the sp analysis, and no plain version of K1-K4
+    on a CUDA tensor. The frames whose bytes differ from one device's are
+    counted, not gated; each must have its autocorrelation within
+    K1_REL_TOL of the dense one. Then a level-8 sp batch under
+    ``profiling.trace``, ``graft_entry.dryrun_multichip(4)`` and one run of
+    ``graft_entry.entry()``'s function."""
+    import numpy as np
+    import torch
+
+    from flake_tpu_torch import decoder, graft_entry, profiling
+    from flake_tpu_torch import params as P
+    from flake_tpu_torch.encoder import Encoder
+    from flake_tpu_torch.ops import autocorr as k1_mod
+    from flake_tpu_torch.ops import bitmerge, bitpack, frame, lpc, stereo
+    from flake_tpu_torch.ops import sweep
+    from flake_tpu_torch.parallel import mesh as mesh_mod
+
+    dense_kernels = ("autocorr", "sweep_sums", "sweep_granules")
+    cards = torch.cuda.device_count()
+    meshes = {"sp 2": [RANK_DEVICE] * 2, "dp 2 x sp 2": [RANK_DEVICE] * 4}
+    same_shape = {}      # a mesh of distinct cards -> the card's of its shape
+    for n, like in ((2, "sp 2"), (4, "dp 2 x sp 2")):
+        if cards >= n:
+            meshes[f"{like}, {n} cards"] = [f"cuda:{i}" for i in range(n)]
+            same_shape[f"{like}, {n} cards"] = like
+
+    def cpu_only(name, plain):
+        def run(x, *args):
+            if x.device.type != "cpu":
+                fail(f"the sp path ran {name}, a plain version of a kernel, "
+                     f"on {x.device}")
+            return plain(x, *args)
+        return run
+
+    plains = [(lpc, "autocorr"), (sweep, "sweep_sums_plain"),
+              (sweep, "sweep_granules_plain"), (bitmerge, "merge_words_plain")]
+    originals = [(mod, name, getattr(mod, name)) for mod, name in plains]
+    for mod, name, orig in originals:
+        setattr(mod, name, cpu_only(name, orig))
+
+    def autocorr_gap(cfg, pcm, start, n) -> float:
+        """The largest relative difference between the sp and the dense
+        autocorrelation of the frame of ``n`` samples at ``start``, on the
+        channels the analysis gives it (stereo mode and wasted bits from
+        the dense analysis, which the sp one equals exactly)."""
+        dev = torch.device(RANK_DEVICE)
+        fcfg = frame.FrameConfig.from_params(cfg.params, cfg.channels,
+                                             cfg.bits_per_sample,
+                                             block_size=n)
+        x = torch.from_numpy(pcm[start:start + n][None]).to(dev)
+        a = frame.analyze_frames(x, fcfg, torch.full((1,), 48, device=dev))
+        chans = x.permute(0, 2, 1)
+        if cfg.channels == 2:
+            ch0, ch1, _ = stereo.apply_decorr(chans[:, 0], chans[:, 1],
+                                              a["ch_mode"])
+            chans = torch.stack([ch0, ch1], dim=1)
+        xn = (chans >> a["wasted"][..., None]).reshape(cfg.channels, n) \
+            .contiguous()
+        mo = fcfg.max_prediction_order
+        dense = k1_mod.autocorr(xn, lpc.welch_window_on(n, dev), mo)
+        spv = mesh_mod.autocorr_sp(list(xn.chunk(2, dim=-1)), mo)
+        return float(((spv - dense).abs() / dense.abs().clamp_min(1)).max())
+
+    try:
+        for label, (cfg, pcm) in streams.items():
+            secs = pcm.shape[0] / cfg.sample_rate
+            walls = []
+            for _ in range(2):           # the second run is the warm one
+                torch.cuda.reset_peak_memory_stats(RANK_DEVICE)
+                t0 = time.perf_counter()
+                one = Encoder(cfg, device=RANK_DEVICE).encode_stream(pcm)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            print(f"sp, {label}: one device {secs:g} s in {walls[1]:.3f} s "
+                  f"warm ({secs / walls[1]:.1f}x realtime), {len(one)} bytes,"
+                  " peak device memory "
+                  f"{torch.cuda.max_memory_allocated(RANK_DEVICE) / 2**20:.1f}"
+                  " MiB", flush=True)
+            blobs, checked = {}, set()
+            for mlabel, devices in meshes.items():
+                mesh = mesh_mod.make_mesh(devices=devices, sp=2)
+                path = f"sp {label}, {mlabel}"
+                used = sorted({torch.device(d).index for d in devices})
+                for i in used:
+                    torch.cuda.reset_peak_memory_stats(i)
+                enc = Encoder(cfg, mesh=mesh)
+                t0 = time.perf_counter()
+                blob = count_launches(path, lambda: enc.encode_stream(pcm),
+                                      ("merge_words",))
+                cold = time.perf_counter() - t0
+                peaks = {m["device"]: m["peak_bytes_in_use"] / 2**20
+                         for m in profiling.device_memory_stats()
+                         if torch.device(m["device"]).index in used}
+                sizes = sorted(c.block_size for c in enc._sharded_packers)
+                folded = [c.block_size for c in enc._sharded_packers
+                          if not mesh_mod.sp_supported(c, 2)]
+                if len(folded) == len(sizes):
+                    fail(f"{path}: no block size took the sp analysis")
+                ran = {k: launched[k].get(path, 0) for k in dense_kernels}
+                if not folded and any(ran.values()):
+                    fail(f"{path}: every block size took the sp analysis, "
+                         f"yet the dense kernels launched: {ran}")
+                t0 = time.perf_counter()
+                again = Encoder(cfg, mesh=mesh).encode_stream(pcm)
+                torch.cuda.synchronize()
+                warm = time.perf_counter() - t0
+                if again != blob:
+                    fail(f"{path}: two encodes on one mesh differ")
+                host = count_launches(
+                    f"{path}, host emission",
+                    lambda: Encoder(cfg, mesh=mesh, pack_backend="host")
+                    .encode_stream(pcm), (), ("merge_words",))
+                if host != blob:
+                    fail(f"{path}: the host emission's bytes differ from "
+                         "K3's")
+                if mlabel in same_shape and blob != blobs[same_shape[mlabel]]:
+                    fail(f"{path}: the bytes differ from the card's "
+                         f"{same_shape[mlabel]}")
+                blobs[mlabel] = blob
+                if blob not in checked:
+                    t0 = time.perf_counter()
+                    dec = decoder.decode_stream(blob)
+                    if not dec.md5_ok or not np.array_equal(dec.samples, pcm):
+                        fail(f"{path}: the stream does not decode to its "
+                             "samples with its MD5")
+                    if streaminfo_of(blob)["samples"] != pcm.shape[0]:
+                        fail(f"{path}: STREAMINFO holds "
+                             f"{streaminfo_of(blob)['samples']} samples")
+                    checked.add(blob)
+                    print(f"{path}: lossless, MD5 ok, {dec.frames} frames, "
+                          f"STREAMINFO {pcm.shape[0]} samples "
+                          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+                differ, gaps = 0, []
+                if blob != one:
+                    sa, sb = frame_spans(blob), frame_spans(one)
+                    if [n for _, _, n in sa] != [n for _, _, n in sb]:
+                        fail(f"{path}: the frames' sizes differ from one "
+                             "device's")
+                    start = 0
+                    for i, ((a0, a1, n), (b0, b1, _)) in enumerate(zip(sa,
+                                                                       sb)):
+                        if blob[a0:a1] != one[b0:b1]:
+                            differ += 1
+                            gap = autocorr_gap(cfg, pcm, start, n)
+                            gaps.append((i, n, gap))
+                            if gap >= K1_REL_TOL:
+                                fail(f"{path}: frame {i} differs from one "
+                                     "device's, and its sp autocorrelation "
+                                     f"is {gap:.3e} from the dense one")
+                        start += n
+                print(f"{path} ({mesh}) on {card}: {secs:g} s, block sizes "
+                      f"{sizes} (folded into dp: {folded}); cold "
+                      f"{cold:.3f} s, warm {warm:.3f} s ({secs / warm:.1f}x "
+                      f"realtime; one device {secs / walls[1]:.1f}x); "
+                      f"{len(blob)} bytes; frames differing from one "
+                      f"device's: {differ} (frame, samples, largest relative "
+                      f"autocorrelation difference: {gaps}); peak device "
+                      f"memory MiB {peaks}; stats "
+                      f"{ {k: round(v, 4) for k, v in enc.stats.items()} }",
+                      flush=True)
+
+        # one level-8 batch over sp 2 under the profiler
+        cfg, pcm = streams["level 8"]
+        fcfg = frame.FrameConfig.from_params(cfg.params, 2, 16)
+        run, _, _ = mesh_mod.make_sharded_packer(
+            fcfg, mesh_mod.make_mesh(devices=meshes["sp 2"], sp=2))
+        F = SP_TRACE_FRAMES
+        batch = pcm[:F * BLOCK].reshape(F, BLOCK, 2).astype(np.int16)
+        hb, hn = bitpack.frame_header_bytes(
+            np.arange(F, dtype=np.int64), bs_code=P.blocksize_code(BLOCK),
+            sr_code=P.samplerate_code(SAMPLE_RATE), allow_vbs=0)
+        run(batch, hn * 8, hb, hn)
+        torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            with profiling.trace(tmp) as prof:
+                run(batch, hn * 8, hb, hn)
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            files = [(f.name, f.stat().st_size)
+                     for f in pathlib.Path(tmp).iterdir()]
+        # the device's own events (kernels, copies) are the ops; each sp
+        # stage's range appears twice, on the host (its time, and the
+        # device time of the kernels launched inside it) and on the device
+        # timeline (the range's span there, idle gaps included)
+        events = prof.key_averages()
+        on_device = torch.autograd.DeviceType.CUDA
+        ops = [e for e in events
+               if e.device_type == on_device and not e.key.startswith("sp ")]
+        if not ops:
+            fail("the sp trace holds no op on the device")
+        busy = sum(device_ms(e) for e in ops)
+        top = sorted(ops, key=device_ms, reverse=True)[:10]
+        print(f"sp trace, a level-8 batch of {F} frames over sp 2 on {card}: "
+              f"{wall:.3f} s under the profiler, {len(ops)} kinds of device "
+              f"op, {busy:.3f} ms of device time, trace {files}; top ten: "
+              + "; ".join(f"{e.key[:80]} {device_ms(e):.3f} ms x{e.count}"
+                          for e in top), flush=True)
+        stages = {}
+        for e in events:
+            if e.key.startswith("sp "):
+                host, inside, span = stages.get(e.key, (0.0, 0.0, 0.0))
+                if e.device_type == on_device:
+                    span = device_ms(e)
+                else:
+                    host = e.cpu_time_total / 1000
+                    inside = e.device_time_total / 1000
+                stages[e.key] = (host, inside, span)
+        if not stages:
+            fail("the sp trace holds none of the sp stages' ranges")
+        print("sp stages in the trace (host ms; device ms of the kernels "
+              "inside; the range's span on the device, ms): " + "; ".join(
+                  f"{k} {h:.3f}; {i:.3f}; {sp:.3f}"
+                  for k, (h, i, sp) in sorted(stages.items())), flush=True)
+    finally:
+        for mod, name, orig in originals:
+            setattr(mod, name, orig)
+
+    # the entry points
+    count_launches("dryrun_multichip(4)",
+                   lambda: graft_entry.dryrun_multichip(4), ("merge_words",))
+    fn, args = graft_entry.entry()
+    out = count_launches("graft entry", lambda: fn(*args),
+                         ("autocorr", "sweep_granules", "merge_words"))
+    if not torch.equal(out["total_bits"].to(torch.int64),
+                       8 * out["frame_bytes"]):
+        fail("graft entry: total_bits is not 8 x frame_bytes")
+    print(f"graft entry: {tuple(out['words'].shape)} words, "
+          f"{int(out['frame_bytes'].sum())} bytes of {args[0].shape[0]} "
+          "frames", flush=True)
 
 
 def bound(bytes_moved: float, ops: float, ops_per_ms: float):
@@ -2002,13 +2296,20 @@ def main() -> None:
                             cmp_exact),
             "sweep_granules": (sweep_mod.sweep_granules,
                                sweep_mod.sweep_granules_plain, cmp_exact)}
-    needs_of_level = {8: ("autocorr", "sweep_granules", "merge_words"),
-                      5: ("autocorr", "merge_words")}
+    # the kernels each wide stream's encode calls: K2 only where a block
+    # size K4 cannot sum occurs (the 32-bit stream's 2,728-sample tail; the
+    # 24-bit level-12 stream's sub-blocks of 3, 5 and 6 x 1,024 and its
+    # 1,536-sample tail)
+    k14 = ("autocorr", "sweep_granules", "merge_words")
+    wide_needs = {"24-bit/96 kHz stereo": k14,
+                  "6-channel/48 kHz 16-bit": ("autocorr", "merge_words"),
+                  "8-channel/96 kHz 24-bit": ("autocorr", "merge_words"),
+                  "32-bit/44.1 kHz stereo": k1234,
+                  "24-bit/96 kHz stereo, level 12": k1234}
     held_paths = [(f"level {level}", stream_config(level),
                    level_stream(level), needs)
                   for level, needs, _ in ((8, k1234, ()),) + low_levels] \
-        + [(label, wide_config(label), stream,
-            needs_of_level[WIDE_STREAMS[label][3]])
+        + [(label, wide_config(label), stream, wide_needs[label])
            for label, stream in wide.items()] \
         + [(f"level {level}", stream_config(level), vpcm, k1234)
            for level in (12, 11)]
@@ -2279,7 +2580,7 @@ def main() -> None:
 
     for label, stream in wide.items():
         cfg = wide_config(label)
-        dec = drive(label, cfg, stream, needs_of_level[WIDE_STREAMS[label][3]])
+        dec = drive(label, cfg, stream, wide_needs[label])
         info = dec.streaminfo
         if (info.channels, info.bits_per_sample, info.sample_rate) != (
                 cfg.channels, cfg.bits_per_sample, cfg.sample_rate):
@@ -2377,8 +2678,7 @@ def main() -> None:
         write_wave(wav, wide[label], rate, bps)
         out = tmp / "wide24.flac"
         run_cli(f"cli -{level} on the {label} WAV",
-                ["-q", f"-{level}", wav, "-o", out],
-                needs_of_level[level])
+                ["-q", f"-{level}", wav, "-o", out], wide_needs[label])
         if out.read_bytes() != blobs[label]:
             fail(f"cli on the {label} WAV: its file differs from "
                  "encode_stream's on the same samples")
@@ -2431,6 +2731,21 @@ def main() -> None:
     t0 = time.perf_counter()
     sharded_paths(card, pcm, count_launches, launched)
     print(f"the sharded path (section 7c): {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    # -- 7d. the sp path: each frame's samples over two ranks ----------------
+    t0 = time.perf_counter()
+    sp_streams = {}
+    for label, (level, secs, source) in SP_STREAMS.items():
+        if source == "wide":
+            cfg = wide_config("24-bit/96 kHz stereo")
+            stream = wide["24-bit/96 kHz stereo"][:secs * cfg.sample_rate]
+        else:
+            cfg = stream_config(level)
+            stream = (vpcm if source == "vbs" else pcm)[:secs * SAMPLE_RATE]
+        sp_streams[label] = (cfg, stream)
+    sp_paths(card, sp_streams, count_launches, launched)
+    print(f"the sp path (section 7d): {time.perf_counter() - t0:.1f} s",
           flush=True)
 
     # -- 8. results -----------------------------------------------------------

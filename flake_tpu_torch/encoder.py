@@ -33,8 +33,9 @@ header() -> encode chunks -> streaminfo() rewrite. Every preset level
 0-12 encodes. The constructor takes the JAX package's arguments
 (``lpc_dtype``, ``vorbis_entries``, ``pack_backend``, ``mesh``): with a
 mesh (:mod:`flake_tpu_torch.parallel.mesh`) each batch's frames split
-into one contiguous group a device, and the groups' bytes join in frame
-order; one device is the mesh of one group. ``save_state`` /
+into contiguous groups, one a row of the mesh, and under sp each frame's
+samples over the row's devices; the groups' bytes join in frame order.
+One device is the mesh of one group. ``save_state`` /
 ``load_state`` resume an interrupted encode.
 """
 
@@ -136,8 +137,8 @@ class Encoder:
         for the VORBIS_COMMENT block; an invalid one raises ``ValueError``
         from :meth:`header`. ``mesh``: a
         :class:`~flake_tpu_torch.parallel.mesh.Mesh`; each batch's frames
-        split over its devices (``batch_frames`` a multiple of its size),
-        with the same bytes. ``pack_backend``: "device", "host" or "auto"
+        split over its devices, and at an LPC level a frame's samples
+        over its sp axis (``batch_frames`` a multiple of its size). ``pack_backend``: "device", "host" or "auto"
         (= "device"); the bytes are the same."""
         from flake_tpu_torch.parallel.mesh import Mesh, make_mesh
 
@@ -151,8 +152,9 @@ class Encoder:
             if device is not None:
                 raise ValueError("give the Encoder a device or a mesh, "
                                  "not both")
-            # frames split over every device of the mesh (dp, or dp and sp
-            # folded together), so the batch must divide by its size
+            # frames split over every device of the mesh (dp, dp and sp
+            # folded together, or under sp each rank emitting its share of
+            # its group's frames), so the batch must divide by its size
             if batch_frames % mesh.size:
                 raise ValueError(f"batch_frames {batch_frames} must divide "
                                  f"by the mesh size {mesh.size}")
@@ -389,11 +391,13 @@ class Encoder:
                      nums: np.ndarray, quantize: bool = True):
         """Encode [F, block_size, C] frames in device batches, two deep.
         Returns (bytes, int64 [F] frame lengths)."""
+        from flake_tpu_torch.parallel.mesh import on_host
+
         cfg = FrameConfig.from_params(self.params, self.channels, self.bps,
                                       block_size=block_size,
                                       lpc_dtype=self.lpc_dtype)
         bs_code = P.blocksize_code(block_size)
-        on_host = self.pack_backend == "host"
+        host_emission = self.pack_backend == "host"
         F = frames.shape[0]
         bsz = self.batch_frames
         dp = self._groups.size
@@ -425,7 +429,7 @@ class Encoder:
             # frame headers are whole bytes, CRC-8 included
             hdr_bits = hdr_nb * 8
             up = self._narrow(chunk)
-            if on_host:
+            if host_emission:
                 analysis = self._sharded(cfg, False)(up, hdr_bits)
                 analysis.pop("global_max_frame_bytes")
                 return analysis, cnums, n
@@ -435,9 +439,9 @@ class Encoder:
                     packed["frame_bytes"], gather, hdr_nb, n)
 
         def fetch(groups: list) -> np.ndarray:
-            """The groups' tensors, to the host and joined in frame
-            order."""
-            return torch.cat([t.cpu() for t in groups]).numpy()
+            """The groups' tensors, to the host and joined in frame order
+            (a residual split over sp ranks along the sample axis)."""
+            return on_host(groups).numpy()
 
         def drain_host(item):
             """Copy one batch's analysis tensors back and pack its frames
@@ -497,7 +501,7 @@ class Encoder:
             crc_patch(buf, lengths, hdr_nb[:n])
             finish(buf.tobytes(), lengths, n, t0, t_ready, t1)
 
-        drain = drain_host if on_host else drain_device
+        drain = drain_host if host_emission else drain_device
         inflight: list = []
         for start in range(0, F, bsz):
             inflight.append(dispatch(start))

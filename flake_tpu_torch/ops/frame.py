@@ -29,7 +29,7 @@ from flake_tpu_torch import params as P
 from flake_tpu_torch.ops import lpc as lpc_ops
 from flake_tpu_torch.ops import predict, stereo, wasted
 from flake_tpu_torch.ops.autocorr import autocorr
-from flake_tpu_torch.ops.common import U32_MASK
+from flake_tpu_torch.ops.common import U32_MASK, wrap_int32
 from flake_tpu_torch.ops.rice import (calc_rice_params_dynamic,
                                       limit_max_partition_order,
                                       subframe_bits, subframe_bits_from_sums)
@@ -164,10 +164,20 @@ def select_order(cfg: FrameConfig, bits_all, refs, batch,
 
 def finalize_analysis(cfg: FrameConfig, chans, obits, wasted_bits,
                       constant, mode, sf_type, order, coefs, shift, res,
-                      rc, hdr_bits) -> dict:
+                      rc, hdr_bits, unfit=None) -> dict:
     """CONSTANT override (optimize.c:143-151), exact frame-size
     accounting, the verbatim fallback (encode.c:949-964), header type
-    codes, and the output dict (``frame.py:188-261``)."""
+    codes, and the output dict (``frame.py:188-261``).
+
+    ``unfit`` (bool [F, C]) marks the LPC subframes whose exact residual
+    leaves int32 under a shifted prediction, which only 32-bit input
+    reaches: the reference's int32 cast (optimize.c:120) writes a residual
+    that decodes to other samples, as the shift does not commute with the
+    wrap (an unshifted prediction is an integer sum and decodes back modulo
+    2^32). The JAX package writes it so, and its stream fails its MD5
+    (ROADMAP.md section 3). Where the frame does not fall back to verbatim
+    as a whole anyway, the port stores those subframes verbatim and sizes
+    the frame again; every other frame keeps the JAX package's bytes."""
     n = cfg.block_size
     C = sf_type.shape[1]
     i64 = torch.int64
@@ -189,10 +199,19 @@ def finalize_analysis(cfg: FrameConfig, chans, obits, wasted_bits,
                                 + 6 + exact_rice)))
     total_bits = hdr_bits.to(i64) + (sub_hdr + body).sum(dim=-1)
     frame_bytes = ((total_bits + 7) >> 3) + 2      # align + CRC-16
+    vsize = P.max_frame_size(n, C, cfg.bps)
+    if unfit is not None:
+        unfit = unfit & (sf_type != SF_CONSTANT) \
+            & ~(frame_bytes > vsize)[..., None]
+        sf_type = torch.where(unfit, SF_VERBATIM, sf_type)
+        order = torch.where(unfit, 0, order)
+        res = torch.where(unfit[..., None], chans, res)
+        total_bits = hdr_bits.to(i64) + (
+            sub_hdr + torch.where(unfit, n * ob64, body)).sum(dim=-1)
+        frame_bytes = ((total_bits + 7) >> 3) + 2
 
     # verbatim re-encode of frames over the uncompressed bound; it
     # stores the decorrelated, wasted-shifted samples
-    vsize = P.max_frame_size(n, C, cfg.bps)
     fb = frame_bytes > vsize
     sf_type = torch.where(fb[..., None], SF_VERBATIM, sf_type)
     order = torch.where(fb[..., None], 0, order)
@@ -230,7 +249,8 @@ def _lpc_search(cfg: FrameConfig, chans, obits):
     with its reflection coefficients, lpc.c:125-162) and quantization, K2
     or K4 and the Rice scan for every candidate order where the order
     method reads bit counts, order selection, the final residual and its
-    exact Rice parameters."""
+    exact Rice parameters, and the subframes whose residual leaves int32
+    under a shifted prediction."""
     F, C, n = chans.shape
     N = F * C
     max_o = cfg.max_prediction_order
@@ -267,12 +287,14 @@ def _lpc_search(cfg: FrameConfig, chans, obits):
     coefs = torch.gather(qcoefs, 1,
                          sel[:, None, None].expand(N, 1, max_o))[:, 0]
     shift = torch.gather(shifts, 1, sel[:, None])[:, 0]
-    res = predict.residual_lpc_dynamic(cN, coefs, shift, order, max_o)
+    res64 = predict.residual_lpc_dynamic64(cN, coefs, shift, order, max_o)
+    res = wrap_int32(res64)
     rc = calc_rice_params_dynamic(res, n, order, pmin, pmax)
     coefs = torch.nn.functional.pad(coefs, (0, P.MAX_LPC_ORDER - max_o))
     return (order.reshape(F, C), coefs.reshape(F, C, P.MAX_LPC_ORDER),
             shift.reshape(F, C), res.reshape(F, C, n),
-            {k: v.reshape((F, C) + v.shape[1:]) for k, v in rc.items()})
+            {k: v.reshape((F, C) + v.shape[1:]) for k, v in rc.items()},
+            (~predict.fits_int32(res64) & (shift > 0)).reshape(F, C))
 
 
 def analyze_frames(samples: torch.Tensor, cfg: FrameConfig,
@@ -332,6 +354,7 @@ def analyze_frames(samples: torch.Tensor, cfg: FrameConfig,
               "method": torch.zeros_like(order),
               "params": torch.zeros((F, C, 1 << pmax), dtype=i32,
                                     device=dev)}
+        unfit = None
     elif (cfg.prediction_type == P.Prediction.FIXED
           or n <= cfg.max_prediction_order):
         # FIXED path (optimize.c:167-190): ascending orders, strict <
@@ -354,13 +377,14 @@ def analyze_frames(samples: torch.Tensor, cfg: FrameConfig,
             res = torch.where((order == o)[..., None],
                               predict.residual_fixed(chans, o), res)
         rc = calc_rice_params_dynamic(res, n, order, pmin, pmax)
+        unfit = None           # an unshifted prediction decodes mod 2^32
         sf_type = torch.full((F, C), SF_FIXED, dtype=i32, device=dev)
         shift = torch.zeros_like(order)
         coefs = zeros32
     else:
-        order, coefs, shift, res, rc = _lpc_search(cfg, chans, obits)
+        order, coefs, shift, res, rc, unfit = _lpc_search(cfg, chans, obits)
         sf_type = torch.full((F, C), SF_LPC, dtype=i32, device=dev)
 
     return finalize_analysis(cfg, chans, obits, wasted_bits, constant,
                              mode, sf_type, order, coefs, shift, res, rc,
-                             hdr_bits)
+                             hdr_bits, unfit)

@@ -5,6 +5,10 @@ Predictions accumulate in int64, are arithmetic-shifted, and the residual
 wraps to int32 like the reference's C cast. The JAX package's ``narrow``
 coefficient-limb split (an int32 economy for the TPU) is gone. Warm-up
 samples pass through as-is (optimize.c:77-79).
+:func:`residual_lpc_dynamic64` returns the exact residual before the wrap:
+where it leaves int32 (32-bit input) and the prediction is shifted, the
+wrapped one decodes to other samples, so the analysis stores that subframe
+verbatim (:func:`fits_int32`).
 """
 
 from __future__ import annotations
@@ -43,6 +47,12 @@ def residual_fixed(smp: torch.Tensor, order: int) -> torch.Tensor:
                      dim=-1)
 
 
+def fits_int32(res64: torch.Tensor) -> torch.Tensor:
+    """Whether every exact residual of a subframe fits int32, so that its
+    wrapped form decodes to the samples. bool [...]."""
+    return ((res64 >= -(1 << 31)) & (res64 < (1 << 31))).all(dim=-1)
+
+
 def residual_lpc(smp: torch.Tensor, coefs: torch.Tensor,
                  shift: torch.Tensor, order: int) -> torch.Tensor:
     """Quantized-LPC residual for one static order (optimize.c:70-122).
@@ -59,12 +69,13 @@ def residual_lpc(smp: torch.Tensor, coefs: torch.Tensor,
                      dim=-1)
 
 
-def residual_lpc_dynamic(smp: torch.Tensor, coefs: torch.Tensor,
-                         shift: torch.Tensor, order: torch.Tensor,
-                         max_order: int) -> torch.Tensor:
-    """LPC residual with a per-element ``order`` (int32 [...]): taps
+def residual_lpc_dynamic64(smp: torch.Tensor, coefs: torch.Tensor,
+                           shift: torch.Tensor, order: torch.Tensor,
+                           max_order: int) -> torch.Tensor:
+    """Exact LPC residual with a per-element ``order`` (int32 [...]): taps
     j >= order contribute zero and positions i < order keep the sample —
-    the batched re-encode of the selected order (optimize.c:273)."""
+    the batched re-encode of the selected order (optimize.c:273). int64
+    [..., B]."""
     n = smp.shape[-1]
     s = smp.to(torch.int64)
     order_b = order[..., None].to(torch.int64)
@@ -76,4 +87,4 @@ def residual_lpc_dynamic(smp: torch.Tensor, coefs: torch.Tensor,
         pred = pred + tap * lag
     pred = pred >> shift[..., None].to(torch.int64)
     idx = torch.arange(n, device=smp.device)
-    return torch.where(idx < order_b, smp, wrap_int32(s - pred))
+    return torch.where(idx < order_b, s, s - pred)

@@ -20,17 +20,21 @@ RIGHT_SIDE = 9
 MID_SIDE = 10
 
 
-def decorr_mode(left: torch.Tensor, right: torch.Tensor,
-                n: int) -> torch.Tensor:
-    """Cheapest stereo mode per frame (encode.c:598-643). left/right
-    int32 [F, B]; returns mode int32 [F]."""
-    l64 = left.to(torch.int64)
-    r64 = right.to(torch.int64)
-    lt = l64[..., 2:] - 2 * l64[..., 1:-1] + l64[..., :-2]
-    rt = r64[..., 2:] - 2 * r64[..., 1:-1] + r64[..., :-2]
-    sums = torch.stack([lt.abs().sum(dim=-1), rt.abs().sum(dim=-1),
+def second_diff_sums(lt: torch.Tensor, rt: torch.Tensor) -> torch.Tensor:
+    """The four abs-sums the mode estimate reads (encode.c:606-625), from
+    the channels' second differences ``lt``, ``rt`` (int64 [F, K], zeros
+    where a difference does not count). Returns int64 [F, 4]: left,
+    right, mid, side."""
+    return torch.stack([lt.abs().sum(dim=-1), rt.abs().sum(dim=-1),
                         ((lt + rt) >> 1).abs().sum(dim=-1),
-                        (lt - rt).abs().sum(dim=-1)], dim=-1) * 2
+                        (lt - rt).abs().sum(dim=-1)], dim=-1)
+
+
+def mode_from_sums(sums: torch.Tensor, n: int) -> torch.Tensor:
+    """Cheapest stereo mode per frame (encode.c:627-643) from the
+    :func:`second_diff_sums` of its whole block of ``n`` samples. Returns
+    mode int32 [F]."""
+    sums = sums * 2
     k, _ = find_optimal_k(sums, n)
     est = _rice_count(sums, n, k.to(torch.int64))          # [F, 4]
     score = torch.stack([
@@ -45,6 +49,17 @@ def decorr_mode(left: torch.Tensor, right: torch.Tensor,
                        torch.where(best == 1, LEFT_SIDE,
                                    torch.where(best == 2, RIGHT_SIDE,
                                                MID_SIDE))).to(torch.int32)
+
+
+def decorr_mode(left: torch.Tensor, right: torch.Tensor,
+                n: int) -> torch.Tensor:
+    """Cheapest stereo mode per frame (encode.c:598-643). left/right
+    int32 [F, B]; returns mode int32 [F]."""
+    l64 = left.to(torch.int64)
+    r64 = right.to(torch.int64)
+    lt = l64[..., 2:] - 2 * l64[..., 1:-1] + l64[..., :-2]
+    rt = r64[..., 2:] - 2 * r64[..., 1:-1] + r64[..., :-2]
+    return mode_from_sums(second_diff_sums(lt, rt), n)
 
 
 def apply_decorr(left: torch.Tensor, right: torch.Tensor,

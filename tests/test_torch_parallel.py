@@ -12,7 +12,8 @@
   key by key and in ``global_max_frame_bytes``, ``make_sharded_packer``
   gives the same words and ``total_bits``, and ``Encoder(mesh=...)`` the
   same stream under both emissions; the batch must divide by the mesh;
-  sp > 1 folds into dp at a FIXED level and raises at an LPC level.
+  sp > 1 folds into dp at a FIXED level (the sp analysis at the LPC levels
+  is ``test_torch_sp.py``'s).
 
 Everything is integer, so every comparison is exact.
 """
@@ -240,20 +241,3 @@ def test_sp_folds_into_dp_at_a_fixed_level():
     got = flake_tpu_torch.Encoder(TP.from_reference(jcfg), mesh=mesh,
                                   batch_frames=4).encode_stream(pcm)
     assert got == want
-
-
-def test_sp_at_an_lpc_level_is_not_ported():
-    jcfg = _cfg(8, 1024)
-    fcfg = tframe.FrameConfig.from_params(TP.from_reference(jcfg).params,
-                                          2, 16)
-    assert tmesh.sp_supported(fcfg, 2) and jmesh.sp_supported(
-        JFrameConfig.from_params(jcfg.params, 2, 16), 2)
-    mesh = tmesh.make_mesh(devices=CPU4, sp=2)
-    with pytest.raises(NotImplementedError, match="sp"):
-        tmesh.make_sharded_analyzer(fcfg, mesh)
-    with pytest.raises(NotImplementedError, match="sp"):
-        tmesh.make_sharded_packer(fcfg, mesh)
-    pcm = make_test_signal(4 * 1024, 2, 16, seed=1)
-    with pytest.raises(NotImplementedError, match="sp"):
-        flake_tpu_torch.Encoder(TP.from_reference(jcfg), mesh=mesh,
-                                batch_frames=4).encode_stream(pcm)

@@ -7,7 +7,11 @@ These tests need an NVIDIA GPU and skip without one; they import no JAX:
 A mesh of ``cuda:0`` twice, and of distinct cards where there are two or
 more, must write the bytes of ``device="cpu"`` under both emissions, at a
 fixed-block LPC level and at a variable-block one; two ``gloo`` ranks on
-``cuda:0`` through the launcher must write them too.
+``cuda:0`` through the launcher must write them too. Over sp = 2 (the card
+twice, dp 2 x sp 2 on the card four times, and distinct cards where there
+are two) levels 5, 8 and 12 must decode losslessly with their MD5, give
+the same bytes twice and under both emissions, and run no plain version of
+K1-K4 on the card.
 """
 
 import os
@@ -21,8 +25,10 @@ import pytest
 import torch
 
 import flake_tpu_torch
+from flake_tpu_torch import decoder
 from flake_tpu_torch import params as P
 from flake_tpu_torch.io.wav import write_wave
+from flake_tpu_torch.ops import bitmerge, lpc, sweep
 from flake_tpu_torch.parallel.mesh import make_mesh
 
 pytestmark = pytest.mark.cuda
@@ -85,3 +91,35 @@ def test_two_ranks_share_the_card(cards, tmp_path):
     want = flake_tpu_torch.Encoder(_cfg(8), device="cpu",
                                    batch_frames=16).encode_stream(pcm)
     assert (tmp_path / "o.flac").read_bytes() == want
+
+
+@pytest.mark.parametrize("level", [5, 8, 12])
+def test_sp_mesh_on_the_card(cards, level, monkeypatch):
+    def cpu_only(name, plain):
+        def run(x, *args):
+            assert x.device.type == "cpu", f"{name} ran on {x.device}"
+            return plain(x, *args)
+        return run
+
+    for mod, name in ((lpc, "autocorr"), (sweep, "sweep_sums_plain"),
+                      (sweep, "sweep_granules_plain"),
+                      (bitmerge, "merge_words_plain")):
+        monkeypatch.setattr(mod, name, cpu_only(name, getattr(mod, name)))
+    pcm = _stream(3, seed=level)
+    meshes = [["cuda:0"] * 2, ["cuda:0"] * 4]
+    if cards >= 2:
+        meshes.append(["cuda:0", "cuda:1"])
+    blobs = []
+    for devices in meshes:
+        mesh = make_mesh(devices=devices, sp=2)
+        got = [flake_tpu_torch.Encoder(
+            _cfg(level), mesh=mesh, batch_frames=16 * len(devices),
+            pack_backend=backend).encode_stream(pcm)
+            for backend in ("device", "host", "device")]
+        assert got[0] == got[1] == got[2], devices
+        dec = decoder.decode_stream(got[0])
+        assert dec.md5_ok
+        np.testing.assert_array_equal(dec.samples, pcm)
+        blobs.append(got[0])
+    if cards >= 2:
+        assert blobs[2] == blobs[0]
