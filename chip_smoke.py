@@ -167,6 +167,18 @@ device's peak memory and its launches (``sp ...`` in
 then ``graft_entry.dryrun_multichip(4)`` and ``graft_entry.entry()``'s
 function (K1, K4 and K3 must launch).
 
+Then the measurement path (section 8, :func:`measurement_paths`), each
+tool at full size through its entry point, with the launch counts set to
+0 around it and its JSON lines printed: the bench
+(``flake_tpu_torch.bench``: 512 frames of 4096 at level 8, 30 s end to
+end; ``e2e_verified`` true and a host-packer rate, K1-K4 must launch),
+``util.bench_matrix`` over its six configs with the host/device parity
+encodes (every row's ``device_pack_parity`` true, K1-K4), ``util.
+level_matrix``'s full cells over the 10 s corpus (every cell decoded with
+its MD5, K1-K4) and
+``util.prof_an5`` at levels 5 (K1 only), 8 and 12 (K1 and K4, on K4's
+route).
+
     python3 chip_smoke.py
 
 Needs one CUDA device of compute capability 9.0; fails without one. Any
@@ -939,6 +951,51 @@ def sp_paths(card, streams, count_launches, launched) -> None:
     print(f"graft entry: {tuple(out['words'].shape)} words, "
           f"{int(out['frame_bytes'].sum())} bytes of {args[0].shape[0]} "
           "frames", flush=True)
+
+
+def measurement_paths(card, count_launches) -> None:
+    """Section 8, the measurement path, each tool through its entry point
+    at full size with the launch counts set to 0 around it: the bench
+    (``flake_tpu_torch.bench``: K1, K4, K3, and K2 for its 30 s stream's
+    4,088-sample tail), ``bench_matrix`` over its six configs with the
+    host/device parity encodes (K1, K4, K3, and K2 for the parity streams'
+    tails), ``level_matrix``'s full cells over the 10 s corpus (K1-K4) and
+    ``prof_an5``
+    at levels 5 (K1 only), 8 and 12 (K1 and K4). Each tool prints its JSON
+    lines; a parity miss, a failed decode or a missing launch fails."""
+    from flake_tpu_torch import bench
+    from flake_tpu_torch.util import bench_matrix, level_matrix, prof_an5
+
+    k1234 = ("autocorr", "sweep_granules", "merge_words", "sweep_sums")
+    t0 = time.perf_counter()
+    res = count_launches("bench", lambda: bench.run(device="cuda"), k1234)
+    if res["e2e_verified"] is not True or res["host_pack_gbps"] is None:
+        fail(f"bench: {res}")
+    print(f"bench on {card}: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    rows = count_launches("bench matrix",
+                          lambda: bench_matrix.run(device="cuda"), k1234)
+    if [r["config"] for r in rows] != [c[0] for c in bench_matrix.CONFIGS] \
+            or any(r["device_pack_parity"] is not True for r in rows):
+        fail(f"bench matrix: {rows}")
+    print(f"bench matrix on {card}: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    t0 = time.perf_counter()
+    cells, seconds = count_launches(
+        "level matrix",
+        lambda: level_matrix.run(device="cuda"), k1234)
+    print(f"level matrix on {card}: {len(cells)} cells of {seconds:g} s, "
+          f"each decoded with its MD5, in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    for level in (5, 8, 12):
+        needs = ("autocorr",) if level == 5 \
+            else ("autocorr", "sweep_granules")
+        res = count_launches(
+            f"prof_an5 level {level}",
+            lambda: prof_an5.run(level, device="cuda"), needs,
+            tuple(k for k in k1234 if k not in needs))
+        if res["sweep_route"] != (None if level == 5 else "K4"):
+            fail(f"prof_an5 level {level}: {res}")
 
 
 def bound(bytes_moved: float, ops: float, ops_per_ms: float):
@@ -2748,7 +2805,13 @@ def main() -> None:
     print(f"the sp path (section 7d): {time.perf_counter() - t0:.1f} s",
           flush=True)
 
-    # -- 8. results -----------------------------------------------------------
+    # -- 8. the measurement path: the bench, its matrices, the stage tool -----
+    t0 = time.perf_counter()
+    measurement_paths(card, count_launches)
+    print(f"the measurement path (section 8): {time.perf_counter() - t0:.1f} "
+          "s", flush=True)
+
+    # -- 9. results -----------------------------------------------------------
     for k in kernels:
         k["launches"] = sum(launched[k["name"]].values())
         k["launches_by_path"] = launched[k["name"]]

@@ -41,7 +41,14 @@ def entry(device="cuda"):
         sr_code=P.samplerate_code(44100), allow_vbs=0)
     args = tuple(torch.from_numpy(a).to(dev)
                  for a in (samples, hn.astype(np.int32) * 8, hb, hn))
+    return pipeline_step(cfg), args
 
+
+def pipeline_step(cfg: FrameConfig):
+    """The device pipeline of one batch under ``cfg``: ``fn(samples,
+    hdr_bits, hdr_bytes, hdr_nb)`` runs the analysis and the device
+    emission and returns the frames' ``words``, ``total_bits`` and
+    ``frame_bytes``."""
     def fn(samples, hdr_bits, hdr_bytes, hdr_nb):
         analysis = analyze_frames(samples, cfg, hdr_bits)
         words, total_bits = bitpack.pack_frames_device(analysis, hdr_bytes,
@@ -49,7 +56,7 @@ def entry(device="cuda"):
         return {"words": words, "total_bits": total_bits,
                 "frame_bytes": analysis["frame_bytes"]}
 
-    return fn, args
+    return fn
 
 
 def _check(ok: bool, what: str) -> None:

@@ -242,19 +242,75 @@ def finalize_analysis(cfg: FrameConfig, chans, obits, wasted_bits,
     }
 
 
+def sweep_route(n: int, pmax_static: int):
+    """(the sweep, its kernel's name) for streams of n samples at
+    ``pmax_static``: K4 wherever it can sum the shape, else K2."""
+    if uses_granule_kernel(n, pmax_static):
+        return sweep_granules, "K4"
+    return sweep_sums, "K2"
+
+
+def lpc_candidates(cfg: FrameConfig, autoc: torch.Tensor):
+    """Every candidate order's quantized coefficients from the
+    autocorrelation: Levinson for all orders (under EST: Schur, then
+    Levinson seeded with its reflection coefficients, lpc.c:125-162) and
+    the quantizer. Returns (qcoefs int32 [N, max_order, max_order], shifts
+    int32 [N, max_order], refs [N, max_order])."""
+    if cfg.order_method == P.OrderMethod.EST:
+        refs = lpc_ops.schur_refs(autoc)
+        lpc_rows = lpc_ops.levinson_from_refs(refs)
+    else:
+        lpc_rows, refs = lpc_ops.levinson_all_orders(autoc)
+    qcoefs, shifts = lpc_ops.quantize_lpc_coefs(lpc_rows, cfg.precision)
+    return qcoefs, shifts, refs
+
+
+def candidate_bits(cfg: FrameConfig, cN: torch.Tensor, qcoefs, shifts,
+                   obitsN: torch.Tensor) -> torch.Tensor:
+    """The sweep (K2 or K4, :func:`sweep_route`) and the Rice scan of
+    every candidate order: estimated subframe bits int64 [N, max_order]."""
+    N, n = cN.shape
+    max_o = cfg.max_prediction_order
+    pmax_static = limit_max_partition_order(cfg.max_partition_order, n, 1)
+    sweep, _ = sweep_route(n, pmax_static)
+    sums = sweep(cN, qcoefs.contiguous(), shifts.contiguous(), max_o,
+                 pmax_static)
+    o_arr = torch.arange(1, max_o + 1, dtype=torch.int32, device=cN.device)
+    return subframe_bits_from_sums(
+        sums, n, o_arr.expand(N, max_o), obitsN[..., None],
+        cfg.min_partition_order, cfg.max_partition_order, cfg.precision,
+        True)
+
+
+def final_residual(cfg: FrameConfig, cN: torch.Tensor, qcoefs, shifts,
+                   order: torch.Tensor):
+    """The selected order's coefficients and shift, its exact residual
+    (int64, and wrapped to int32) and its Rice parameters: (coefs, shift,
+    res64, res, rc)."""
+    n = cN.shape[1]
+    max_o = cfg.max_prediction_order
+    sel = (order.to(torch.int64) - 1).clamp(0, max_o - 1)
+    coefs = torch.gather(qcoefs, 1,
+                         sel[:, None, None].expand(-1, 1, max_o))[:, 0]
+    shift = torch.gather(shifts, 1, sel[:, None])[:, 0]
+    res64 = predict.residual_lpc_dynamic64(cN, coefs, shift, order, max_o)
+    res = wrap_int32(res64)
+    rc = calc_rice_params_dynamic(res, n, order, cfg.min_partition_order,
+                                  cfg.max_partition_order)
+    return coefs, shift, res64, res, rc
+
+
 def _lpc_search(cfg: FrameConfig, chans, obits):
     """The LPC path (optimize.c:192-275) on the flattened [N = F*C]
     stream batch: K1 (in float64; the plain float32 autocorrelation under
-    ``lpc_dtype="float32"``), Levinson (under EST: Schur, then Levinson seeded
-    with its reflection coefficients, lpc.c:125-162) and quantization, K2
-    or K4 and the Rice scan for every candidate order where the order
-    method reads bit counts, order selection, the final residual and its
-    exact Rice parameters, and the subframes whose residual leaves int32
-    under a shifted prediction."""
+    ``lpc_dtype="float32"``), :func:`lpc_candidates`, the sweep and the
+    Rice scan for every candidate order where the order method reads bit
+    counts (:func:`candidate_bits`), order selection, the final residual
+    and its exact Rice parameters (:func:`final_residual`), and the
+    subframes whose residual leaves int32 under a shifted prediction."""
     F, C, n = chans.shape
     N = F * C
     max_o = cfg.max_prediction_order
-    pmin, pmax = cfg.min_partition_order, cfg.max_partition_order
     dev = chans.device
     cN = chans.reshape(N, n).contiguous()
     obitsN = obits.reshape(N)
@@ -263,33 +319,15 @@ def _lpc_search(cfg: FrameConfig, chans, obits):
     else:
         autoc = lpc_ops.autocorr(cN, max_o, lpc_ops.welch_window_on(
             n, dev, LPC_DTYPES[cfg.lpc_dtype]))
-    if cfg.order_method == P.OrderMethod.EST:
-        refs = lpc_ops.schur_refs(autoc)
-        lpc_rows = lpc_ops.levinson_from_refs(refs)
-    else:
-        lpc_rows, refs = lpc_ops.levinson_all_orders(autoc)
-    qcoefs, shifts = lpc_ops.quantize_lpc_coefs(lpc_rows, cfg.precision)
+    qcoefs, shifts, refs = lpc_candidates(cfg, autoc)
 
     bits_all = None
     if cfg.order_method not in (P.OrderMethod.MAX, P.OrderMethod.EST):
-        pmax_static = limit_max_partition_order(pmax, n, 1)
-        sweep = sweep_granules if uses_granule_kernel(
-            n, pmax_static) else sweep_sums                      # K4 / K2
-        sums = sweep(cN, qcoefs.contiguous(), shifts.contiguous(), max_o,
-                     pmax_static)
-        o_arr = torch.arange(1, max_o + 1, dtype=torch.int32, device=dev)
-        bits_all = subframe_bits_from_sums(
-            sums, n, o_arr.expand(N, max_o), obitsN[..., None], pmin, pmax,
-            cfg.precision, True)
+        bits_all = candidate_bits(cfg, cN, qcoefs, shifts, obitsN)
     order = select_order(cfg, bits_all, refs, (N,), dev)
 
-    sel = (order.to(torch.int64) - 1).clamp(0, max_o - 1)
-    coefs = torch.gather(qcoefs, 1,
-                         sel[:, None, None].expand(N, 1, max_o))[:, 0]
-    shift = torch.gather(shifts, 1, sel[:, None])[:, 0]
-    res64 = predict.residual_lpc_dynamic64(cN, coefs, shift, order, max_o)
-    res = wrap_int32(res64)
-    rc = calc_rice_params_dynamic(res, n, order, pmin, pmax)
+    coefs, shift, res64, res, rc = final_residual(cfg, cN, qcoefs, shifts,
+                                                  order)
     coefs = torch.nn.functional.pad(coefs, (0, P.MAX_LPC_ORDER - max_o))
     return (order.reshape(F, C), coefs.reshape(F, C, P.MAX_LPC_ORDER),
             shift.reshape(F, C), res.reshape(F, C, n),

@@ -7,13 +7,16 @@
 - :class:`StageTimer`: host wall-clock counters per stage with a
   samples/sec report (the Encoder's ``stats`` dict is the always-on subset
   of this);
-- :func:`device_memory_stats`: the live device memory of each CUDA device.
+- :func:`device_memory_stats`: the live device memory of each CUDA device;
+- :func:`card_name`: the card's name and power limit, which every
+  measurement states beside its numbers.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import subprocess
 import time
 
 import torch
@@ -110,3 +113,16 @@ def device_memory_stats() -> list[dict]:
                 .total_memory,
             })
     return out
+
+
+def card_name(device) -> str:
+    """``"cpu"`` for the CPU; else the first card's name and power limit
+    as ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
+    prints them (the power limit sets how fast a card runs under load)."""
+    if torch.device(device).type == "cpu":
+        return "cpu"
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    return smi.stdout.strip().splitlines()[0] if smi.returncode == 0 \
+        and smi.stdout.strip() else "nvidia-smi unavailable"

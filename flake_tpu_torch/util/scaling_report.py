@@ -34,15 +34,7 @@ import time
 
 import numpy as np
 
-
-def _card(device: str) -> str:
-    if device == "cpu":
-        return "cpu"
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60)
-    return smi.stdout.strip().splitlines()[0] if smi.returncode == 0 \
-        and smi.stdout.strip() else "nvidia-smi unavailable"
+from flake_tpu_torch.profiling import card_name
 
 
 def _sizes(n: int) -> list[int]:
@@ -147,7 +139,7 @@ def main(argv=None) -> int:
 
     import torch
 
-    card = _card(args.device)
+    card = card_name(args.device)
     if args.device == "cuda":
         if not torch.cuda.is_available():
             print("scaling_report: CUDA is not available", file=sys.stderr)

@@ -9,6 +9,7 @@ pulls in no JAX.
 """
 
 import dataclasses
+import pathlib
 import subprocess
 import sys
 
@@ -39,6 +40,8 @@ from flake_tpu_torch.ops import bitpack as tbitpack
 from flake_tpu_torch.ops import lpc as tlpc
 from flake_tpu_torch.ops import sweep as tsweep
 from flake_tpu_torch.ops.frame import FrameConfig as TFrameConfig
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
 
 
 @pytest.mark.parametrize("level", range(13))
@@ -228,14 +231,19 @@ def test_decoder_copy_matches_original(level, use_native, monkeypatch):
         == jdecoder.decode_stream(bytes(wrong_md5), verify_md5=False).md5_ok
 
 
-def test_import_pulls_in_no_jax():
-    code = ("import sys, flake_tpu_torch, flake_tpu_torch.encoder, "
-            "flake_tpu_torch.ops.bitpack; "
-            "bad = [m for m in sys.modules if m == 'jax' "
-            "or m.startswith(('jax.', 'flake_tpu.')) or m == 'flake_tpu']; "
+@pytest.mark.parametrize("modules", [
+    "flake_tpu_torch, flake_tpu_torch.encoder, flake_tpu_torch.ops.bitpack",
+    "flake_tpu_torch.bench", "flake_tpu_torch.util.corpus",
+    "flake_tpu_torch.util.bench_matrix", "flake_tpu_torch.util.level_matrix",
+    "flake_tpu_torch.util.prof_an5"])
+def test_import_pulls_in_no_jax(modules):
+    """Neither ``jax`` nor anything of the JAX package or ``util/``."""
+    code = (f"import sys, {modules}; "
+            "bad = [m for m in sys.modules if m in ('jax', 'flake_tpu', "
+            "'util') or m.startswith(('jax.', 'flake_tpu.', 'util.'))]; "
             "assert not bad, bad")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                          text=True, timeout=120)
+                          text=True, timeout=120, cwd=ROOT)
     assert proc.returncode == 0, proc.stderr
     assert flake_tpu_torch.Encoder is not None
 
