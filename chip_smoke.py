@@ -7,10 +7,15 @@ variants of the emission-profiling tool, U2, the merge prototypes
 ``merge_v2`` and ``merge_v3``, U3a/U3b, the combined-node merges
 ``merge_v5a`` and ``merge_v5b``, and U3c-U3f, their row-layout forms
 ``merge_v5d`` and ``merge_v5c`` with the zero floors ``merge_zero_rows`` and
-``merge_zero_fb``, one kernel with U1's zero variant) and its host
-libraries (CRC patcher, decoder helpers) from this checkout, and holds
-each kernel
-against its plain PyTorch version: K1-K3 on the inputs the first level-8
+``merge_zero_fb``, one kernel with U1's zero variant, and R1 and R2, the
+Rice search from partition sums and the final Rice pass, which no Pallas
+kernel stands behind) and its host libraries (CRC patcher, decoder
+helpers) from this checkout, and holds each kernel
+against its plain PyTorch version: R1 and R2 on the inputs the first
+level-8 batch and the level-12 8192 bucket give them (timed there beside
+their plain versions and bounds) and on a made-up table (rows whose k and
+partition-order scans tie, sums from 2^32 up, residuals at the int32
+limits); K1-K3 on the inputs the first level-8
 batch gives them (its sweep's, which the route gives K4, for K2), K4 (and
 K1 at 33 lags, K3 on 8192-sample frames) on the
 inputs of a level-12 batch of 8192-sample sub-blocks, with K2 timed on
@@ -84,8 +89,8 @@ shared-memory cap, 32-bit / 44.1 kHz stereo at level 8, and 24-bit / 96
 kHz stereo at level 12, whose side channels give K4 25-bit samples).
 Each fixed-block stream (levels 8, 5, 7, 3, 2, 1, 0),
 each of those and the level-12 and level-11 streams is encoded once with
-K1-K4 recorded, and every call they got, each batch and the partial last
-block, is held against the plain version again (K1 at 13, 9, 7 and 33
+K1-K4, R1 and R2 recorded, and every call they got, each batch and the
+partial last block, is held against the plain version again (K1 at 13, 9, 7 and 33
 lags, K2 at orders 12, 8 and 32, K3 on 1152- to 8192-sample frames and in
 both instantiations, K4 on every bucket it sums). Then the main paths run, each with the launch counts set to 0 just before it
 and read just after: the profiling tool
@@ -113,8 +118,12 @@ included, and its STREAMINFO must give its channels, bits and rate. Each
 stream is encoded once more, untimed, with the host emission
 (``pack_backend="host"``, the native packer), whose bytes must equal K3's
 and which must launch no K3. Each stream prints its peak device memory
-above what the smoke holds at the reset; levels 8 and 12 also print it by
-stage (``analyze_frames``, the Rice scans, the k scan, the emission).
+above what the smoke holds at the reset, which at levels 11 and 12 must
+stay under ``PEAK_LIMIT_MIB``; levels 8 and 12 also print it by stage
+(``analyze_frames``, R1, R2, the emission). On every path R2 must launch
+wherever a stream is predicted and R1 wherever a sweep runs (R1 also on
+the sp path, in its final search), and no plain version of the two may
+see a card tensor.
 
 Then the file path, as a user runs it (``flake_tpu_torch.cli.main``, the
 launch counts set to 0 around each run), on WAV files written by the
@@ -188,6 +197,7 @@ failed phase exits non-zero before the final line, which is
 
 from __future__ import annotations
 
+import functools
 import json
 import pathlib
 import subprocess
@@ -262,6 +272,9 @@ HBM_BYTES_PER_MS = 3.35e9
 FP64_OPS_PER_MS = 33.5e9
 FP64_TENSOR_OPS_PER_MS = 67e9
 INT32_OPS_PER_MS = 33.5e9
+# the encoder's peak device memory above the smoke's at levels 11 and 12:
+# 6,559 MiB while the Rice scans held their k grids, level 8's 732 MiB since
+PEAK_LIMIT_MIB = 2048
 
 
 def fail(msg: str) -> None:
@@ -412,7 +425,7 @@ import json, resource, sys, time
 import torch
 from flake_tpu_torch import params as P
 from flake_tpu_torch.io import open_pcm
-from flake_tpu_torch.ops import autocorr, bitmerge, sweep
+from flake_tpu_torch.ops import autocorr, bitmerge, rice, sweep
 from flake_tpu_torch.parallel import distributed as D
 rank, nproc, port, wav, out, level, device = (
     int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4], sys.argv[5],
@@ -426,7 +439,8 @@ cfg = P.StreamConfig(channels=info.channels, sample_rate=info.sample_rate,
                      samples=pcm.shape[0], params=P.set_defaults(level))
 kernels = {"autocorr": autocorr.autocorr, "sweep_sums": sweep.sweep_sums,
            "sweep_granules": sweep.sweep_granules,
-           "merge_words": bitmerge.merge_words}
+           "merge_words": bitmerge.merge_words, "rice_scan": rice.rice_scan,
+           "rice_final": rice.rice_final}
 for fn in kernels.values():
     fn.launches = 0
 t0 = time.perf_counter()
@@ -531,9 +545,11 @@ def sharded_paths(card, pcm, count_launches, launched) -> None:
     from flake_tpu_torch.parallel.mesh import make_mesh
     from flake_tpu_torch.parallel.runner import shard_ranges
 
-    k1234 = ("autocorr", "sweep_sums", "merge_words", "sweep_granules")
+    k1234 = ("autocorr", "sweep_sums", "merge_words", "sweep_granules",
+             "rice_scan", "rice_final")
     # config 5's tails (2,048 and 512 samples) take K4, so K2 need not run
-    on_card = ("autocorr", "sweep_granules", "merge_words")
+    on_card = ("autocorr", "sweep_granules", "merge_words", "rice_scan",
+               "rice_final")
     cfg8 = P.StreamConfig(channels=2, sample_rate=SAMPLE_RATE,
                           bits_per_sample=16, params=P.set_defaults(8))
 
@@ -557,7 +573,8 @@ def sharded_paths(card, pcm, count_launches, launched) -> None:
             got = count_launches(
                 path, lambda: Encoder(cfg8, mesh=mesh, pack_backend=backend)
                 .encode_stream(seg),
-                k1234 if backend == "device" else k1234[:2] + k1234[3:],
+                k1234 if backend == "device"
+                else tuple(k for k in k1234 if k != "merge_words"),
                 () if backend == "device" else ("merge_words",))
             wall = time.perf_counter() - t0
             if got != want:
@@ -734,8 +751,8 @@ def sp_paths(card, streams, count_launches, launched) -> None:
     from flake_tpu_torch import params as P
     from flake_tpu_torch.encoder import Encoder
     from flake_tpu_torch.ops import autocorr as k1_mod
-    from flake_tpu_torch.ops import bitmerge, bitpack, frame, lpc, stereo
-    from flake_tpu_torch.ops import sweep
+    from flake_tpu_torch.ops import bitmerge, bitpack, frame, lpc, rice
+    from flake_tpu_torch.ops import stereo, sweep
     from flake_tpu_torch.parallel import mesh as mesh_mod
 
     dense_kernels = ("autocorr", "sweep_sums", "sweep_granules")
@@ -756,7 +773,8 @@ def sp_paths(card, streams, count_launches, launched) -> None:
         return run
 
     plains = [(lpc, "autocorr"), (sweep, "sweep_sums_plain"),
-              (sweep, "sweep_granules_plain"), (bitmerge, "merge_words_plain")]
+              (sweep, "sweep_granules_plain"), (bitmerge, "merge_words_plain"),
+              (rice, "rice_scan_plain"), (rice, "rice_final_plain")]
     originals = [(mod, name, getattr(mod, name)) for mod, name in plains]
     for mod, name, orig in originals:
         setattr(mod, name, cpu_only(name, orig))
@@ -808,8 +826,9 @@ def sp_paths(card, streams, count_launches, launched) -> None:
                     torch.cuda.reset_peak_memory_stats(i)
                 enc = Encoder(cfg, mesh=mesh)
                 t0 = time.perf_counter()
+                # R1: the order loop's scan and the final search
                 blob = count_launches(path, lambda: enc.encode_stream(pcm),
-                                      ("merge_words",))
+                                      ("merge_words", "rice_scan"))
                 cold = time.perf_counter() - t0
                 peaks = {m["device"]: m["peak_bytes_in_use"] / 2**20
                          for m in profiling.device_memory_stats()
@@ -832,7 +851,7 @@ def sp_paths(card, streams, count_launches, launched) -> None:
                 host = count_launches(
                     f"{path}, host emission",
                     lambda: Encoder(cfg, mesh=mesh, pack_backend="host")
-                    .encode_stream(pcm), (), ("merge_words",))
+                    .encode_stream(pcm), ("rice_scan",), ("merge_words",))
                 if host != blob:
                     fail(f"{path}: the host emission's bytes differ from "
                          "K3's")
@@ -944,7 +963,8 @@ def sp_paths(card, streams, count_launches, launched) -> None:
                    lambda: graft_entry.dryrun_multichip(4), ("merge_words",))
     fn, args = graft_entry.entry()
     out = count_launches("graft entry", lambda: fn(*args),
-                         ("autocorr", "sweep_granules", "merge_words"))
+                         ("autocorr", "sweep_granules", "merge_words",
+                          "rice_scan", "rice_final"))
     if not torch.equal(out["total_bits"].to(torch.int64),
                        8 * out["frame_bytes"]):
         fail("graft entry: total_bits is not 8 x frame_bytes")
@@ -967,14 +987,17 @@ def measurement_paths(card, count_launches) -> None:
     from flake_tpu_torch.util import bench_matrix, level_matrix, prof_an5
 
     k1234 = ("autocorr", "sweep_granules", "merge_words", "sweep_sums")
+    rice12 = ("rice_scan", "rice_final")
     t0 = time.perf_counter()
-    res = count_launches("bench", lambda: bench.run(device="cuda"), k1234)
+    res = count_launches("bench", lambda: bench.run(device="cuda"),
+                         k1234 + rice12)
     if res["e2e_verified"] is not True or res["host_pack_gbps"] is None:
         fail(f"bench: {res}")
     print(f"bench on {card}: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     rows = count_launches("bench matrix",
-                          lambda: bench_matrix.run(device="cuda"), k1234)
+                          lambda: bench_matrix.run(device="cuda"),
+                          k1234 + rice12)
     if [r["config"] for r in rows] != [c[0] for c in bench_matrix.CONFIGS] \
             or any(r["device_pack_parity"] is not True for r in rows):
         fail(f"bench matrix: {rows}")
@@ -983,17 +1006,17 @@ def measurement_paths(card, count_launches) -> None:
     t0 = time.perf_counter()
     cells, seconds = count_launches(
         "level matrix",
-        lambda: level_matrix.run(device="cuda"), k1234)
+        lambda: level_matrix.run(device="cuda"), k1234 + rice12)
     print(f"level matrix on {card}: {len(cells)} cells of {seconds:g} s, "
           f"each decoded with its MD5, in {time.perf_counter() - t0:.1f} s",
           flush=True)
     for level in (5, 8, 12):
-        needs = ("autocorr",) if level == 5 \
-            else ("autocorr", "sweep_granules")
+        needs = ("autocorr", "rice_final") if level == 5 \
+            else ("autocorr", "sweep_granules") + rice12
         res = count_launches(
             f"prof_an5 level {level}",
             lambda: prof_an5.run(level, device="cuda"), needs,
-            tuple(k for k in k1234 if k not in needs))
+            tuple(k for k in k1234 + rice12 if k not in needs))
         if res["sweep_route"] != (None if level == 5 else "K4"):
             fail(f"prof_an5 level {level}: {res}")
 
@@ -1334,11 +1357,14 @@ def main() -> None:
 
     def capture(hooks, run):
         """Run ``run()`` with each (module, name) of ``hooks`` wrapped to
-        record the arguments of its calls: name -> list, in call order."""
+        record the arguments of its calls: name -> list, in call order. A
+        wrapper carries its function's attributes: a kernel wrapper counts
+        its launches on the name it looks itself up by."""
         got = {}
         originals = [(mod, name, getattr(mod, name)) for mod, name in hooks]
 
         def wrap(name, orig):
+            @functools.wraps(orig)
             def rec(*args):
                 got.setdefault(name, []).append(args)
                 return orig(*args)
@@ -1371,7 +1397,7 @@ def main() -> None:
     fcfg8 = frame.FrameConfig.from_params(cfg8.params, 2, 16)
     cap8 = capture(
         [(frame, "autocorr"), (frame, "sweep_granules"),
-         (bitpack, "merge_words")],
+         (bitpack, "merge_words"), (rice, "rice_scan"), (rice, "rice_final")],
         lambda: analyze_and_pack(
             torch.from_numpy(pcm[:BATCH * BLOCK].reshape(BATCH, BLOCK, 2))
             .to(dev), fcfg8, np.arange(BATCH, dtype=np.int64), 0))
@@ -1632,7 +1658,7 @@ def main() -> None:
                                            block_size=vbs)
     cap12 = capture(
         [(frame, "autocorr"), (frame, "sweep_granules"),
-         (bitpack, "merge_words")],
+         (bitpack, "merge_words"), (rice, "rice_scan"), (rice, "rice_final")],
         lambda: analyze_and_pack(
             torch.from_numpy(supers[f_idx[whole]]).to(dev), fcfg12,
             f_idx[whole] * vbs, 1))
@@ -1704,6 +1730,113 @@ def main() -> None:
                       cmp_exact)
     print(f"K3 on {vbs}-sample frames, slots {tuple(vl.shape)}, word_rows "
           f"{vwr}: {detail}", flush=True)
+
+    # -- 4a. R1 and R2 on the level-8 batch, the level-12 bucket, a table ---
+    def scan_ops(rows, n, pmax):
+        """R1's operations: 31 counts of six int32 operations (an add for
+        the count, a funnel shift, an add, a compare, two selects) for each
+        partition of every level 0..pmax_static of each row."""
+        ps = rice.limit_max_partition_order(pmax, n, 1)
+        return rows * ((2 << ps) - 1) * 31 * 6
+
+    def final_ops(res, n, pmax):
+        """R2's operations: about eight int32 operations a sample (the
+        zigzag, the mask, the sum, then the exact pass's shift, mask and
+        two adds) and R1's scan of each stream."""
+        return 8 * res.numel() + scan_ops(res.numel() // n, n, pmax)
+
+    def as_tuple(fn):
+        """R2's dict as a tuple, for cmp_exact."""
+        return lambda *args: tuple(fn(*args).values())
+
+    rice_held = {"rice_scan": (rice.rice_scan, rice.rice_scan_plain),
+                 "rice_final": (as_tuple(rice.rice_final),
+                                as_tuple(rice.rice_final_plain))}
+    rice_replaces = {
+        "rice_scan": "flake_tpu/ops/rice.py:222 (_dynamic_porder_scan with "
+                     "_fold_pyramid :213 and find_optimal_k_u32 :109; no "
+                     "pl.pallas_call)",
+        "rice_final": "flake_tpu/ops/rice.py:314 (calc_rice_params_dynamic; "
+                      "no pl.pallas_call)"}
+
+    def rice_cost(name, args):
+        """(reads, operations) of R1 or R2 on ``args``."""
+        data, order, n, _, pmax = args
+        ops = scan_ops(order.numel(), n, pmax) if name == "rice_scan" \
+            else final_ops(data, n, pmax)
+        return (data, order.expand(data.shape[:-1])), ops
+
+    def timed_args(args):
+        """The main path's arguments with the order laid out as the
+        kernel reads it (R1's callers pass a broadcast view, which the
+        wrapper would copy inside the timing)."""
+        data, order, *rest = args
+        return (data, order.expand(data.shape[:-1]).contiguous(), *rest)
+
+    for name in ("rice_scan", "rice_final"):
+        kern, plain = rice_held[name]
+        args = timed_args(cap8[name][0])
+        reads, ops = rice_cost(name, args)
+        phase(name, "flake_tpu_torch/csrc/rice.cu", rice_replaces[name],
+              lambda kern=kern, args=args: kern(*args),
+              lambda plain=plain, args=args: plain(*args), cmp_exact, reads,
+              ops, INT32_OPS_PER_MS)
+        kernels[-1]["shape"] = list(args[0].shape)
+        # the level-12 bucket: held, timed beside the plain version, bound
+        args = timed_args(cap12[name][0])
+        reads, ops = rice_cost(name, args)
+
+        def kern12(kern=kern, args=args):
+            return kern(*args)
+
+        def plain12(plain=plain, args=args):
+            return plain(*args)
+
+        _, detail = check(name, kern12, plain12, cmp_exact)
+        at12 = dict(zip(("plain_ms", "ms"), time_turns(plain12, kern12,
+                                                       loop=(plain12,))))
+        at12["bound_ms"], at12["bound_by"] = bound(
+            nbytes(*reads) + nbytes(*kern12()), ops, INT32_OPS_PER_MS)
+        at12["shape"] = list(args[0].shape)
+        kernels[-1][f"level12_{vbs}"] = at12
+        print(f"{name} on the level-12 {vbs} bucket, {tuple(args[0].shape)}: "
+              f"{detail}; kernel {at12['ms']:.4f} ms, plain "
+              f"{at12['plain_ms']:.4f} ms, bound {at12['bound_ms']:.4f} ms by "
+              f"{at12['bound_by']}", flush=True)
+
+    # a made-up table: rows of 8 small partition sums (n 64, pmax 3), where
+    # about 5% tie in the partition-order scan and most in some k scan; rows
+    # at the level-12 shape of sums from 2^32 up (the limb form's high half,
+    # counts that wrap uint32); residuals of -2..2 (ties) and at the int32
+    # limits (zigzag wraps at |r| >= 2^30)
+    trng = np.random.default_rng(SEED + 15)
+    small = trng.integers(0, 1 + (1 << trng.integers(0, 5, (20000, 1))) * 8,
+                          (20000, 8))
+    small[:, 4:] *= trng.integers(1, 6, (20000, 1))
+    big = trng.integers(1 << 32, 8192 << 32, (4096, 256))
+    wrap = trng.choice(np.array([-2**31, -2**30 - 1, -2**30, 2**30 - 1, 2**30,
+                                 2**31 - 1]), (512, 4096))
+    wrap[::2] = trng.integers(-2**31, 2**31, (256, 4096))
+    made_up = [
+        ("rice_scan", "ties, n 64", (small, trng.integers(0, 5, 20000),
+                                     64, 0, 3)),
+        ("rice_scan", "sums from 2^32, n 8192",
+         (big, np.tile(np.arange(1, 33), 128), 8192, 0, 8)),
+        ("rice_final", "residuals -2..2, n 64",
+         (trng.integers(-2, 3, (20000, 64)), trng.integers(0, 5, 20000),
+          64, 0, 3)),
+        ("rice_final", "residuals at the int32 limits, n 4096",
+         (wrap, trng.integers(0, 13, 512), 4096, 0, 6))]
+    for name, label, (data, order, n, pmin, pmax) in made_up:
+        kern, plain = rice_held[name]
+        args = (torch.from_numpy(data).to(dev, torch.int64 if name ==
+                                          "rice_scan" else torch.int32),
+                torch.from_numpy(order).to(dev, torch.int32), n, pmin, pmax)
+        _, detail = check(name, lambda: kern(*args), lambda: plain(*args),
+                          cmp_exact)
+        print(f"{name} on the made-up table ({label}, "
+              f"{tuple(args[0].shape)}): {detail} against the plain version",
+              flush=True)
 
     # -- 4b. K5 and U1 on the profiling tool's batch ---------------------------
     tF = tool.FRAMES
@@ -2352,7 +2485,17 @@ def main() -> None:
             "merge_words": (k3_mod.merge_words, k3_mod.merge_words_plain,
                             cmp_exact),
             "sweep_granules": (sweep_mod.sweep_granules,
-                               sweep_mod.sweep_granules_plain, cmp_exact)}
+                               sweep_mod.sweep_granules_plain, cmp_exact),
+            **{name: (*fns, cmp_exact) for name, fns in rice_held.items()}}
+
+    def with_rice(needs):
+        """A path's kernels with R2, which runs wherever a stream is
+        predicted (LPC or FIXED), and R1, which runs wherever a sweep does
+        (the order method reads bit counts)."""
+        sweeps_run = set(needs) & {"sweep_sums", "sweep_granules"}
+        return tuple(needs) + ("rice_final",) \
+            + (("rice_scan",) if sweeps_run else ())
+
     # the kernels each wide stream's encode calls: K2 only where a block
     # size K4 cannot sum occurs (the 32-bit stream's 2,728-sample tail; the
     # 24-bit level-12 stream's sub-blocks of 3, 5 and 6 x 1,024 and its
@@ -2372,9 +2515,11 @@ def main() -> None:
            for level in (12, 11)]
     k3_forms_held = set()
     for label, cfg, stream, needs in held_paths:
+        needs = with_rice(needs)
         calls = capture(
             [(frame, "autocorr"), (frame, "sweep_sums"),
-             (frame, "sweep_granules"), (bitpack, "merge_words")],
+             (frame, "sweep_granules"), (bitpack, "merge_words"),
+             (rice, "rice_scan"), (rice, "rice_final")],
             lambda: Encoder(cfg, device="cuda").encode_stream(stream))
         if set(calls) != set(needs):
             fail(f"{label} called {sorted(calls)}, expected "
@@ -2391,6 +2536,8 @@ def main() -> None:
             what = (f", {args_of_calls[0][2] + 1} lags" if name == "autocorr"
                     else f", order {args_of_calls[0][3]}"
                     if name in sweeps else "")
+            if name in rice_held:
+                what = f", n {sorted({a[2] for a in args_of_calls})}"
             if name == "merge_words":
                 forms = {"shared" if k3_mod.merge_in_shared(args[3])
                          else "global" for args in args_of_calls}
@@ -2419,7 +2566,8 @@ def main() -> None:
                "prof_merge_v5d": tool3.merge_v5d,
                "prof_merge_v5c": tool3.merge_v5c,
                "prof_merge_zero_fb": tool3.merge_zero_fb,
-               "prof_merge_zero_rows": tool3.merge_zero_rows}
+               "prof_merge_zero_rows": tool3.merge_zero_rows,
+               "rice_scan": rice.rice_scan, "rice_final": rice.rice_final}
     launched = {name: {} for name in counted}   # name -> {path: count}
     k3_launched_by = {}     # path -> K3's launches by instantiation
 
@@ -2429,8 +2577,28 @@ def main() -> None:
         for fn in counted.values():
             fn.launches = 0
         k3_mod.merge_words.launches_by = {"shared": 0, "global": 0}
-        result = run()
-        torch.cuda.synchronize()
+        # no plain Rice search may run on a card tensor on a main path
+        plains = [(name, getattr(rice, name))
+                  for name in ("rice_scan_plain", "rice_final_plain")]
+        on_card = set()
+
+        def guard(name, plain):
+            def run_plain(x, *args):
+                if x.device.type != "cpu":
+                    on_card.add(name)
+                return plain(x, *args)
+            return run_plain
+
+        for name, plain in plains:
+            setattr(rice, name, guard(name, plain))
+        try:
+            result = run()
+            torch.cuda.synchronize()
+        finally:
+            for name, plain in plains:
+                setattr(rice, name, plain)
+        if on_card:
+            fail(f"{label}: {sorted(on_card)} ran on a card tensor")
         counts = {name: fn.launches for name, fn in counted.items()}
         if counts["merge_words"]:
             k3_launched_by[label] = dict(k3_mod.merge_words.launches_by)
@@ -2492,7 +2660,10 @@ def main() -> None:
     def drive(label, cfg, stream, needs, never=()):
         """One main path through the encoder, cold then warm; the counts
         are those of the cold run. Then, untimed, the host emission must
-        give the same bytes without K3."""
+        give the same bytes without K3. The encoder's peak device memory
+        at levels 11 and 12 must stay under PEAK_LIMIT_MIB (R1 and R2 hold
+        no k grid)."""
+        needs = with_rice(needs)
         torch.cuda.reset_peak_memory_stats(dev)
         held = torch.cuda.memory_allocated(dev)
         rate, pcm_bytes = cfg.sample_rate, stream.size * cfg.bits_per_sample / 8
@@ -2521,6 +2692,9 @@ def main() -> None:
               f"{held / 2**20:.0f} MiB the smoke held at the reset; warm "
               f"stats { {k: round(v, 4) for k, v in enc2.stats.items()} }",
               flush=True)
+        if label in ("level 11", "level 12") and peak > PEAK_LIMIT_MIB << 20:
+            fail(f"{label}: the encoder's peak device memory "
+                 f"{peak / 2**20:.0f} MiB exceeds {PEAK_LIMIT_MIB} MiB")
         host_blob = count_launches(
             f"{label}, host emission",
             lambda: Encoder(cfg, device="cuda",
@@ -2547,21 +2721,18 @@ def main() -> None:
     def stage_peaks(label, cfg, stream):
         """One more (untimed) encode with the peak device memory of each
         stage above the memory allocated when it begins: analyze_frames,
-        the sweep's Rice scan (``subframe_bits_from_sums``), the final
-        Rice search (``calc_rice_params_dynamic``), the k scan inside both
-        (``find_optimal_k_u32``) and pack_frames_device. A stage that
-        begins inside another hands its peak to the outer one, so each
-        reading is that of the stage with everything it calls."""
+        the sweep's Rice scan (R1, ``rice_scan``), the final Rice search
+        (R2, ``rice_final``) and pack_frames_device. A stage that begins
+        inside another hands its peak to the outer one, so each reading is
+        that of the stage with everything it calls."""
         # the encoder analyses each batch through the mesh module's groups
-        hooks = [(mesh_mod, "analyze_frames"),
-                 (frame, "subframe_bits_from_sums"),
-                 (frame, "calc_rice_params_dynamic"),
-                 (rice, "find_optimal_k_u32"),
-                 (bitpack, "pack_frames_device")]
+        hooks = [(mesh_mod, "analyze_frames"), (rice, "rice_scan"),
+                 (rice, "rice_final"), (bitpack, "pack_frames_device")]
         # [start, top] of the whole encode, then of each stage entered
         stack, peaks = [], {}
 
         def wrap(name, orig):
+            @functools.wraps(orig)
             def run(*args, **kwargs):
                 top = torch.cuda.max_memory_allocated(dev)
                 for entry in stack:
@@ -2664,7 +2835,7 @@ def main() -> None:
         else:
             rc = count_launches(label,
                                 lambda: cli.main(list(map(str, argv))),
-                                needs, never)
+                                with_rice(needs), never)
         wall = time.perf_counter() - t0
         if rc != 0:
             fail(f"{label}: the command line exited {rc}")

@@ -39,6 +39,12 @@ SIGNATURES = {
     "flake_sweep_sums": [_P, _P, _P, _P] + [_I] * 9,
     # x, coefs, shifts, out, N, B, max_order, gs_log2
     "flake_sweep_granules": [_P, _P, _P, _P, _I, _I, _I, _I],
+    # R1: sums, order, bits, porder, method, params, R, G, n, pmin, pmax,
+    # pmax_static, log2(n ^ (n - 1))
+    "flake_rice_scan": [_P] * 6 + [_I] * 7,
+    # R2: res, order, bits, porder, method, params, exact, N, n, pmin, pmax,
+    # pmax_static, log2(n ^ (n - 1))
+    "flake_rice_final": [_P] * 7 + [_I] * 6,
     # lengths, leading, payload, words, total_bits, F, M, W, shared
     "flake_merge_words": [_P, _P, _P, _P, _P, _I, _I, _I, _I],
     # w0t, hit, lot, words, F, S, W

@@ -109,7 +109,7 @@ def main(argv=None) -> int:
 
     from flake_tpu_torch import params as P
     from flake_tpu_torch.io import open_pcm
-    from flake_tpu_torch.ops import autocorr, bitmerge, sweep
+    from flake_tpu_torch.ops import autocorr, bitmerge, rice, sweep
     from flake_tpu_torch.parallel import distributed
 
     rank = args.process_id if args.process_id is not None else 0
@@ -135,7 +135,9 @@ def main(argv=None) -> int:
         kernels = {"autocorr": autocorr.autocorr,
                    "sweep_sums": sweep.sweep_sums,
                    "sweep_granules": sweep.sweep_granules,
-                   "merge_words": bitmerge.merge_words}
+                   "merge_words": bitmerge.merge_words,
+                   "rice_scan": rice.rice_scan,
+                   "rice_final": rice.rice_final}
         for fn in kernels.values():
             fn.launches = 0
         t0 = time.perf_counter()

@@ -54,9 +54,9 @@ from flake_tpu_torch.ops.common import wrap_int32
 from flake_tpu_torch.ops.frame import (LPC_DTYPES, SF_LPC, FrameConfig,
                                        analyze_frames, finalize_analysis,
                                        select_order)
-from flake_tpu_torch.ops.rice import (_dynamic_porder_scan, _fold_pyramid,
-                                      _partition_sums, subframe_bits_from_sums,
-                                      limit_max_partition_order, zigzag_u32)
+from flake_tpu_torch.ops.rice import (_partition_sums,
+                                      limit_max_partition_order, rice_scan,
+                                      subframe_bits_from_sums, zigzag_u32)
 from flake_tpu_torch.profiling import annotate
 
 
@@ -364,11 +364,12 @@ def analyze_frames_sp(shards: list, cfg: FrameConfig,
                              torch.logical_and) & (shift > 0)).reshape(F, C)
         zs = [_rice_sums(r, o, g, parts, psize)
               for r, o, g in zip(res, o_r, gidx)]
-        levels = [None] * (pmax_static + 1)
-        levels[pmax_static] = torch.cat([s.to(dev) for _, s in zs], dim=-1)
-        _fold_pyramid(levels, pmax_static)
-        _, porder, method, params, kgrid = _dynamic_porder_scan(
-            levels, n, order, pmin, pmax, pmax_static, want_kgrid=True)
+        _, porder, method, params = rice_scan(
+            torch.cat([s.to(dev) for _, s in zs], dim=-1), order, n, pmin,
+            pmax)
+        # the winning k spread onto the 2^pmax_static partitions
+        kgrid = torch.gather(params, 1, torch.arange(
+            1 << pmax_static, device=dev) >> (pmax_static - porder[:, None]))
         # the exact Rice bits: each rank's quotients and unary/k bits over
         # its slice of the winning k grid, summed
         quotient, ovh = [], []

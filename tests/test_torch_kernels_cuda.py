@@ -18,7 +18,12 @@ of 3 and 20 samples, on slot counts that are no multiple of its tiles,
 on rows that start off a 16-byte boundary and on 32-bit slot pairs; K2 on one stream, on the level-12 buckets and at the edges of
 its order buckets, K1 at the edges of its lag buckets on blocks of 3 and
 31 samples, and two K1 calls giving the same bits; the tie rules of the
-Rice k scan and the stereo mode on equal counts; K5 and the four U1
+Rice k scan and the stereo mode on equal counts; R1 (the Rice scan from
+partition sums) at the level-8 and level-12 shapes, on finer sums, with
+warm-ups past a partition, on a 777-sample tail and on rows whose k and
+partition-order scans tie, and R2 (the final Rice pass) at the level-8 and
+level-12 shapes, n 4608, 1152, 777, 20, 3 and 64, on residuals of -2..2
+and at the int32 limits, each on every output bit for bit; K5 and the four U1
 variants on encoder slots, on random slot tables whose chunks span three
 word rows, and on a word block above
 48 KiB of shared memory; the merge prototypes ``merge_v2`` and ``merge_v3``
@@ -856,6 +861,105 @@ def test_ties_on_the_card(dev):
     mode = stereo.decorr_mode(left.to(dev), right.to(dev), 256)
     assert torch.equal(mode.cpu(), stereo.decorr_mode(left, right, 256))
     assert mode[0] == stereo.LEFT_SIDE and mode[1] == stereo.LEFT_RIGHT
+
+
+def _rice_sums(rng, rows, n, pmax, sub=1):
+    """Partition sums as the sweeps give them (per-row magnitudes 2^0 to
+    2^20 a sample, some zero partitions) and, on an eighth of the rows,
+    sums from 2^32 up (the limb form's high half, wrapping counts)."""
+    from flake_tpu_torch.ops import rice
+
+    ps = rice.limit_max_partition_order(pmax, n, 1)
+    parts = (1 << ps) * sub
+    mean = 2.0 ** rng.uniform(0, 20, (rows, 1))
+    s = rng.gamma(4.0, mean / 4.0 * (n >> ps) / sub, (rows, parts)) \
+        .astype(np.int64)
+    s[rng.random((rows, parts)) < 0.05] = 0
+    big = rng.random(rows) < 0.125
+    s[big] = rng.integers(1 << 32, max(n, 2) << 32, (int(big.sum()), parts))
+    return torch.from_numpy(s)
+
+
+def _tie_sums(rng, rows):
+    """Rows of 8 small partition sums (n 64, pmax 3): about 5% tie in the
+    partition-order scan, most in some k scan."""
+    s = rng.integers(0, 1 + (1 << rng.integers(0, 5, (rows, 1))) * 8,
+                     (rows, 8))
+    s[:, 4:] *= rng.integers(1, 6, (rows, 1))
+    return torch.from_numpy(s)
+
+
+@pytest.mark.parametrize("case,n,pmax,orders,streams,sub", [
+    ("level 8", 4096, 6, 12, 1024, 1),
+    ("level 12", 8192, 8, 32, 1024, 1),
+    ("level 12, granules of 16", 8192, 8, 32, 64, 2),
+    ("warm-up past a partition", 4096, 8, 32, 64, 1),
+    ("tail 777", 777, 8, 32, 16, 1),
+    ("ties", 64, 3, 5, 4000, 1)])
+def test_rice_scan_kernel(dev, case, n, pmax, orders, streams, sub):
+    """R1 against its plain version, bit for bit, on every output."""
+    from flake_tpu_torch.ops import rice
+
+    rng = np.random.default_rng(n + orders)
+    sums = _tie_sums(rng, streams * orders) if case == "ties" \
+        else _rice_sums(rng, streams * orders, n, pmax, sub)
+    # a stream's rows at orders 1..orders (0..orders - 1 in the tie table)
+    order = torch.arange(orders, dtype=torch.int32) + (case != "ties")
+    sums = sums.reshape(streams, orders, -1)
+    before = rice.rice_scan.launches
+    got = rice.rice_scan(sums.to(dev), order.to(dev), n, 0, pmax)
+    torch.cuda.synchronize()
+    assert rice.rice_scan.launches == before + 1
+    want = rice.rice_scan_plain(sums.to(dev), order.to(dev), n, 0, pmax)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w), case
+
+
+def _residual_rows(rng, N, n):
+    """Laplacian residuals of per-row scale 2^0 to 2^20, rows of -2..2
+    (ties) and rows at the int32 limits (zigzag wraps at |r| >= 2^30)."""
+    scale = 2.0 ** rng.uniform(0, 20, (N, 1))
+    res = np.clip(rng.laplace(0, scale, (N, n)), -2**31, 2**31 - 1)
+    res[::4] = rng.integers(-2, 3, (len(res[::4]), n))
+    res[1::8] = rng.choice([-2**31, -2**30 - 1, -2**30, 2**30 - 1, 2**30,
+                            2**31 - 1], (len(res[1::8]), n))
+    return torch.from_numpy(res.astype(np.int32))
+
+
+@pytest.mark.parametrize("n,pmin,pmax,max_order,N", [
+    (4096, 0, 6, 12, 1024), (8192, 0, 8, 32, 1024), (4608, 0, 8, 4, 64),
+    (1152, 2, 8, 4, 64), (777, 0, 8, 32, 64), (20, 0, 8, 4, 64),
+    (3, 0, 8, 2, 16), (64, 0, 3, 4, 2048)])
+def test_rice_final_kernel(dev, n, pmin, pmax, max_order, N):
+    """R2 against its plain version, bit for bit, on every output, with
+    [F, C] leading dims as the FIXED path passes them."""
+    from flake_tpu_torch.ops import rice
+
+    rng = np.random.default_rng(n + N)
+    res = _residual_rows(rng, N, n).reshape(N // 2, 2, n).to(dev)
+    order = torch.from_numpy(rng.integers(0, max_order + 1, (N // 2, 2))
+                             .astype(np.int32)).to(dev)
+    before = rice.rice_final.launches
+    got = rice.rice_final(res, order, n, pmin, pmax)
+    torch.cuda.synchronize()
+    assert rice.rice_final.launches == before + 1
+    want = rice.rice_final_plain(res, order, n, pmin, pmax)
+    assert set(got) == set(want)
+    for key, w in want.items():
+        assert got[key].dtype == w.dtype and torch.equal(got[key], w), key
+
+
+def test_rice_kernels_refuse_other_types(dev):
+    from flake_tpu_torch.ops import rice
+
+    with pytest.raises(ValueError, match="sums"):
+        rice.rice_scan(torch.zeros((4, 64), dtype=torch.int32, device=dev),
+                       torch.ones(4, dtype=torch.int32, device=dev), 4096, 0,
+                       6)
+    with pytest.raises(ValueError, match="order"):
+        rice.rice_final(torch.zeros((4, 64), dtype=torch.int32, device=dev),
+                        torch.ones(4, dtype=torch.int64, device=dev), 64, 0,
+                        3)
 
 
 def test_encoder_cuda_matches_cpu(dev):
