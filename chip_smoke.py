@@ -8,14 +8,19 @@ variants of the emission-profiling tool, U2, the merge prototypes
 ``merge_v5a`` and ``merge_v5b``, and U3c-U3f, their row-layout forms
 ``merge_v5d`` and ``merge_v5c`` with the zero floors ``merge_zero_rows`` and
 ``merge_zero_fb``, one kernel with U1's zero variant, and R1 and R2, the
-Rice search from partition sums and the final Rice pass, which no Pallas
-kernel stands behind) and its host libraries (CRC patcher, decoder
-helpers) from this checkout, and holds each kernel
+Rice search from partition sums and the final pass from the samples (the
+residual, its int32 fit flag and the Rice search with the exact bits),
+which no Pallas kernel stands behind) and its host libraries (CRC
+patcher, decoder helpers) from this checkout, and holds each kernel
 against its plain PyTorch version: R1 and R2 on the inputs the first
 level-8 batch and the level-12 8192 bucket give them (timed there beside
-their plain versions and bounds) and on a made-up table (rows whose k and
-partition-order scans tie, sums from 2^32 up, residuals at the int32
-limits); K1-K3 on the inputs the first level-8
+their plain versions, their bounds and their first designs, R2's after
+the torch lag loop it replaced, and R2 at 128, 256 and 512 threads a
+block) and on made-up tables (rows whose k and partition-order scans
+tie, sums from 2^32 up; for R2, 32-bit samples at the int32 limits under
+order-32 coefficients near +-2^14 and shift 15, where the fit flag must
+take both values, orders 0-32 on rows of 777, 16,384, 20 and 3 samples,
+samples of -2..2 and the fixed predictors); K1-K3 on the inputs the first level-8
 batch gives them (its sweep's, which the route gives K4, for K2), K4 (and
 K1 at 33 lags, K3 on 8192-sample frames) on the
 inputs of a level-12 batch of 8192-sample sub-blocks, with K2 timed on
@@ -30,7 +35,7 @@ over the peak rate of their type outside the tensor cores, whichever is
 larger; the sweeps' also at the float64 tensor cores' rate) and, where
 one PyTorch call computes the same function, that call's time (for K1 a
 grouped float64 ``conv1d``, held against K1's plain version first).
-K1-K4, ``merge_v2``, ``merge_v3``, ``merge_v5a``, ``merge_v5b``,
+K1-K4, R1, R2, ``merge_v2``, ``merge_v3``, ``merge_v5a``, ``merge_v5b``,
 ``merge_v5d``, ``merge_v5c`` and the zero floor are also timed beside their
 first designs
 (``flake_tpu_torch/csrc/yardsticks``, built into a library of their own and
@@ -120,10 +125,14 @@ stream is encoded once more, untimed, with the host emission
 and which must launch no K3. Each stream prints its peak device memory
 above what the smoke holds at the reset, which at levels 11 and 12 must
 stay under ``PEAK_LIMIT_MIB``; levels 8 and 12 also print it by stage
-(``analyze_frames``, R1, R2, the emission). On every path R2 must launch
-wherever a stream is predicted and R1 wherever a sweep runs (R1 also on
-the sp path, in its final search), and no plain version of the two may
-see a card tensor.
+(``analyze_frames``, R1, R2, the emission and, inside it, the slot layout
+and K3 apart), with the slot layout's own tensors alive at its peak
+(:func:`live_tensors`). 600 s of the variable-block stream at level 12
+is encoded the same way, decoded with its MD5, and 3 s of it must give
+the same bytes through the CPU and the CUDA encoder. On every path R2
+must launch wherever a stream is predicted and R1 wherever a sweep runs
+(R1 also on the sp path, in its final search), and no plain version of
+the two, nor the plain final pass's lag loop, may see a card tensor.
 
 Then the file path, as a user runs it (``flake_tpu_torch.cli.main``, the
 launch counts set to 0 around each run), on WAV files written by the
@@ -212,6 +221,7 @@ SECONDS = 180
 BLOCK = 4096
 BATCH = 512
 VBS_SECONDS = 60        # the level-12 and level-11 stream
+LONG_SECONDS = 600      # the long level-12 stream
 PARITY_WINDOW = (4, 7)  # seconds of it through the CPU and the CUDA encoder
 FIXED_PARITY_WINDOW = (99, 102)  # of the fixed-block stream, levels 5 and 7
 # seconds of the fixed-block stream per level below 8 (level 8 takes it all)
@@ -440,7 +450,7 @@ cfg = P.StreamConfig(channels=info.channels, sample_rate=info.sample_rate,
 kernels = {"autocorr": autocorr.autocorr, "sweep_sums": sweep.sweep_sums,
            "sweep_granules": sweep.sweep_granules,
            "merge_words": bitmerge.merge_words, "rice_scan": rice.rice_scan,
-           "rice_final": rice.rice_final}
+           "final_pass": rice.final_pass}
 for fn in kernels.values():
     fn.launches = 0
 t0 = time.perf_counter()
@@ -546,10 +556,10 @@ def sharded_paths(card, pcm, count_launches, launched) -> None:
     from flake_tpu_torch.parallel.runner import shard_ranges
 
     k1234 = ("autocorr", "sweep_sums", "merge_words", "sweep_granules",
-             "rice_scan", "rice_final")
+             "rice_scan", "final_pass")
     # config 5's tails (2,048 and 512 samples) take K4, so K2 need not run
     on_card = ("autocorr", "sweep_granules", "merge_words", "rice_scan",
-               "rice_final")
+               "final_pass")
     cfg8 = P.StreamConfig(channels=2, sample_rate=SAMPLE_RATE,
                           bits_per_sample=16, params=P.set_defaults(8))
 
@@ -774,7 +784,8 @@ def sp_paths(card, streams, count_launches, launched) -> None:
 
     plains = [(lpc, "autocorr"), (sweep, "sweep_sums_plain"),
               (sweep, "sweep_granules_plain"), (bitmerge, "merge_words_plain"),
-              (rice, "rice_scan_plain"), (rice, "rice_final_plain")]
+              (rice, "rice_scan_plain"), (rice, "rice_final_plain"),
+              (rice, "final_pass_plain")]
     originals = [(mod, name, getattr(mod, name)) for mod, name in plains]
     for mod, name, orig in originals:
         setattr(mod, name, cpu_only(name, orig))
@@ -964,7 +975,7 @@ def sp_paths(card, streams, count_launches, launched) -> None:
     fn, args = graft_entry.entry()
     out = count_launches("graft entry", lambda: fn(*args),
                          ("autocorr", "sweep_granules", "merge_words",
-                          "rice_scan", "rice_final"))
+                          "rice_scan", "final_pass"))
     if not torch.equal(out["total_bits"].to(torch.int64),
                        8 * out["frame_bytes"]):
         fail("graft entry: total_bits is not 8 x frame_bytes")
@@ -987,7 +998,7 @@ def measurement_paths(card, count_launches) -> None:
     from flake_tpu_torch.util import bench_matrix, level_matrix, prof_an5
 
     k1234 = ("autocorr", "sweep_granules", "merge_words", "sweep_sums")
-    rice12 = ("rice_scan", "rice_final")
+    rice12 = ("rice_scan", "final_pass")
     t0 = time.perf_counter()
     res = count_launches("bench", lambda: bench.run(device="cuda"),
                          k1234 + rice12)
@@ -1011,7 +1022,7 @@ def measurement_paths(card, count_launches) -> None:
           f"each decoded with its MD5, in {time.perf_counter() - t0:.1f} s",
           flush=True)
     for level in (5, 8, 12):
-        needs = ("autocorr", "rice_final") if level == 5 \
+        needs = ("autocorr", "final_pass") if level == 5 \
             else ("autocorr", "sweep_granules") + rice12
         res = count_launches(
             f"prof_an5 level {level}",
@@ -1034,6 +1045,63 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def live_tensors(run, top: int = 8):
+    """Run ``run()`` with every tensor its operations make recorded (a
+    ``TorchDispatchMode``): returns (its result, the most bytes of those
+    tensors alive at once, the ``top`` largest of them alive at that
+    moment as (operation, shape, dtype, MiB), and the number of
+    operations), those under 1% of that peak left out. Bytes are storage
+    bytes, so a view or an in-place result counts once; the allocator's
+    rounding is not in them."""
+    import weakref
+
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    class Live(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.live = {}      # storage address -> (refs, op, shape, ...)
+            self.peak, self.at_peak, self.ops = 0, [], 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            self.ops += 1
+            given = {t.untyped_storage().data_ptr()
+                     for t in tree_leaves((args, kwargs))
+                     if isinstance(t, torch.Tensor)}
+            for t in tree_leaves(out):
+                if not isinstance(t, torch.Tensor):
+                    continue
+                key = t.untyped_storage().data_ptr()
+                if key in given:
+                    continue        # a view of an input, or in place
+                entry = self.live.get(key)
+                if entry and any(r() is not None for r in entry[0]):
+                    entry[0].append(weakref.ref(t))
+                    continue
+                self.live[key] = ([weakref.ref(t)], str(func.__name__),
+                                  tuple(t.shape), str(t.dtype),
+                                  t.untyped_storage().nbytes())
+            self.live = {k: e for k, e in self.live.items()
+                         if any(r() is not None for r in e[0])}
+            alive = list(self.live.values())
+            now = sum(e[4] for e in alive)
+            if now > self.peak:
+                self.peak = now
+                self.at_peak = sorted(
+                    ((e[1], e[2], e[3], round(e[4] / 2**20, 1))
+                     for e in alive if e[4] * 100 >= now),
+                    key=lambda e: -e[3])[:top]
+            return out
+
+    mode = Live()
+    with mode:
+        result = run()
+    return result, mode.peak, mode.at_peak, mode.ops
+
+
 def build_yardsticks():
     """Build ``flake_tpu_torch/csrc/yardsticks`` (the first designs of K1-K4,
     of ``merge_v2``, ``merge_v3``, ``merge_v5a``, ``merge_v5b``,
@@ -1051,7 +1119,9 @@ def build_yardsticks():
     ``merge_v5c`` (1) in another form, ``zero_before(F, word_rows, fb)`` and
     ``zero_bulk(F, word_rows)`` write the zero floor, ``k4_int`` is K4's
     design on the integer pipes, ``launch_floor(blocks, threads)``
-    launches an empty kernel; ``mad_wide``, ``imad`` and ``dfma`` measure
+    launches an empty kernel, ``r1_before`` takes ``rice_scan``'s arguments
+    and ``r2_before`` a residual with ``rice_final_plain``'s (R1's and
+    R2's first designs); ``mad_wide``, ``imad`` and ``dfma`` measure
     the card's rate of each operation, in operations a ms."""
     import ctypes
 
@@ -1086,6 +1156,8 @@ def build_yardsticks():
     lib.flake_zero_floor_v1.argtypes = [P, I, I, I, P]
     lib.flake_zero_floor_bulk.argtypes = [P, I, I, P]
     lib.flake_launch_floor.argtypes = [I, I, P]
+    lib.flake_rice_scan_v1.argtypes = [P] * 6 + [I] * 7 + [P]
+    lib.flake_rice_final_v1.argtypes = [P] * 7 + [I] * 6 + [P]
 
     def call(fn, *args):
         rc = fn(*[P(a.data_ptr()) if isinstance(a, torch.Tensor) else a
@@ -1171,6 +1243,39 @@ def build_yardsticks():
         call(fn, words, F, word_rows * 128, *fb)
         return words
 
+    def search_args(n, pmin, pmax):
+        from flake_tpu_torch.ops import rice
+
+        ps = rice.limit_max_partition_order(pmax, n, 1)
+        return ps, (n, pmin, pmax, ps, rice.log2i(n ^ (n - 1)))
+
+    def r1_before(sums, order, n, pmin, pmax):
+        batch, G = sums.shape[:-1], sums.shape[-1]
+        R = batch.numel()
+        ps, ints = search_args(n, pmin, pmax)
+        out = [torch.empty(R, dtype=torch.int64, device=sums.device)] + [
+            torch.empty(R, dtype=torch.int32, device=sums.device)
+            for _ in range(2)] + [torch.empty(
+                (R, 1 << ps), dtype=torch.int32, device=sums.device)]
+        call(lib.flake_rice_scan_v1, sums.contiguous(),
+             order.expand(batch).contiguous(), *out, R, G, *ints)
+        return tuple(t.reshape(batch + t.shape[1:]) for t in out)
+
+    def r2_before(res, order, n, pmin, pmax):
+        batch = res.shape[:-1]
+        N = batch.numel()
+        ps, ints = search_args(n, pmin, pmax)
+        out = {"bits": torch.empty(N, dtype=torch.int64, device=res.device),
+               "porder": torch.empty(N, dtype=torch.int32, device=res.device),
+               "method": torch.empty(N, dtype=torch.int32, device=res.device),
+               "params": torch.empty((N, 1 << ps), dtype=torch.int32,
+                                     device=res.device),
+               "exact_rice_bits": torch.empty(N, dtype=torch.int64,
+                                              device=res.device)}
+        call(lib.flake_rice_final_v1, res.contiguous(), order.contiguous(),
+             *out.values(), N, *ints)
+        return {k: v.reshape(batch + v.shape[1:]) for k, v in out.items()}
+
     def rate(fn, dtype):
         """Operations a ms of ``fn`` on 8 blocks of 256 threads an SM."""
         blocks, threads, iters = 8 * 132, 256, 256
@@ -1197,6 +1302,7 @@ def build_yardsticks():
                                               wr),
         "launch_floor": lambda blocks, threads: call(lib.flake_launch_floor,
                                                      blocks, threads),
+        "r1_before": r1_before, "r2_before": r2_before,
         "mad_wide": lambda: rate(lib.flake_rate_mad_wide, torch.int64),
         "imad": lambda: rate(lib.flake_rate_imad, torch.int32),
         "dfma": lambda: rate(lib.flake_rate_dfma, torch.float64)}
@@ -1302,8 +1408,9 @@ def main() -> None:
     from flake_tpu_torch.encoder import Encoder, vbs_layout, vbs_section_sums
     from flake_tpu_torch.ops import autocorr as k1_mod
     from flake_tpu_torch.ops import bitmerge as k3_mod
-    from flake_tpu_torch.ops import bitpack, frame, lpc, rice
+    from flake_tpu_torch.ops import bitpack, frame, lpc, predict, rice
     from flake_tpu_torch.ops import sweep as sweep_mod
+    from flake_tpu_torch.ops.common import wrap_int32
     from flake_tpu_torch.parallel import mesh as mesh_mod
     from flake_tpu_torch.util import prof_merge as tool
     from flake_tpu_torch.util import prof_merge2 as tool2
@@ -1397,7 +1504,8 @@ def main() -> None:
     fcfg8 = frame.FrameConfig.from_params(cfg8.params, 2, 16)
     cap8 = capture(
         [(frame, "autocorr"), (frame, "sweep_granules"),
-         (bitpack, "merge_words"), (rice, "rice_scan"), (rice, "rice_final")],
+         (bitpack, "merge_words"), (rice, "rice_scan"),
+         (frame, "final_pass")],
         lambda: analyze_and_pack(
             torch.from_numpy(pcm[:BATCH * BLOCK].reshape(BATCH, BLOCK, 2))
             .to(dev), fcfg8, np.arange(BATCH, dtype=np.int64), 0))
@@ -1658,7 +1766,8 @@ def main() -> None:
                                            block_size=vbs)
     cap12 = capture(
         [(frame, "autocorr"), (frame, "sweep_granules"),
-         (bitpack, "merge_words"), (rice, "rice_scan"), (rice, "rice_final")],
+         (bitpack, "merge_words"), (rice, "rice_scan"),
+         (frame, "final_pass")],
         lambda: analyze_and_pack(
             torch.from_numpy(supers[f_idx[whole]]).to(dev), fcfg12,
             f_idx[whole] * vbs, 1))
@@ -1731,112 +1840,287 @@ def main() -> None:
     print(f"K3 on {vbs}-sample frames, slots {tuple(vl.shape)}, word_rows "
           f"{vwr}: {detail}", flush=True)
 
-    # -- 4a. R1 and R2 on the level-8 batch, the level-12 bucket, a table ---
-    def scan_ops(rows, n, pmax):
-        """R1's operations: 31 counts of six int32 operations (an add for
-        the count, a funnel shift, an add, a compare, two selects) for each
-        partition of every level 0..pmax_static of each row."""
+    # -- 4a. R1 and R2 on the level-8 batch, the level-12 bucket, tables -----
+    def r1_ops(sums, order, n, pmax):
+        """R1's int32 operations on these sums (the work depends on the
+        data): each partition of every level 0..pmax_static of each row
+        costs about 20 in closed form (the subtraction, two bit lengths,
+        a shift, a compare, the count and the level's sum) and 31 counts
+        of six (an add for the count, a funnel shift, an add, a compare,
+        two selects) where the closed form does not apply. Returns those
+        operations, the first design's (31 x 6 for every partition) and
+        the share of the partitions in closed form."""
         ps = rice.limit_max_partition_order(pmax, n, 1)
-        return rows * ((2 << ps) - 1) * 31 * 6
+        rows = sums.reshape(-1, 1 << ps, sums.shape[-1] >> ps).sum(-1)
+        order = order.expand(sums.shape[:-1]).reshape(-1, 1).to(torch.int64)
+        scan = 0
+        for p in range(ps, -1, -1):
+            cnt = torch.full_like(rows, n >> p)
+            cnt[:, 0] -= order[:, 0]
+            t = rows - (cnt >> 1)
+            applies = (cnt >= 1) & ((t < 0) | (t + 31 * cnt < 1 << 32))
+            scan += int((~applies).sum())
+            rows = rows[:, 0::2] + rows[:, 1::2] if p else rows
+        parts = order.shape[0] * ((2 << ps) - 1)
+        return ((parts - scan) * 20 + scan * 31 * 6, parts * 31 * 6,
+                1 - scan / parts)
 
-    def final_ops(res, n, pmax):
-        """R2's operations: about eight int32 operations a sample (the
-        zigzag, the mask, the sum, then the exact pass's shift, mask and
-        two adds) and R1's scan of each stream."""
-        return 8 * res.numel() + scan_ops(res.numel() // n, n, pmax)
+    def r2_ops(smp, coefs, order, n, pmax):
+        """R2's int32 operations: each tap of a sample past the warm-up
+        one 32x32->64-bit multiply-add, counted as two, about eight a
+        sample more (the shift, the wrap, the zigzag, the partition sum,
+        the exact pass's shift and adds) and R1's closed-form search of
+        each stream's pyramid."""
+        o = order.reshape(-1).to(torch.int64)
+        taps = torch.clamp(o, max=coefs.shape[-1])
+        ps = rice.limit_max_partition_order(pmax, n, 1)
+        rows = o.numel()
+        return int((2 * taps * torch.clamp(n - o, min=0)).sum()) \
+            + 8 * rows * n + rows * ((2 << ps) - 1) * 20
+
+    def lag_loop(smp, coefs, shift, order):
+        """The torch lag loop that fed R2's first design: the exact
+        residual, its wrap and its fit check."""
+        res64 = predict.residual_lpc_dynamic64(smp, coefs, shift, order,
+                                               coefs.shape[-1])
+        return wrap_int32(res64), predict.fits_int32(res64)
+
+    def replaced_pass(smp, coefs, shift, order, n, pmin, pmax):
+        """The final pass R2 replaced: the lag loop, then R2's first design
+        (csrc/yardsticks/rice_v1.cu) on its residual; R2's outputs in R2's
+        order."""
+        res, fits = lag_loop(smp, coefs, shift, order)
+        out = yard["r2_before"](res, order, n, pmin, pmax)
+        return (*out.values(), res, fits)
 
     def as_tuple(fn):
         """R2's dict as a tuple, for cmp_exact."""
         return lambda *args: tuple(fn(*args).values())
 
     rice_held = {"rice_scan": (rice.rice_scan, rice.rice_scan_plain),
-                 "rice_final": (as_tuple(rice.rice_final),
-                                as_tuple(rice.rice_final_plain))}
+                 "final_pass": (as_tuple(rice.final_pass),
+                                as_tuple(rice.final_pass_plain))}
     rice_replaces = {
         "rice_scan": "flake_tpu/ops/rice.py:222 (_dynamic_porder_scan with "
                      "_fold_pyramid :213 and find_optimal_k_u32 :109; no "
                      "pl.pallas_call)",
-        "rice_final": "flake_tpu/ops/rice.py:314 (calc_rice_params_dynamic; "
-                      "no pl.pallas_call)"}
+        "final_pass": "flake_tpu/ops/rice.py:314 (calc_rice_params_dynamic "
+                      "after predict.residual_lpc_dynamic :84; no "
+                      "pl.pallas_call)"}
 
-    def rice_cost(name, args):
-        """(reads, operations) of R1 or R2 on ``args``."""
-        data, order, n, _, pmax = args
-        ops = scan_ops(order.numel(), n, pmax) if name == "rice_scan" \
-            else final_ops(data, n, pmax)
-        return (data, order.expand(data.shape[:-1])), ops
-
-    def timed_args(args):
+    def r1_args(args):
         """The main path's arguments with the order laid out as the
         kernel reads it (R1's callers pass a broadcast view, which the
         wrapper would copy inside the timing)."""
         data, order, *rest = args
         return (data, order.expand(data.shape[:-1]).contiguous(), *rest)
 
-    for name in ("rice_scan", "rice_final"):
-        kern, plain = rice_held[name]
-        args = timed_args(cap8[name][0])
-        reads, ops = rice_cost(name, args)
-        phase(name, "flake_tpu_torch/csrc/rice.cu", rice_replaces[name],
-              lambda kern=kern, args=args: kern(*args),
-              lambda plain=plain, args=args: plain(*args), cmp_exact, reads,
-              ops, INT32_OPS_PER_MS)
-        kernels[-1]["shape"] = list(args[0].shape)
-        # the level-12 bucket: held, timed beside the plain version, bound
-        args = timed_args(cap12[name][0])
-        reads, ops = rice_cost(name, args)
+    def r1_at(label, args, entry):
+        """R1 and its first design held against the plain version on
+        ``args`` and timed with it in turns; bounds by bytes and by the
+        operations these sums need (``r1_ops``), and by the first design's
+        scan operations, into ``entry``."""
+        sums, order, n, _, pmax = args
+        for fn in (rice.rice_scan, yard["r1_before"]):
+            _, detail = check("rice_scan", lambda fn=fn: fn(*args),
+                              lambda: rice.rice_scan_plain(*args), cmp_exact)
 
-        def kern12(kern=kern, args=args):
-            return kern(*args)
+        def kern():
+            return rice.rice_scan(*args)
 
-        def plain12(plain=plain, args=args):
+        def before():
+            return yard["r1_before"](*args)
+
+        def plain():
+            return rice.rice_scan_plain(*args)
+
+        entry["plain_ms"], entry["ms"], entry["ms_before"] = time_turns(
+            plain, kern, before, loop=(plain,))
+        moved = nbytes(sums, order) + nbytes(*kern())
+        ops, scan_ops, entry["closed_form_share"] = r1_ops(sums, order, n,
+                                                           pmax)
+        entry["bound_ms"], entry["bound_by"] = bound(moved, ops,
+                                                     INT32_OPS_PER_MS)
+        entry["bytes_bound_ms"] = moved / HBM_BYTES_PER_MS
+        entry["scan_ops_bound_ms"] = scan_ops / INT32_OPS_PER_MS
+        entry["shape"] = list(sums.shape)
+        print(f"rice_scan on {label} {tuple(sums.shape)}: {detail}; kernel "
+              f"{entry['ms']:.4f} ms (first design {entry['ms_before']:.4f} "
+              f"ms), plain {entry['plain_ms']:.4f} ms; bounds: bytes "
+              f"{entry['bytes_bound_ms']:.4f} ms ({moved / 1e6:.1f} MB), "
+              f"this data's operations {ops / INT32_OPS_PER_MS:.4f} ms "
+              f"({ops / 1e9:.3f} G), the first design's scan operations "
+              f"{entry['scan_ops_bound_ms']:.4f} ms; closed form on "
+              f"{entry['closed_form_share']:.4f} of the partitions",
+              flush=True)
+
+    def r2_at(label, args, entry):
+        """R2 held against its plain version and against the lag loop with
+        R2's first design on ``args``; R2 at 128, 256 and 512 threads a
+        block, without its taps and with one partition, the first design
+        alone on the lag loop's residual, the lag loop alone, the two
+        together and the plain version timed in turns;
+        the bound by bytes (samples in, residual and results out) and by
+        ``r2_ops``, into ``entry``."""
+        smp, coefs, shift, order, n, pmin, pmax = args
+        kern = as_tuple(rice.final_pass)
+        plain = as_tuple(rice.final_pass_plain)
+        _, detail = check("final_pass", lambda: kern(*args),
+                          lambda: plain(*args), cmp_exact)
+        check("final_pass", lambda: replaced_pass(*args),
+              lambda: plain(*args), cmp_exact)
+        res, _ = lag_loop(smp, coefs, shift, order)
+
+        def at_threads(threads):
+            def run():
+                rice.FINAL_THREADS = threads
+                try:
+                    return kern(*args)
+                finally:
+                    rice.FINAL_THREADS = chosen
+            return run
+
+        chosen = rice.FINAL_THREADS
+        forms = {t: at_threads(t) for t in (128, 256, 512)}
+        for t, fn in forms.items():
+            check("final_pass", fn, lambda: plain(*args), cmp_exact)
+
+        def run_plain():
             return plain(*args)
 
-        _, detail = check(name, kern12, plain12, cmp_exact)
-        at12 = dict(zip(("plain_ms", "ms"), time_turns(plain12, kern12,
-                                                       loop=(plain12,))))
-        at12["bound_ms"], at12["bound_by"] = bound(
-            nbytes(*reads) + nbytes(*kern12()), ops, INT32_OPS_PER_MS)
-        at12["shape"] = list(args[0].shape)
-        kernels[-1][f"level12_{vbs}"] = at12
-        print(f"{name} on the level-12 {vbs} bucket, {tuple(args[0].shape)}: "
-              f"{detail}; kernel {at12['ms']:.4f} ms, plain "
-              f"{at12['plain_ms']:.4f} ms, bound {at12['bound_ms']:.4f} ms by "
-              f"{at12['bound_by']}", flush=True)
+        def loop_only():
+            return lag_loop(smp, coefs, shift, order)
 
-    # a made-up table: rows of 8 small partition sums (n 64, pmax 3), where
+        def before():
+            return replaced_pass(*args)
+
+        def before_kernel():
+            return yard["r2_before"](res, order, n, pmin, pmax)
+
+        # R2 without its taps, with one partition, and with neither: what
+        # the residual's multiply-adds and the search at ps cost
+        no_taps = coefs[..., :0].contiguous()
+        phases = {"no taps": lambda: kern(smp, no_taps, shift, order, n,
+                                          pmin, pmax),
+                  "one partition": lambda: kern(smp, coefs, shift, order, n,
+                                                0, 0),
+                  "no taps, one partition": lambda: kern(
+                      smp, no_taps, shift, order, n, 0, 0)}
+        others = [t for t in forms if t != chosen]
+        times = time_turns(run_plain, forms[chosen], before, before_kernel,
+                           loop_only, *(forms[t] for t in others),
+                           *phases.values(),
+                           loop=(run_plain, before, loop_only))
+        (entry["plain_ms"], entry["ms"], entry["ms_before"],
+         entry["ms_before_kernel"], entry["lag_loop_ms"]) = times[:5]
+        entry["forms_ms"] = {chosen: entry["ms"],
+                             **dict(zip(others, times[5:7]))}
+        entry["phases_ms"] = dict(zip(phases, times[7:]))
+        moved = nbytes(smp, coefs, shift, order) + nbytes(*kern(*args))
+        ops = r2_ops(smp, coefs, order, n, pmax)
+        entry["bound_ms"], entry["bound_by"] = bound(moved, ops,
+                                                     INT32_OPS_PER_MS)
+        entry["shape"] = list(smp.shape)
+        entry["max_order"] = coefs.shape[-1]
+        print(f"final_pass on {label} {tuple(smp.shape)}, {coefs.shape[-1]} "
+              f"taps: {detail}; kernel {entry['ms']:.4f} ms at {chosen} "
+              f"threads, {entry['forms_ms']} by threads; the lag loop and "
+              f"R2's first design {entry['ms_before']:.4f} ms (the lag loop "
+              f"{entry['lag_loop_ms']:.4f}, the first design alone "
+              f"{entry['ms_before_kernel']:.4f}); by phase "
+              f"{ {k: round(v, 4) for k, v in entry['phases_ms'].items()} } "
+              f"ms; plain {entry['plain_ms']:.4f} ms; bound "
+              f"{entry['bound_ms']:.4f} ms "
+              f"by {entry['bound_by']} ({moved / 1e6:.1f} MB, {ops / 1e9:.3f} "
+              "G operations)", flush=True)
+
+    for name, at in (("rice_scan", r1_at), ("final_pass", r2_at)):
+        args = cap8[name][0]
+        args = r1_args(args) if name == "rice_scan" else args
+        entry = {"name": name, "route": "cuda",
+                 "source": "flake_tpu_torch/csrc/rice.cu",
+                 "replaces": rice_replaces[name], "library_ms": None,
+                 "timed": {"ms": "back_to_back", "plain_ms": "loop"}}
+        at("the level-8 batch", args, entry)
+        entry["max_abs_err"] = 0.0
+        at12 = {}
+        args = cap12[name][0]
+        at(f"the level-12 {vbs} bucket",
+           r1_args(args) if name == "rice_scan" else args, at12)
+        entry[f"level12_{vbs}"] = at12
+        kernels.append(entry)
+
+    # made-up tables: rows of 8 small partition sums (n 64, pmax 3), where
     # about 5% tie in the partition-order scan and most in some k scan; rows
     # at the level-12 shape of sums from 2^32 up (the limb form's high half,
-    # counts that wrap uint32); residuals of -2..2 (ties) and at the int32
-    # limits (zigzag wraps at |r| >= 2^30)
+    # counts that wrap uint32); for R2, 32-bit samples at the int32 limits
+    # under order-32 coefficients near +-2^14 and shift 15 (exact residuals
+    # past int32 on some rows: fits false), orders 0..32 on 777-, 16,384-
+    # (past R2's shared-memory row), 20- and 3-sample rows, samples of -2..2
+    # (ties), and the fixed predictors
     trng = np.random.default_rng(SEED + 15)
     small = trng.integers(0, 1 + (1 << trng.integers(0, 5, (20000, 1))) * 8,
                           (20000, 8))
     small[:, 4:] *= trng.integers(1, 6, (20000, 1))
     big = trng.integers(1 << 32, 8192 << 32, (4096, 256))
-    wrap = trng.choice(np.array([-2**31, -2**30 - 1, -2**30, 2**30 - 1, 2**30,
-                                 2**31 - 1]), (512, 4096))
-    wrap[::2] = trng.integers(-2**31, 2**31, (256, 4096))
-    made_up = [
-        ("rice_scan", "ties, n 64", (small, trng.integers(0, 5, 20000),
-                                     64, 0, 3)),
-        ("rice_scan", "sums from 2^32, n 8192",
-         (big, np.tile(np.arange(1, 33), 128), 8192, 0, 8)),
-        ("rice_final", "residuals -2..2, n 64",
-         (trng.integers(-2, 3, (20000, 64)), trng.integers(0, 5, 20000),
-          64, 0, 3)),
-        ("rice_final", "residuals at the int32 limits, n 4096",
-         (wrap, trng.integers(0, 13, 512), 4096, 0, 6))]
-    for name, label, (data, order, n, pmin, pmax) in made_up:
-        kern, plain = rice_held[name]
-        args = (torch.from_numpy(data).to(dev, torch.int64 if name ==
-                                          "rice_scan" else torch.int32),
+    for label, (data, order, n, pmin, pmax) in (
+            ("ties, n 64", (small, trng.integers(0, 5, 20000), 64, 0, 3)),
+            ("sums from 2^32, n 8192",
+             (big, np.tile(np.arange(1, 33), 128), 8192, 0, 8))):
+        args = (torch.from_numpy(data).to(dev),
                 torch.from_numpy(order).to(dev, torch.int32), n, pmin, pmax)
-        _, detail = check(name, lambda: kern(*args), lambda: plain(*args),
-                          cmp_exact)
-        print(f"{name} on the made-up table ({label}, "
+        _, detail = check("rice_scan", lambda: rice.rice_scan(*args),
+                          lambda: rice.rice_scan_plain(*args), cmp_exact)
+        print(f"rice_scan on the made-up table ({label}, "
               f"{tuple(args[0].shape)}): {detail} against the plain version",
               flush=True)
+
+    def pass_table(n, rows, orders, taps, limits, fixed):
+        """R2's made-up rows: samples (at the int32 limits, or of -2..2),
+        coefficients near +-2^14 with shift 15 (or the fixed predictors'
+        with shift 0), each order of ``orders`` on ``rows`` rows."""
+        order = np.repeat(np.asarray(orders, np.int32), rows)
+        N = order.size
+        if limits:
+            smp = trng.choice(np.array([-2**31, -2**30 - 1, -2**30,
+                                        2**30 - 1, 2**30, 2**31 - 1]), (N, n))
+            smp[::2] = trng.integers(-2**31, 2**31, (len(smp[::2]), n))
+        else:
+            smp = trng.integers(-2, 3, (N, n))
+        if fixed:
+            coefs = predict.fixed_coefs(torch.from_numpy(order), taps)
+            shift = np.zeros(N, np.int32)
+        else:
+            coefs = torch.from_numpy(trng.integers(
+                2**14 - 64, 2**14, (N, taps)) * trng.choice([-1, 1],
+                                                            (N, taps)))
+            shift = np.full(N, 15, np.int32)
+        return (torch.from_numpy(smp.astype(np.int32)).to(dev),
+                coefs.to(dev, torch.int32), torch.from_numpy(shift).to(dev),
+                torch.from_numpy(order).to(dev))
+
+    for label, n, table, pmax in (
+            ("32-bit at the int32 limits, order-32 coefficients, shift 15, "
+             "n 4096", 4096, (16, range(33), 32, True, False), 6),
+            ("orders 0-32, n 777", 777, (8, range(33), 32, True, False), 8),
+            ("orders 0-32, n 16384, past R2's shared-memory row", 16384,
+             (2, range(33), 32, True, False), 8),
+            ("orders 0-20, n 20", 20, (16, range(21), 32, True, False), 8),
+            ("orders 0-3, n 3", 3, (16, range(4), 4, True, False), 8),
+            ("samples -2..2, n 64", 64, (512, range(5), 4, False, True), 3),
+            ("fixed predictors at the int32 limits, n 1152", 1152,
+             (64, range(5), 4, True, True), 8)):
+        args = (*pass_table(n, *table), n, 0, pmax)
+        got = rice.final_pass(*args)
+        _, detail = check("final_pass", lambda: as_tuple(rice.final_pass)(
+            *args), lambda: as_tuple(rice.final_pass_plain)(*args), cmp_exact)
+        unfit = int((~got["fits"]).sum())
+        print(f"final_pass on the made-up table ({label}, "
+              f"{tuple(args[0].shape)}): {detail} against the plain version; "
+              f"{unfit} rows whose exact residual leaves int32", flush=True)
+        if n == 4096 and not 0 < unfit < args[0].shape[0]:
+            fail(f"the made-up R2 table ({label}) did not reach both values "
+                 f"of the fit flag: {unfit} rows unfit")
 
     # -- 4b. K5 and U1 on the profiling tool's batch ---------------------------
     tF = tool.FRAMES
@@ -2493,7 +2777,7 @@ def main() -> None:
         predicted (LPC or FIXED), and R1, which runs wherever a sweep does
         (the order method reads bit counts)."""
         sweeps_run = set(needs) & {"sweep_sums", "sweep_granules"}
-        return tuple(needs) + ("rice_final",) \
+        return tuple(needs) + ("final_pass",) \
             + (("rice_scan",) if sweeps_run else ())
 
     # the kernels each wide stream's encode calls: K2 only where a block
@@ -2519,7 +2803,7 @@ def main() -> None:
         calls = capture(
             [(frame, "autocorr"), (frame, "sweep_sums"),
              (frame, "sweep_granules"), (bitpack, "merge_words"),
-             (rice, "rice_scan"), (rice, "rice_final")],
+             (rice, "rice_scan"), (frame, "final_pass")],
             lambda: Encoder(cfg, device="cuda").encode_stream(stream))
         if set(calls) != set(needs):
             fail(f"{label} called {sorted(calls)}, expected "
@@ -2537,7 +2821,8 @@ def main() -> None:
                     else f", order {args_of_calls[0][3]}"
                     if name in sweeps else "")
             if name in rice_held:
-                what = f", n {sorted({a[2] for a in args_of_calls})}"
+                at = 2 if name == "rice_scan" else 4
+                what = f", n {sorted({a[at] for a in args_of_calls})}"
             if name == "merge_words":
                 forms = {"shared" if k3_mod.merge_in_shared(args[3])
                          else "global" for args in args_of_calls}
@@ -2567,7 +2852,7 @@ def main() -> None:
                "prof_merge_v5c": tool3.merge_v5c,
                "prof_merge_zero_fb": tool3.merge_zero_fb,
                "prof_merge_zero_rows": tool3.merge_zero_rows,
-               "rice_scan": rice.rice_scan, "rice_final": rice.rice_final}
+               "rice_scan": rice.rice_scan, "final_pass": rice.final_pass}
     launched = {name: {} for name in counted}   # name -> {path: count}
     k3_launched_by = {}     # path -> K3's launches by instantiation
 
@@ -2577,9 +2862,13 @@ def main() -> None:
         for fn in counted.values():
             fn.launches = 0
         k3_mod.merge_words.launches_by = {"shared": 0, "global": 0}
-        # no plain Rice search may run on a card tensor on a main path
-        plains = [(name, getattr(rice, name))
-                  for name in ("rice_scan_plain", "rice_final_plain")]
+        # no plain Rice search, and no lag loop of the plain final pass, may
+        # run on a card tensor on a main path
+        plains = [(mod, name, getattr(mod, name))
+                  for mod, name in ((rice, "rice_scan_plain"),
+                                    (rice, "rice_final_plain"),
+                                    (rice, "final_pass_plain"),
+                                    (predict, "residual_lpc_dynamic64"))]
         on_card = set()
 
         def guard(name, plain):
@@ -2589,14 +2878,14 @@ def main() -> None:
                 return plain(x, *args)
             return run_plain
 
-        for name, plain in plains:
-            setattr(rice, name, guard(name, plain))
+        for mod, name, plain in plains:
+            setattr(mod, name, guard(name, plain))
         try:
             result = run()
             torch.cuda.synchronize()
         finally:
-            for name, plain in plains:
-                setattr(rice, name, plain)
+            for mod, name, plain in plains:
+                setattr(mod, name, plain)
         if on_card:
             fail(f"{label}: {sorted(on_card)} ran on a card tensor")
         counts = {name: fn.launches for name, fn in counted.items()}
@@ -2692,7 +2981,8 @@ def main() -> None:
               f"{held / 2**20:.0f} MiB the smoke held at the reset; warm "
               f"stats { {k: round(v, 4) for k, v in enc2.stats.items()} }",
               flush=True)
-        if label in ("level 11", "level 12") and peak > PEAK_LIMIT_MIB << 20:
+        if label.startswith(("level 11", "level 12")) \
+                and peak > PEAK_LIMIT_MIB << 20:
             fail(f"{label}: the encoder's peak device memory "
                  f"{peak / 2**20:.0f} MiB exceeds {PEAK_LIMIT_MIB} MiB")
         host_blob = count_launches(
@@ -2721,15 +3011,19 @@ def main() -> None:
     def stage_peaks(label, cfg, stream):
         """One more (untimed) encode with the peak device memory of each
         stage above the memory allocated when it begins: analyze_frames,
-        the sweep's Rice scan (R1, ``rice_scan``), the final Rice search
-        (R2, ``rice_final``) and pack_frames_device. A stage that begins
-        inside another hands its peak to the outer one, so each reading is
-        that of the stage with everything it calls."""
+        the sweep's Rice scan (R1, ``rice_scan``), the final pass (R2,
+        ``final_pass``), pack_frames_device and, inside it, the slot
+        layout (``slot_layout``) and K3 (``merge_words``) apart. A stage
+        that begins inside another hands its peak to the outer one, so each
+        reading is that of the stage with everything it calls. The slot
+        layout runs under :func:`live_tensors`: its largest call prints
+        the tensors alive at its peak and its operation count."""
         # the encoder analyses each batch through the mesh module's groups
         hooks = [(mesh_mod, "analyze_frames"), (rice, "rice_scan"),
-                 (rice, "rice_final"), (bitpack, "pack_frames_device")]
+                 (frame, "final_pass"), (bitpack, "pack_frames_device"),
+                 (bitpack, "slot_layout"), (bitpack, "merge_words")]
         # [start, top] of the whole encode, then of each stage entered
-        stack, peaks = [], {}
+        stack, peaks, layout = [], {}, {}
 
         def wrap(name, orig):
             @functools.wraps(orig)
@@ -2741,7 +3035,14 @@ def main() -> None:
                 start = torch.cuda.memory_allocated(dev)
                 stack.append([start, start])
                 try:
-                    return orig(*args, **kwargs)
+                    if name != "slot_layout":
+                        return orig(*args, **kwargs)
+                    out, live, at_peak, ops = live_tensors(
+                        lambda: orig(*args, **kwargs), top=24)
+                    if live > layout.get("live_mib", 0) * 2**20:
+                        layout.update(live_mib=round(live / 2**20, 1),
+                                      operations=ops, at_peak=at_peak)
+                    return out
                 finally:
                     entry = stack.pop()
                     top = max(entry[1], torch.cuda.max_memory_allocated(dev))
@@ -2771,6 +3072,10 @@ def main() -> None:
               f"{ {k: (round(v / 2**20, 1), sh) for k, (v, sh) in peaks.items()} }"
               f"; the whole encode {(whole - held) / 2**20:.1f} MiB above "
               f"the {held / 2**20:.0f} MiB held", flush=True)
+        print(f"{label}: slot_layout's largest call: {layout['live_mib']} MiB "
+              f"of its own tensors alive at once, {layout['operations']} "
+              "operations; alive at that peak (operation, shape, dtype, "
+              f"MiB): {layout['at_peak']}", flush=True)
 
     dec8 = drive("level 8", cfg8, pcm, k1234)
     stage_peaks("level 8", cfg8, pcm)
@@ -2805,6 +3110,21 @@ def main() -> None:
         if dec.streaminfo.min_block_size != 16:
             fail(f"level {level}: STREAMINFO min block is not 16")
     stage_peaks("level 12", stream_config(12), vpcm)
+
+    # a long level-12 stream: every sub-block size's final pass over 600 s,
+    # and a segment of it through the CPU and the CUDA encoder
+    lpcm = make_vbs_stream(SEED + 16, LONG_SECONDS)
+    long_label = f"level 12, {LONG_SECONDS} s"
+    drive(long_label, stream_config(12), lpcm, k1234)
+    mid = lpcm.shape[0] // 2
+    lseg = lpcm[mid - SAMPLE_RATE * 3 // 2:mid + SAMPLE_RATE * 3 // 2]
+    on_card = Encoder(stream_config(12), device="cuda").encode_stream(lseg)
+    on_host = Encoder(stream_config(12), device="cpu").encode_stream(lseg)
+    print(f"parity: 3 s in the middle of the {long_label} stream, "
+          f"{len(on_card)} bytes, equal {on_card == on_host}", flush=True)
+    if on_card != on_host:
+        fail(f"the CPU and CUDA encoders disagree on the {long_label} stream")
+    del lpcm
 
     for label, stream in wide.items():
         cfg = wide_config(label)

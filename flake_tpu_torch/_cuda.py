@@ -42,9 +42,9 @@ SIGNATURES = {
     # R1: sums, order, bits, porder, method, params, R, G, n, pmin, pmax,
     # pmax_static, log2(n ^ (n - 1))
     "flake_rice_scan": [_P] * 6 + [_I] * 7,
-    # R2: res, order, bits, porder, method, params, exact, N, n, pmin, pmax,
-    # pmax_static, log2(n ^ (n - 1))
-    "flake_rice_final": [_P] * 7 + [_I] * 6,
+    # R2: smp, coefs, shift, order, res, fits, bits, porder, method, params,
+    # exact, N, taps, n, pmin, pmax, pmax_static, log2(n ^ (n - 1)), threads
+    "flake_final_pass": [_P] * 11 + [_I] * 8,
     # lengths, leading, payload, words, total_bits, F, M, W, shared
     "flake_merge_words": [_P, _P, _P, _P, _P, _I, _I, _I, _I],
     # w0t, hit, lot, words, F, S, W

@@ -371,8 +371,13 @@ class Encoder:
         (``encoder.py:520-571``)."""
         F, bs, _ = frames.shape
         sec = bs // P.VBS_MAX_FRAMES
-        res = vbs_section_sums(self._upload_samples(frames), sec)
-        f_idx, starts, sizes = vbs_layout(res.cpu().numpy(), sec)
+        # the section sums a batch of superblocks at a time, so that the
+        # device holds a batch's int64 temporaries, not the whole stream's
+        res = np.concatenate([
+            vbs_section_sums(self._upload_samples(
+                frames[i:i + self.batch_frames]), sec).cpu().numpy()
+            for i in range(0, max(F, 1), self.batch_frames)])
+        f_idx, starts, sizes = vbs_layout(res, sec)
         nums = self.frame_count + f_idx * bs + starts
         pieces: list = [None] * sizes.size
         for size in np.unique(sizes):

@@ -104,6 +104,14 @@ def _pairs(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
     return torch.stack([hi, lo], dim=-1).flatten(-2)
 
 
+def _low_mask(bits: torch.Tensor) -> torch.Tensor:
+    """The int32 image of 2^bits - 1 for bits in [1, 32] (int32 [...]):
+    ~(-1 << bits), the shift taken in two steps because a shift by 32
+    gives 0 and a left shift wraps."""
+    return torch.bitwise_left_shift(-1, bits - 1).bitwise_left_shift_(1) \
+        .bitwise_not_()
+
+
 def slot_layout(analysis: dict, hdr_bytes: torch.Tensor,
                 hdr_nbytes: torch.Tensor, cfg: FrameConfig):
     """Slot tables of a batch of analysed frames (``bitpack.py:421-625``).
@@ -112,158 +120,172 @@ def slot_layout(analysis: dict, hdr_bytes: torch.Tensor,
     dict; hdr_bytes uint8 [F, HDR_SLOTS] and hdr_nbytes int32 [F] come
     from :func:`frame_header_bytes`. Returns (lengths, leading, payload)
     int32 [F, M]: each slot's bit length, its leading zero bits (a Rice
-    quotient) and its payload (the uint32 bit pattern)."""
+    quotient) and its payload (the uint32 bit pattern).
+
+    Every table is int32, and the per-sample slots are written straight
+    into the three outputs (``out=`` on their strided views), so the
+    batch's sample-sized memory is the outputs and four int32 temporaries
+    at most: the JAX package fuses its int64 tables under one ``jit``, and
+    eager int64 ones held 22 tables of [F, C, n] int64 at once. A zigzag
+    value z < 2^32 is its half h = z >> 1 (= r ^ (r >> 31), below 2^31)
+    and its low bit s; z >> k is h >> (k - 1) for k >= 1, and for k = 0
+    the clamped quotient min(z, 2^24) is min(2 min(h, 2^23) + s, 2^24). A
+    Rice payload (1 << k) | (z & (2^k - 1)) needs only z's low k <= 30
+    bits, which the wrapped int32 image (r << 1) ^ (r >> 31) holds."""
     n = cfg.block_size
     C = cfg.channels
-    i64 = torch.int64
+    i32 = torch.int32
     pmax_static = limit_max_partition_order(cfg.max_partition_order, n, 1)
     G = 1 << pmax_static
     gs = n >> pmax_static
 
-    sf = analysis["sf_type"]                              # [F, C]
-    order = analysis["order"].to(i64)
-    obits = analysis["obits"].to(i64)
-    wasted_b = analysis["wasted"].to(i64)
-    res = analysis["residual"].to(i64)                    # [F, C, n]
-    method = analysis["method"].to(i64)
-    porder = analysis["porder"].to(i64)
+    sf = analysis["sf_type"]                              # int32 [F, C]
+    order = analysis["order"][..., None]                  # [F, C, 1]
+    obits = analysis["obits"][..., None]
+    wasted_b = analysis["wasted"][..., None]
+    method = analysis["method"][..., None]
+    porder = analysis["porder"][..., None]
+    res = analysis["residual"]                            # [F, C, n]
     F = sf.shape[0]
     dev = sf.device
+    zero = torch.zeros((), dtype=i32, device=dev)
 
-    pred = (sf == SF_FIXED) | (sf == SF_LPC)
-    is_lpc = sf == SF_LPC
+    pred = ((sf == SF_FIXED) | (sf == SF_LPC))[..., None]  # [F, C, 1]
+    is_lpc = (sf == SF_LPC)[..., None]
     is_verb = (sf == SF_VERBATIM)[..., None]
-    is_const = sf == SF_CONSTANT
     wide = _split_wide(cfg)
     if wide:
         # (hi, lo) slot pairs; the hi part is the value arithmetic-shifted
         # (sign extension supplies bit 32 of a 33-bit field)
-        ob_lo = torch.clamp(obits, max=16)[..., None]     # [F, C, 1]
-        ob_hi = obits[..., None] - ob_lo
+        ob_lo = torch.clamp(obits, max=16)
+        ob_hi = obits - ob_lo
         lo_mask = (1 << ob_lo) - 1
         hi_mask = (1 << ob_hi) - 1
     else:
-        ob_mask = (U32_MASK >> (32 - obits))[..., None]   # obits >= 1
-
-    # subframe header byte (pad + 6-bit type code + wasted flag) and the
-    # wasted-bits unary code (w-1 zeros then a 1 == value 1 in w bits)
-    subhdr_len = torch.full((F, C, 1), 8, dtype=i64, device=dev)
-    subhdr_pay = ((analysis["type_code"].to(i64) << 1)
-                  | (wasted_b > 0).to(i64))[..., None]
-    unary_len = wasted_b[..., None]
-    unary_pay = (wasted_b > 0).to(i64)[..., None]
+        ob_mask = _low_mask(obits)                        # obits <= 32
 
     # warm-up region: 32 slots, slot j active for j < order on the
     # predicted paths; slot 0 doubles as the CONSTANT value
     j32 = torch.arange(32, device=dev)
-    warm_active = (pred[..., None] & (j32 < order[..., None])) \
-        | (is_const[..., None] & (j32 == 0))
+    warm_on = (pred & (j32 < order)) \
+        | ((sf == SF_CONSTANT)[..., None] & (j32 == 0))
     w32 = torch.nn.functional.pad(res[..., :32], (0, max(0, 32 - n)))
     if wide:
-        warm_len = _pairs(torch.where(warm_active, ob_hi, 0),
-                          torch.where(warm_active, ob_lo, 0))
+        warm_len = _pairs(torch.where(warm_on, ob_hi, 0),
+                          torch.where(warm_on, ob_lo, 0))
         warm_pay = _pairs(
-            torch.where(warm_active, (w32 >> ob_lo) & hi_mask, 0),
-            torch.where(warm_active, w32 & lo_mask, 0))
+            torch.where(warm_on, (w32 >> ob_lo) & hi_mask, 0),
+            torch.where(warm_on, w32 & lo_mask, 0))
     else:
-        warm_len = torch.where(warm_active, obits[..., None], 0)
-        warm_pay = torch.where(warm_active, w32 & ob_mask, 0)
+        warm_len = torch.where(warm_on, obits, 0)
+        warm_pay = torch.where(warm_on, w32 & ob_mask, 0)
 
-    # LPC header (4-bit precision-1 + 5-bit shift) and coefficients
-    lpch_len = torch.where(is_lpc, 9, 0)[..., None].to(i64)
-    lpch_pay = torch.where(
-        is_lpc, ((cfg.precision - 1) << 5)
-        | (analysis["shift"].to(i64) & 31), 0)[..., None]
-    coef_on = is_lpc[..., None] & (j32 < order[..., None])
-    coef_len = torch.where(coef_on, cfg.precision, 0)
-    coef_pay = torch.where(coef_on, analysis["coefs"].to(i64)
-                           & ((1 << cfg.precision) - 1), 0)
+    # subframe header byte (pad + 6-bit type code + wasted flag), the
+    # wasted-bits unary code (w-1 zeros then a 1 == value 1 in w bits), the
+    # LPC header (4-bit precision-1 + 5-bit shift), the coefficients and
+    # the Rice method (2 bits) + partition order (4 bits)
+    has_wasted = (wasted_b > 0).to(i32)
+    coef_on = is_lpc & (j32 < order)
+    fixed_len = torch.cat([
+        torch.full_like(order, 8), wasted_b, warm_len,
+        torch.where(is_lpc, 9, zero),
+        torch.where(coef_on, cfg.precision, zero),
+        torch.where(pred, 6, zero)], dim=-1)
+    fixed_pay = torch.cat([
+        (analysis["type_code"][..., None] << 1) | has_wasted, has_wasted,
+        warm_pay,
+        torch.where(is_lpc, ((cfg.precision - 1) << 5)
+                    | (analysis["shift"][..., None] & 31), zero),
+        torch.where(coef_on, analysis["coefs"]
+                    & ((1 << cfg.precision) - 1), zero),
+        torch.where(pred, (method << 4) | porder, zero)], dim=-1)
+    n_fixed = fixed_len.shape[-1]                   # 68, or 100 if wide
+    spg = 2 * gs if wide else gs
+    L = n_fixed + G * (1 + spg)                     # a channel's slots
+    M = HDR_SLOTS + C * L + 2
 
-    # Rice method (2 bits) + partition order (4 bits)
-    riceh_len = torch.where(pred, 6, 0)[..., None].to(i64)
-    riceh_pay = torch.where(pred, (method << 4) | porder, 0)[..., None]
+    lengths = torch.empty((F, M), dtype=i32, device=dev)
+    leading = torch.zeros((F, M), dtype=i32, device=dev)
+    payload = torch.empty((F, M), dtype=i32, device=dev)
+
+    def channels(t):
+        return t[:, HDR_SLOTS:HDR_SLOTS + C * L].view(F, C, L)
+
+    def body(t):
+        """[F, C, G, 1 + spg]: group g's parameter, then its samples."""
+        return channels(t)[..., n_fixed:].view(F, C, G, 1 + spg)
+
+    # header region; byte 3 (channel assignment + bps code) is known here
+    hdr_on = torch.arange(HDR_SLOTS, device=dev) < hdr_nbytes.to(dev)[:, None]
+    torch.mul(hdr_on, 8, out=lengths[:, :HDR_SLOTS])
+    payload[:, :HDR_SLOTS] = hdr_bytes.to(dev)
+    ch_mode = analysis["ch_mode"]
+    payload[:, 3] = (torch.where(ch_mode > 0, ch_mode, C - 1) << 4) \
+        | (P.bps_code(cfg.bps) << 1)
+    channels(lengths)[..., :n_fixed] = fixed_len
+    channels(payload)[..., :n_fixed] = fixed_pay
+    del fixed_len, fixed_pay, warm_len, warm_pay
 
     # partition parameters on the pmax_static grid: group g starts a
     # partition when it is a multiple of 2^(pmax_static - porder)
-    po_shift = (pmax_static - porder)[..., None]           # [F, C, 1]
-    g_idx = torch.arange(G, device=dev)
-    g_active = pred[..., None] & ((g_idx & ((1 << po_shift) - 1)) == 0)
-    rice_k = analysis["rice_params"][..., :G].to(i64)
-    k_of_g = torch.gather(rice_k, -1,
-                          (g_idx >> po_shift).expand(F, C, G).contiguous())
-    param_len = torch.where(g_active, 4 + method[..., None], 0)
-    param_pay = torch.where(g_active, k_of_g, 0)
+    po_shift = pmax_static - porder                       # [F, C, 1]
+    g_idx = torch.arange(G, device=dev, dtype=i32)
+    g_active = pred & ((g_idx & ((1 << po_shift) - 1)) == 0)
+    k = torch.gather(analysis["rice_params"][..., :G], -1,
+                     (g_idx >> po_shift).long())          # [F, C, G]
+    torch.where(g_active, 4 + method, zero, out=body(lengths)[..., 0])
+    torch.where(g_active, k, zero, out=body(payload)[..., 0])
 
-    # per-sample Rice codes: the q leading zeros cost length only
-    k_j = k_of_g.repeat_interleave(gs, dim=-1)             # [F, C, n]
-    zig = zigzag_u32(res)
-    q = torch.clamp(zig >> k_j, max=1 << 24)  # tames masked-out lanes
-    rice_active = pred[..., None] \
-        & (torch.arange(n, device=dev) >= order[..., None])
-    rice_len = q + 1 + k_j
-    rice_pay = (1 << k_j) | (zig & ((1 << k_j) - 1))
+    # per-sample Rice codes, by parameter group [F, C, G, gs]: the q
+    # leading zeros cost length only
+    r = res.reshape(F, C, G, gs)
+    k = k[..., None]                                      # [F, C, G, 1]
+    e = (k == 0).to(i32)
+    sign = r >> 31
+    q = torch.bitwise_xor(r, sign)                        # z >> 1
+    q.bitwise_right_shift_(torch.clamp(k - 1, min=0))     # z >> k, k >= 1
+    q.clamp_(max=(1 << 24) >> e).bitwise_left_shift_(e)
+    q.bitwise_or_(sign & e).clamp_(max=1 << 24)  # tames masked-out lanes
+    pay = (r << 1).bitwise_xor_(sign)                     # z's int32 image
+    del sign
+    pay.bitwise_and_((1 << k) - 1).bitwise_or_(1 << k)
+    active = torch.arange(n, device=dev, dtype=i32).view(G, gs) \
+        >= torch.where(pred, order, n)[..., None]
     if wide:
         # a Rice code rides whole in the hi slot; a verbatim sample splits
-        samp_len = _pairs(
-            torch.where(rice_active, rice_len,
-                        torch.where(is_verb, ob_hi, 0)),
-            torch.where(is_verb, ob_lo, 0).expand(F, C, n))
-        samp_lead = _pairs(torch.where(rice_active, q, 0),
-                           torch.zeros_like(q))
-        samp_pay = _pairs(
-            torch.where(rice_active, rice_pay,
-                        torch.where(is_verb, (res >> ob_lo) & hi_mask, 0)),
-            torch.where(is_verb, res & lo_mask, 0))
-        spg = 2 * gs
+        def samples(t, part):
+            return body(t)[..., 1:].view(F, C, G, gs, 2)[..., part]
+        verb_b = is_verb[..., None]
+        torch.where(active, q, zero, out=samples(leading, 0))
+        torch.where(active, q.add_(k + 1),
+                    torch.where(verb_b, ob_hi[..., None], zero),
+                    out=samples(lengths, 0))
+        del q
+        torch.where(active, pay,
+                    (r >> ob_lo[..., None])
+                    & torch.where(verb_b, hi_mask[..., None], zero),
+                    out=samples(payload, 0))
+        samples(lengths, 1).copy_(
+            torch.where(verb_b, ob_lo[..., None], zero).expand(F, C, G, gs))
+        torch.bitwise_and(r, torch.where(verb_b, lo_mask[..., None], zero),
+                          out=samples(payload, 1))
     else:
-        samp_len = torch.where(rice_active, rice_len,
-                               torch.where(is_verb, obits[..., None], 0))
-        samp_lead = torch.where(rice_active, q, 0)
-        samp_pay = torch.where(rice_active, rice_pay,
-                               torch.where(is_verb, res & ob_mask, 0))
-        spg = gs
-
-    def interleave(par, samp):
-        """[param_g][sample slots of group g] for each group g."""
-        return torch.cat([par.reshape(F, C, G, 1),
-                          samp.reshape(F, C, G, spg)], dim=-1) \
-            .reshape(F, C, G * (1 + spg))
-
-    body_len = interleave(param_len, samp_len)
-    body_lead = interleave(torch.zeros_like(param_len), samp_lead)
-    body_pay = interleave(param_pay, samp_pay)
-
-    fixed_len = [subhdr_len, unary_len, warm_len, lpch_len, coef_len,
-                 riceh_len]
-    n_fixed = sum(t.shape[-1] for t in fixed_len)   # 68, or 100 if wide
-    ch_len = torch.cat([*fixed_len, body_len], dim=-1)
-    ch_lead = torch.cat([torch.zeros((F, C, n_fixed), dtype=i64,
-                                     device=dev), body_lead], dim=-1)
-    ch_pay = torch.cat([subhdr_pay, unary_pay, warm_pay, lpch_pay,
-                        coef_pay, riceh_pay, body_pay], dim=-1)
-
-    # header region; byte 3 (channel assignment + bps code) is known here
-    hdr_len = torch.where(
-        torch.arange(HDR_SLOTS, device=dev)[None, :]
-        < hdr_nbytes.to(dev)[:, None], 8, 0).to(i64)
-    hdr_pay = hdr_bytes.to(dev, i64).clone()
-    ch_mode = analysis["ch_mode"].to(i64)
-    ch_field = torch.where(ch_mode > 0, ch_mode, C - 1)
-    hdr_pay[:, 3] = (ch_field << 4) | (P.bps_code(cfg.bps) << 1)
-
-    lengths = torch.cat([hdr_len, ch_len.reshape(F, -1)], dim=-1)
-    leading = torch.cat([torch.zeros_like(hdr_len),
-                         ch_lead.reshape(F, -1)], dim=-1)
-    payload = torch.cat([hdr_pay, ch_pay.reshape(F, -1)], dim=-1)
+        verb_b = is_verb[..., None]
+        torch.where(active, q, zero, out=body(leading)[..., 1:])
+        torch.where(active, q.add_(k + 1),
+                    torch.where(verb_b, obits[..., None], zero),
+                    out=body(lengths)[..., 1:])
+        del q
+        torch.where(active, pay,
+                    r & torch.where(verb_b, ob_mask[..., None], zero),
+                    out=body(payload)[..., 1:])
+    del pay, active
 
     # byte-alignment pad + CRC-16 placeholder
-    pad_bits = (-lengths.sum(dim=-1)) & 7
-    tail = torch.stack([pad_bits, torch.full_like(pad_bits, 16)], dim=-1)
-    lengths = torch.cat([lengths, tail], dim=-1)
-    leading = torch.cat([leading, torch.zeros_like(tail)], dim=-1)
-    payload = torch.cat([payload, torch.zeros_like(tail)], dim=-1)
-    return (lengths.to(torch.int32), leading.to(torch.int32),
-            wrap_int32(payload))
+    lengths[:, -2] = (-lengths[:, :-2].sum(dim=-1)) & 7
+    lengths[:, -1] = 16
+    payload[:, -2:] = 0
+    return lengths, leading, payload
 
 
 def pack_frames_device(analysis: dict, hdr_bytes: torch.Tensor,

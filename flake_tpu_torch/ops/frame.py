@@ -29,9 +29,8 @@ from flake_tpu_torch import params as P
 from flake_tpu_torch.ops import lpc as lpc_ops
 from flake_tpu_torch.ops import predict, stereo, wasted
 from flake_tpu_torch.ops.autocorr import autocorr
-from flake_tpu_torch.ops.common import U32_MASK, wrap_int32
-from flake_tpu_torch.ops.rice import (calc_rice_params_dynamic,
-                                      limit_max_partition_order,
+from flake_tpu_torch.ops.common import U32_MASK
+from flake_tpu_torch.ops.rice import (final_pass, limit_max_partition_order,
                                       subframe_bits, subframe_bits_from_sums)
 from flake_tpu_torch.ops.sweep import (sweep_granules, sweep_sums,
                                        uses_granule_kernel)
@@ -284,20 +283,20 @@ def candidate_bits(cfg: FrameConfig, cN: torch.Tensor, qcoefs, shifts,
 
 def final_residual(cfg: FrameConfig, cN: torch.Tensor, qcoefs, shifts,
                    order: torch.Tensor):
-    """The selected order's coefficients and shift, its exact residual
-    (int64, and wrapped to int32) and its Rice parameters: (coefs, shift,
-    res64, res, rc)."""
+    """The selected order's coefficients and shift, and the final pass on
+    them (R2, :func:`~flake_tpu_torch.ops.rice.final_pass`): (coefs, shift,
+    rc), ``rc`` holding the Rice parameters and exact bits, the residual
+    wrapped to int32 (``residual``) and whether every exact residual fits
+    int32 (``fits``)."""
     n = cN.shape[1]
     max_o = cfg.max_prediction_order
     sel = (order.to(torch.int64) - 1).clamp(0, max_o - 1)
     coefs = torch.gather(qcoefs, 1,
                          sel[:, None, None].expand(-1, 1, max_o))[:, 0]
     shift = torch.gather(shifts, 1, sel[:, None])[:, 0]
-    res64 = predict.residual_lpc_dynamic64(cN, coefs, shift, order, max_o)
-    res = wrap_int32(res64)
-    rc = calc_rice_params_dynamic(res, n, order, cfg.min_partition_order,
-                                  cfg.max_partition_order)
-    return coefs, shift, res64, res, rc
+    rc = final_pass(cN, coefs, shift, order, n, cfg.min_partition_order,
+                    cfg.max_partition_order)
+    return coefs, shift, rc
 
 
 def _lpc_search(cfg: FrameConfig, chans, obits):
@@ -326,13 +325,13 @@ def _lpc_search(cfg: FrameConfig, chans, obits):
         bits_all = candidate_bits(cfg, cN, qcoefs, shifts, obitsN)
     order = select_order(cfg, bits_all, refs, (N,), dev)
 
-    coefs, shift, res64, res, rc = final_residual(cfg, cN, qcoefs, shifts,
-                                                  order)
+    coefs, shift, rc = final_residual(cfg, cN, qcoefs, shifts, order)
+    res, fits = rc.pop("residual"), rc.pop("fits")
     coefs = torch.nn.functional.pad(coefs, (0, P.MAX_LPC_ORDER - max_o))
     return (order.reshape(F, C), coefs.reshape(F, C, P.MAX_LPC_ORDER),
             shift.reshape(F, C), res.reshape(F, C, n),
             {k: v.reshape((F, C) + v.shape[1:]) for k, v in rc.items()},
-            (~predict.fits_int32(res64) & (shift > 0)).reshape(F, C))
+            (~fits & (shift > 0)).reshape(F, C))
 
 
 def analyze_frames(samples: torch.Tensor, cfg: FrameConfig,
@@ -409,15 +408,15 @@ def analyze_frames(samples: torch.Tensor, cfg: FrameConfig,
                 take = bits < best_bits
                 best_bits = torch.where(take, bits, best_bits)
                 best_order = torch.where(take, o, best_order)
+        # the final pass (R2) with the chosen predictor's coefficients
         order = best_order
-        res = predict.residual_fixed(chans, min_o)
-        for o in range(min_o + 1, max_o + 1):
-            res = torch.where((order == o)[..., None],
-                              predict.residual_fixed(chans, o), res)
-        rc = calc_rice_params_dynamic(res, n, order, pmin, pmax)
-        unfit = None           # an unshifted prediction decodes mod 2^32
-        sf_type = torch.full((F, C), SF_FIXED, dtype=i32, device=dev)
         shift = torch.zeros_like(order)
+        rc = final_pass(chans, predict.fixed_coefs(order, max_o), shift,
+                        order, n, pmin, pmax)
+        res = rc.pop("residual")
+        del rc["fits"]         # an unshifted prediction decodes mod 2^32
+        unfit = None
+        sf_type = torch.full((F, C), SF_FIXED, dtype=i32, device=dev)
         coefs = zeros32
     else:
         order, coefs, shift, res, rc, unfit = _lpc_search(cfg, chans, obits)

@@ -47,6 +47,16 @@ def residual_fixed(smp: torch.Tensor, order: int) -> torch.Tensor:
                      dim=-1)
 
 
+def fixed_coefs(order: torch.Tensor, max_order: int) -> torch.Tensor:
+    """Each element's fixed predictor as LPC coefficients: FIXED_COEFS of
+    its ``order`` (int32 [...], 0..max_order <= 4), zero-padded, int32
+    [..., max_order]; with shift 0 the LPC residual is the fixed one."""
+    table = torch.tensor([list(FIXED_COEFS[o]) + [0] * (max_order - o)
+                          for o in range(max_order + 1)],
+                         dtype=torch.int32).reshape(max_order + 1, max_order)
+    return table.to(order.device)[order.long()]
+
+
 def fits_int32(res64: torch.Tensor) -> torch.Tensor:
     """Whether every exact residual of a subframe fits int32, so that its
     wrapped form decodes to the samples. bool [...]."""

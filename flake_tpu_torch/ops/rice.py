@@ -12,12 +12,15 @@ shift is arithmetic or logical, so the int64 forms are exact.
 Two CUDA kernels written for Hopper (``flake_tpu_torch/csrc/rice.cu``)
 run the per-element search on the card: R1, :func:`rice_scan`, the
 partition-order and k scan from partition sums (the sweep's, and the sp
-final search's), and R2, :func:`rice_final`, the final pass from a
-residual. Neither holds a k grid in device memory. :func:`rice_scan_plain`
-and :func:`rice_final_plain` are their plain versions, which a CPU
-tensor takes. The static search of the FIXED order loop
-(:func:`calc_rice_params`) and the stereo mode's :func:`find_optimal_k`
-stay tensor code.
+final search's), and R2, :func:`final_pass`, the final pass from the
+samples and the selected predictor: the residual, its fit check and the
+search with the exact bits in one launch. Neither holds a k grid in
+device memory. :func:`rice_scan_plain` and :func:`final_pass_plain` are
+their plain versions, which a CPU tensor takes; the second composes
+:func:`~flake_tpu_torch.ops.predict.residual_lpc_dynamic64` and
+:func:`rice_final_plain`, the search from a residual. The static search
+of the FIXED order loop (:func:`calc_rice_params`) and the stereo mode's
+:func:`find_optimal_k` stay tensor code.
 
 Shapes: ``res`` is [..., B] with arbitrary leading batch dims.
 """
@@ -28,7 +31,8 @@ import torch
 
 from flake_tpu_torch import _cuda
 from flake_tpu_torch import params as P
-from flake_tpu_torch.ops.common import U32_MASK, u32
+from flake_tpu_torch.ops import predict
+from flake_tpu_torch.ops.common import U32_MASK, u32, wrap_int32
 
 MAX_K = P.MAX_RICE_PARAM  # 30
 
@@ -299,8 +303,11 @@ def subframe_bits_from_sums(sums: torch.Tensor, n: int, order, obits,
 
 def rice_final_plain(res: torch.Tensor, order: torch.Tensor, n: int,
                      pmin: int, pmax: int) -> dict:
-    """R2's plain version: the body of ``calc_rice_params_dynamic``
-    (``flake_tpu/ops/rice.py:314-376``)."""
+    """The partition search and exact Rice bits of a residual ``res``
+    int32 [..., n] under its ``order`` int32 [...]: the body of
+    ``calc_rice_params_dynamic`` (``flake_tpu/ops/rice.py:314-376``), the
+    plain version of R2's first design and the search in
+    :func:`final_pass_plain`."""
     pmax_static = limit_max_partition_order(pmax, n, 1)
     parts_max = 1 << pmax_static
     psize = n >> pmax_static
@@ -329,50 +336,72 @@ def rice_final_plain(res: torch.Tensor, order: torch.Tensor, n: int,
     }
 
 
-def rice_final(res: torch.Tensor, order: torch.Tensor, n: int, pmin: int,
-               pmax: int) -> dict:
-    """The final pass (R2): the partition search of each stream's residual
-    ``res`` int32 [..., n] with its selected ``order`` int32 [...], and
-    the exact Rice bits of the result. Returns :func:`rice_final_plain`'s
-    dict. A CPU tensor takes the plain version; a CUDA tensor launches
-    the kernel (``csrc/rice.cu``)."""
-    if res.device.type == "cpu":
-        return rice_final_plain(res, order, n, pmin, pmax)
-    if res.device.type != "cuda":
-        raise ValueError(f"rice_final: no kernel for {res.device}")
-    batch = res.shape[:-1]
+# threads a block of R2 (csrc/rice.cu also takes 128 and 512)
+FINAL_THREADS = 256
+
+
+def final_pass_plain(smp: torch.Tensor, coefs: torch.Tensor,
+                     shift: torch.Tensor, order: torch.Tensor, n: int,
+                     pmin: int, pmax: int) -> dict:
+    """R2's plain version: the exact residual
+    (:func:`~flake_tpu_torch.ops.predict.residual_lpc_dynamic64`), wrapped to
+    int32, its fit check (:func:`~flake_tpu_torch.ops.predict.fits_int32`)
+    and :func:`rice_final_plain` on the wrapped residual."""
+    res64 = predict.residual_lpc_dynamic64(smp, coefs, shift, order,
+                                           coefs.shape[-1])
+    res = wrap_int32(res64)
+    return {**rice_final_plain(res, order, n, pmin, pmax), "residual": res,
+            "fits": predict.fits_int32(res64)}
+
+
+def final_pass(smp: torch.Tensor, coefs: torch.Tensor, shift: torch.Tensor,
+               order: torch.Tensor, n: int, pmin: int, pmax: int) -> dict:
+    """The final pass (R2): each stream's residual under its selected
+    predictor and the partition search and exact Rice bits of it.
+    ``smp`` int32 [..., n], ``coefs`` int32 [..., taps] (taps <= 32; those
+    at j >= order add nothing), ``shift`` and ``order`` int32 [...]; the
+    FIXED predictors pass their binomial coefficients with shift 0.
+    Returns :func:`rice_final_plain`'s dict with ``residual`` (int32 [...,
+    n], wrapped, warm-up samples passed through) and ``fits`` (bool [...]:
+    every exact residual fits int32). A CPU tensor takes the plain version;
+    a CUDA tensor launches the kernel (``csrc/rice.cu``)."""
+    if smp.device.type == "cpu":
+        return final_pass_plain(smp, coefs, shift, order, n, pmin, pmax)
+    if smp.device.type != "cuda":
+        raise ValueError(f"final_pass: no kernel for {smp.device}")
+    batch = smp.shape[:-1]
     N = batch.numel()
+    taps = coefs.shape[-1]
+    if taps > P.MAX_LPC_ORDER:
+        raise ValueError(f"final_pass: {taps} taps, the kernel takes "
+                         f"{P.MAX_LPC_ORDER}")
     parts = 1 << limit_max_partition_order(pmax, n, 1)
-    res = res.reshape(N, n).contiguous()
+    dev = smp.device
+    smp = smp.reshape(N, n).contiguous()
+    coefs = coefs.reshape(N, taps).contiguous()
+    shift = shift.reshape(N).contiguous()
     order = order.reshape(N).contiguous()
-    _cuda.check(res, "res", torch.int32, (N, n), res.device)
-    _cuda.check(order, "order", torch.int32, (N,), res.device)
-    out = {"bits": torch.empty(N, dtype=torch.int64, device=res.device),
-           "porder": torch.empty(N, dtype=torch.int32, device=res.device),
-           "method": torch.empty(N, dtype=torch.int32, device=res.device),
-           "params": torch.empty((N, parts), dtype=torch.int32,
-                                 device=res.device),
-           "exact_rice_bits": torch.empty(N, dtype=torch.int64,
-                                          device=res.device)}
+    _cuda.check(smp, "smp", torch.int32, (N, n), dev)
+    _cuda.check(coefs, "coefs", torch.int32, (N, taps), dev)
+    _cuda.check(shift, "shift", torch.int32, (N,), dev)
+    _cuda.check(order, "order", torch.int32, (N,), dev)
+    out = {"bits": torch.empty(N, dtype=torch.int64, device=dev),
+           "porder": torch.empty(N, dtype=torch.int32, device=dev),
+           "method": torch.empty(N, dtype=torch.int32, device=dev),
+           "params": torch.empty((N, parts), dtype=torch.int32, device=dev),
+           "exact_rice_bits": torch.empty(N, dtype=torch.int64, device=dev),
+           "residual": torch.empty((N, n), dtype=torch.int32, device=dev),
+           "fits": torch.empty(N, dtype=torch.bool, device=dev)}
     if N:
-        _cuda.launch("flake_rice_final", res.device, res, order,
-                     *out.values(), N, *_search_args(n, pmin, pmax))
-        rice_final.launches += 1
+        _cuda.launch("flake_final_pass", dev, smp, coefs, shift, order,
+                     out["residual"], out["fits"], out["bits"], out["porder"],
+                     out["method"], out["params"], out["exact_rice_bits"], N,
+                     taps, *_search_args(n, pmin, pmax), FINAL_THREADS)
+        final_pass.launches += 1
     return {k: v.reshape(batch + v.shape[1:]) for k, v in out.items()}
 
 
-rice_final.launches = 0
-
-
-def calc_rice_params_dynamic(res: torch.Tensor, n: int,
-                             order: torch.Tensor, pmin: int,
-                             pmax: int) -> dict:
-    """Partition search with a per-element predictor order (int32 [...]):
-    the final pass after order selection, R2 (:func:`rice_final`). Also
-    returns the exact emitted Rice bits (sum of (v>>k)+1+k per sample plus
-    parameter fields), which the selection cost model only approximates
-    (rice.h:48)."""
-    return rice_final(res, order, n, pmin, pmax)
+final_pass.launches = 0
 
 
 def subframe_bits(res: torch.Tensor, n: int, order: int, obits,

@@ -137,7 +137,7 @@ def main(argv=None) -> int:
                    "sweep_granules": sweep.sweep_granules,
                    "merge_words": bitmerge.merge_words,
                    "rice_scan": rice.rice_scan,
-                   "rice_final": rice.rice_final}
+                   "final_pass": rice.final_pass}
         for fn in kernels.values():
             fn.launches = 0
         t0 = time.perf_counter()

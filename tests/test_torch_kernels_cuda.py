@@ -21,9 +21,13 @@ its order buckets, K1 at the edges of its lag buckets on blocks of 3 and
 Rice k scan and the stereo mode on equal counts; R1 (the Rice scan from
 partition sums) at the level-8 and level-12 shapes, on finer sums, with
 warm-ups past a partition, on a 777-sample tail and on rows whose k and
-partition-order scans tie, and R2 (the final Rice pass) at the level-8 and
-level-12 shapes, n 4608, 1152, 777, 20, 3 and 64, on residuals of -2..2
-and at the int32 limits, each on every output bit for bit; K5 and the four U1
+partition-order scans tie, and R2 (the final pass from the samples) at
+the level-8 and level-12 shapes, n 4608, 1152, 777, 20, 3, 64, 16384
+and 65535 (rows past R2's shared-memory row), on
+samples of -2..2, 32-bit samples at the int32 limits under shifted
+order-32 predictions (whose fit flag is false) and the fixed predictors,
+each on every output bit for bit, and one R2 launch as the whole final
+pass of an LPC and a FIXED batch; K5 and the four U1
 variants on encoder slots, on random slot tables whose chunks span three
 word rows, and on a word block above
 48 KiB of shared memory; the merge prototypes ``merge_v2`` and ``merge_v3``
@@ -915,38 +919,88 @@ def test_rice_scan_kernel(dev, case, n, pmax, orders, streams, sub):
         assert g.dtype == w.dtype and torch.equal(g, w), case
 
 
-def _residual_rows(rng, N, n):
-    """Laplacian residuals of per-row scale 2^0 to 2^20, rows of -2..2
-    (ties) and rows at the int32 limits (zigzag wraps at |r| >= 2^30)."""
-    scale = 2.0 ** rng.uniform(0, 20, (N, 1))
-    res = np.clip(rng.laplace(0, scale, (N, n)), -2**31, 2**31 - 1)
-    res[::4] = rng.integers(-2, 3, (len(res[::4]), n))
-    res[1::8] = rng.choice([-2**31, -2**30 - 1, -2**30, 2**30 - 1, 2**30,
-                            2**31 - 1], (len(res[1::8]), n))
-    return torch.from_numpy(res.astype(np.int32))
+def _pass_rows(rng, N, n, max_order):
+    """Samples, coefficients, shifts and orders of R2: tones with noise at
+    16 bits under quantizer-sized coefficients and shifts; rows of -2..2
+    (ties); 32-bit rows at the int32 limits under order-32 coefficients
+    near +-2^14 and shift 15 (exact residuals past int32, fits false); and
+    the fixed predictors (shift 0) on a quarter of the rows."""
+    from flake_tpu_torch.ops import predict
+
+    t = np.arange(n)
+    smp = 12000 * np.sin(2 * np.pi * rng.uniform(50, 4000, (N, 1)) * t
+                         / 44100) + rng.normal(0, 300, (N, n))
+    smp[::4] = rng.integers(-2, 3, (len(smp[::4]), n))
+    smp[1::8] = rng.choice([-2**31, -2**30 - 1, -2**30, 2**30 - 1, 2**30,
+                            2**31 - 1], (len(smp[1::8]), n))
+    smp = np.clip(np.rint(smp), -2**31, 2**31 - 1).astype(np.int32)
+    order = rng.integers(0, max_order + 1, N).astype(np.int32)
+    coefs = (rng.integers(-2**14, 2**14, (N, max_order))
+             >> rng.integers(0, 8, (N, 1))).astype(np.int32)
+    shift = rng.integers(0, 16, N).astype(np.int32)
+    coefs[1::8], shift[1::8] = rng.integers(-2**14, 2**14,
+                                            (len(coefs[1::8]), max_order)), 15
+    fixed = np.arange(N) % 4 == 3
+    fo = np.minimum(order[fixed], min(4, max_order))
+    order[fixed] = fo
+    coefs[fixed] = 0
+    coefs[fixed, :min(4, max_order)] = predict.fixed_coefs(
+        torch.from_numpy(fo), min(4, max_order)).numpy()
+    shift[fixed] = 0
+    return map(torch.from_numpy, (smp, coefs, shift, order))
 
 
 @pytest.mark.parametrize("n,pmin,pmax,max_order,N", [
     (4096, 0, 6, 12, 1024), (8192, 0, 8, 32, 1024), (4608, 0, 8, 4, 64),
     (1152, 2, 8, 4, 64), (777, 0, 8, 32, 64), (20, 0, 8, 4, 64),
-    (3, 0, 8, 2, 16), (64, 0, 3, 4, 2048)])
+    (3, 0, 8, 2, 16), (64, 0, 3, 4, 2048), (16384, 0, 8, 32, 64),
+    (65535, 0, 8, 12, 8)])
 def test_rice_final_kernel(dev, n, pmin, pmax, max_order, N):
-    """R2 against its plain version, bit for bit, on every output, with
-    [F, C] leading dims as the FIXED path passes them."""
+    """R2 (the final pass from the samples) against its plain version, bit
+    for bit, on every output, with [F, C] leading dims as the FIXED path
+    passes them; rows above 8,192 samples read their residual back from
+    device memory."""
     from flake_tpu_torch.ops import rice
 
     rng = np.random.default_rng(n + N)
-    res = _residual_rows(rng, N, n).reshape(N // 2, 2, n).to(dev)
-    order = torch.from_numpy(rng.integers(0, max_order + 1, (N // 2, 2))
-                             .astype(np.int32)).to(dev)
-    before = rice.rice_final.launches
-    got = rice.rice_final(res, order, n, pmin, pmax)
+    smp, coefs, shift, order = (t.reshape((N // 2, 2) + t.shape[1:]).to(dev)
+                                for t in _pass_rows(rng, N, n, max_order))
+    before = rice.final_pass.launches
+    got = rice.final_pass(smp, coefs, shift, order, n, pmin, pmax)
     torch.cuda.synchronize()
-    assert rice.rice_final.launches == before + 1
-    want = rice.rice_final_plain(res, order, n, pmin, pmax)
+    assert rice.final_pass.launches == before + 1
+    want = rice.final_pass_plain(smp, coefs, shift, order, n, pmin, pmax)
     assert set(got) == set(want)
     for key, w in want.items():
         assert got[key].dtype == w.dtype and torch.equal(got[key], w), key
+    if max_order == 32 and n >= 777:
+        assert not got["fits"].all()
+
+
+@pytest.mark.parametrize("level", [8, 2])
+def test_final_pass_is_one_launch(dev, level, monkeypatch):
+    """On the card, the LPC (level 8) and FIXED (level 2) final passes are
+    R2 alone: one launch a batch, and no lag loop, wrap or fit check of
+    the plain version runs."""
+    from flake_tpu_torch.ops import predict, rice
+
+    def refuse(name):
+        def run(*args, **kwargs):
+            raise AssertionError(f"{name} ran on the card")
+        return run
+
+    for mod, name in ((predict, "residual_lpc_dynamic64"),
+                      (predict, "fits_int32"), (rice, "wrap_int32"),
+                      (rice, "final_pass_plain"), (rice, "rice_final_plain")):
+        monkeypatch.setattr(mod, name, refuse(name))
+    B = P.set_defaults(level).block_size
+    x = torch.stack([_tonal(4, B, 16, level)] * 2, -1).to(dev)
+    cfg = frame.FrameConfig.from_params(P.set_defaults(level), 2, 16)
+    before = rice.final_pass.launches
+    frame.analyze_frames(x, cfg, torch.full((4,), 48, dtype=torch.int32,
+                                            device=dev))
+    torch.cuda.synchronize()
+    assert rice.final_pass.launches == before + 1
 
 
 def test_rice_kernels_refuse_other_types(dev):
@@ -956,10 +1010,13 @@ def test_rice_kernels_refuse_other_types(dev):
         rice.rice_scan(torch.zeros((4, 64), dtype=torch.int32, device=dev),
                        torch.ones(4, dtype=torch.int32, device=dev), 4096, 0,
                        6)
+    smp = torch.zeros((4, 64), dtype=torch.int32, device=dev)
     with pytest.raises(ValueError, match="order"):
-        rice.rice_final(torch.zeros((4, 64), dtype=torch.int32, device=dev),
+        rice.final_pass(smp, smp[:, :4], smp[:, 0],
                         torch.ones(4, dtype=torch.int64, device=dev), 64, 0,
                         3)
+    with pytest.raises(ValueError, match="taps"):
+        rice.final_pass(smp, smp[:, :33], smp[:, 0], smp[:, 0], 64, 0, 3)
 
 
 def test_encoder_cuda_matches_cpu(dev):

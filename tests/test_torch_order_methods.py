@@ -10,7 +10,8 @@ must equal ``analyze_frames_jit`` key by key at levels 5 and 7; and
 ``Encoder(device="cpu")`` bytes must equal ``flake_tpu.Encoder``'s at
 levels 0 to 7, mono included, with tails that take the LPC
 path below 32 samples, FIXED and VERBATIM, decoded with MD5 by both
-decoders.
+decoders, and under order method MAX (``-m 0``, levels 5 and 8) and no
+prediction (``-t 0``).
 """
 
 import numpy as np
@@ -160,6 +161,32 @@ def test_encode_stream_matches_jax(level, channels, block_size, tail):
         dec = decode(got)
         assert dec.md5_ok
         np.testing.assert_array_equal(dec.samples, pcm)
+
+
+@pytest.mark.parametrize("level,order_method,max_order,prediction", [
+    (5, JP.OrderMethod.MAX, None, None), (8, JP.OrderMethod.MAX, 8, None),
+    (5, None, None, JP.Prediction.NONE)])
+def test_max_order_and_verbatim_match_jax(level, order_method, max_order,
+                                          prediction):
+    """The command line's ``-m 0`` (order method MAX: the final pass at the
+    full order) and ``-t 0`` (no prediction: every subframe verbatim)."""
+    n = 6 * 1024 + 777
+    pcm = make_test_signal(n, 2, 16, seed=level * 10 + 3)
+    pcm[1024:2048] = 0
+    jcfg = _stream_config(level, 2, 1024)
+    if order_method is not None:
+        jcfg.params.order_method = order_method
+    if max_order is not None:
+        jcfg.params.max_prediction_order = max_order
+    if prediction is not None:
+        jcfg.params.prediction_type = prediction
+    want = flake_tpu.Encoder(jcfg, batch_frames=4).encode_stream(pcm)
+    got = flake_tpu_torch.Encoder(TP.from_reference(jcfg), device="cpu",
+                                  batch_frames=4).encode_stream(pcm)
+    assert got == want
+    dec = tdecoder.decode_stream(got)
+    assert dec.md5_ok
+    np.testing.assert_array_equal(dec.samples, pcm)
 
 
 @pytest.mark.parametrize("level", range(13))

@@ -3,10 +3,16 @@
 R1's plain version (:func:`rice_scan_plain`, through :func:`rice_scan` on
 CPU tensors) against ``_fold_pyramid`` + ``_dynamic_porder_scan`` on the
 uint64 pyramid and, through :func:`subframe_bits_from_sums`, against
-``subframe_bits_from_limbs``; R2's (:func:`rice_final_plain`, through
-:func:`calc_rice_params_dynamic`) against ``calc_rice_params_dynamic``.
-The kernels themselves are held against these plain versions on the card
-(``tests/test_torch_kernels_cuda.py``, ``chip_smoke.py``).
+``subframe_bits_from_limbs``; the search from a residual
+(:func:`rice_final_plain`) against ``calc_rice_params_dynamic``; R2's
+(:func:`final_pass_plain`, through :func:`final_pass` on CPU tensors)
+against ``predict.residual_lpc_dynamic`` (or, for the fixed predictors,
+``predict.residual_fixed``) followed by ``calc_rice_params_dynamic``, its
+fit flag against the port's ``fits_int32``; and the closed form of the k
+search that the kernels take where no count wraps, against
+:func:`find_optimal_k_u32`. The kernels themselves are held against these
+plain versions on the card (``tests/test_torch_kernels_cuda.py``,
+``chip_smoke.py``).
 
 Cases: the level-8 shape (n 4096, pmax 6, orders 1-12), the level-12 one
 (n 8192, pmax 8, orders 1-32 and beyond, sums at twice the partitions'
@@ -28,9 +34,11 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from flake_tpu.ops import predict as jpredict
 from flake_tpu.ops import rice as jrice
 
 from flake_tpu_torch import params as P
+from flake_tpu_torch.ops import predict as tpredict
 from flake_tpu_torch.ops import rice as trice
 
 PRECISION = P.LPC_PRECISION
@@ -245,8 +253,8 @@ def test_rice_final_matches_jax(name):
     n, pmin, pmax = CASES[name][:3]
     want = jax.jit(jrice.calc_rice_params_dynamic, static_argnums=(1, 3, 4))(
         jnp.asarray(res), n, jnp.asarray(order), pmin, pmax)
-    got = trice.calc_rice_params_dynamic(torch.from_numpy(res), n,
-                                         torch.from_numpy(order), pmin, pmax)
+    got = trice.rice_final_plain(torch.from_numpy(res),
+                                 torch.from_numpy(order), n, pmin, pmax)
     assert set(got) == set(want)
     for key, w in want.items():
         g = got[key].numpy()
@@ -254,17 +262,149 @@ def test_rice_final_matches_jax(name):
                                       err_msg=key)
 
 
+# R2's cases: name -> (n, pmin, pmax, largest order, taps, bits of the
+# samples, shift or None for the fixed predictors)
+PASS_CASES = {
+    "n4096": (4096, 0, 6, 12, 12, 16, 12),
+    "tail777": (777, 0, 8, 32, 32, 24, 14),
+    "fixed": (1152, 0, 8, 4, 4, 16, None),
+    "unfit": (1024, 0, 6, 32, 32, 32, 15),
+}
+
+
+def _pass_case(name):
+    """(samples int32 [N, n], coefs int32 [N, taps], shift, order int32
+    [N]): tones with noise at the case's bit depth (the "unfit" case at the
+    int32 limits, where order-32 coefficients near +-2^14 and shift 15
+    send some exact residuals past int32), rows of silence and of
+    full-scale noise, orders 0..largest, coefficients a quantizer could
+    give (or the fixed predictors' binomial ones, shift 0)."""
+    n, _, _, top, taps, bps, sh = PASS_CASES[name]
+    rng = np.random.default_rng(list(PASS_CASES).index(name) + 300)
+    orders = np.arange(top + 1, dtype=np.int32)
+    N = 3 * orders.size
+    t = np.arange(n)
+    amp = 2.0 ** (bps - 2)
+    smp = amp * np.sin(2 * np.pi * rng.uniform(50, 4000, (N, 1)) * t / 44100) \
+        + rng.normal(0, amp / 64, (N, n))
+    smp[1::3] = 0
+    smp[2::3] = rng.integers(-2**(bps - 1), 2**(bps - 1), (orders.size, n))
+    smp = np.clip(np.rint(smp), -2**(bps - 1), 2**(bps - 1) - 1) \
+        .astype(np.int32)
+    order = np.repeat(orders, 3)
+    if sh is None:
+        coefs = tpredict.fixed_coefs(torch.from_numpy(order), taps).numpy()
+        shift = np.zeros(N, np.int32)
+    else:
+        coefs = rng.integers(-2**14, 2**14, (N, taps)).astype(np.int32)
+        if name != "unfit":
+            coefs >>= rng.integers(2, 8, (N, 1)).astype(np.int32)
+        shift = np.full(N, sh, np.int32)
+    return smp, coefs, shift, order
+
+
+@functools.lru_cache(None)
+def _jax_pass(name):
+    """JAX's final re-encode of a case: ``residual_lpc_dynamic`` (every
+    order's ``residual_fixed``, picked by row, for the fixed predictors)
+    and ``calc_rice_params_dynamic``, under one jit."""
+    smp, coefs, shift, order = _pass_case(name)
+    n, pmin, pmax, top, taps, _, sh = PASS_CASES[name]
+
+    def final(smp, coefs, shift, order):
+        if sh is None:
+            res = jpredict.residual_fixed(smp, 0)
+            for o in range(1, top + 1):
+                res = jnp.where((order == o)[:, None],
+                                jpredict.residual_fixed(smp, o), res)
+        else:
+            res = jpredict.residual_lpc_dynamic(smp, coefs, shift, order,
+                                                taps)
+        return res, jrice.calc_rice_params_dynamic(res, n, order, pmin,
+                                                   pmax)
+
+    res, rc = jax.jit(final)(*map(jnp.asarray, (smp, coefs, shift, order)))
+    return np.asarray(res), {k: np.asarray(v) for k, v in rc.items()}
+
+
+@pytest.mark.parametrize("name", list(PASS_CASES))
+def test_final_pass_matches_jax(name):
+    """R2's plain version, every output bit for bit; the residual wrapped
+    as the JAX package wraps it, the fit flag the port's own check of the
+    exact residual (both values reached where 32-bit samples meet shifted
+    order-32 predictions)."""
+    smp, coefs, shift, order = _pass_case(name)
+    n, pmin, pmax = PASS_CASES[name][:3]
+    got = trice.final_pass(*map(torch.from_numpy, (smp, coefs, shift,
+                                                   order)), n, pmin, pmax)
+    want_res, want = _jax_pass(name)
+    np.testing.assert_array_equal(got["residual"].numpy(), want_res)
+    assert set(got) == set(want) | {"residual", "fits"}
+    for key, w in want.items():
+        g = got[key].numpy()
+        np.testing.assert_array_equal(g, w.astype(g.dtype), err_msg=key)
+    res64 = tpredict.residual_lpc_dynamic64(
+        *map(torch.from_numpy, (smp, coefs, shift, order)), coefs.shape[1])
+    assert torch.equal(got["fits"], tpredict.fits_int32(res64))
+    if name == "unfit":
+        assert not got["fits"].all() and got["fits"].any()
+
+
 def test_rice_final_keeps_leading_dims():
-    """[F, C, n] residuals (the FIXED path's) give [F, C] outputs, the
-    rows' own (55 rows as 11 frames of 5 channels)."""
-    res, order = _residuals("n1152")
-    flat = trice.rice_final(torch.from_numpy(res), torch.from_numpy(order),
-                            1152, 0, 8)
-    got = trice.rice_final(torch.from_numpy(res).reshape(-1, 5, 1152),
-                           torch.from_numpy(order).reshape(-1, 5), 1152, 0,
-                           8)
+    """[F, C, n] samples (the FIXED path's) give [F, C] outputs, the rows'
+    own (42 rows as 14 frames of 3 channels)."""
+    smp, coefs, shift, order = map(torch.from_numpy, _pass_case("fixed"))
+    flat = trice.final_pass(smp, coefs, shift, order, 1152, 0, 8)
+    got = trice.final_pass(smp.reshape(-1, 3, 1152), coefs.reshape(-1, 3, 4),
+                           shift.reshape(-1, 3), order.reshape(-1, 3), 1152,
+                           0, 8)
     for key, v in flat.items():
+        assert got[key].shape[:2] == (smp.shape[0] // 3, 3), key
         assert torch.equal(got[key].reshape(v.shape), v), key
+
+
+def _closed_form_k(s, cnt):
+    """The kernels' closed form of the k search (``csrc/rice.cu``,
+    ``rice_k``) in numpy: (whether it applies, k). t = s - floor(cnt / 2);
+    it applies where cnt >= 1 and t < 0 or t + 31 cnt < 2^32, and k is 0
+    where t < 0, else the least k with t < (2 cnt + 1) 2^k, at most 30."""
+    t = s.astype(np.int64) - (cnt >> 1)
+    applies = (cnt >= 1) & ((t < 0) | (t + 31 * cnt < 1 << 32))
+    m = 2 * cnt + 1
+    tt = np.maximum(t, 0)
+    # bit lengths, exact below 2^53
+    k0 = np.maximum(np.frexp(tt.astype(np.float64))[1]
+                    - np.frexp(m.astype(np.float64))[1], 0)
+    k = np.minimum(k0 + ((tt >> k0) >= m), 30)
+    return applies, np.where(t < 0, 0, k)
+
+
+def test_closed_form_k_matches_the_scan():
+    """Wherever it applies, the closed form is the 31-step scan's first
+    minimum: on a grid of counts 1..65,535 and sums up to 2^33, and at the
+    edges of its domain (t + 31 cnt = 2^32 - 1 applies, 2^32 does not;
+    t < 0; cnt = 1; counts of 0 and below do not apply)."""
+    rng = np.random.default_rng(16)
+    cnt = np.concatenate([np.repeat(np.arange(1, 40), 2000),
+                          rng.integers(1, 65536, 120000)])
+    scale = 2.0 ** rng.uniform(0, 33, cnt.size)
+    s = (rng.random(cnt.size) * scale * cnt / 8).astype(np.int64)
+    edge_cnt = np.array([1, 1, 1, 7, 7, 4096, 4096, 65535, 1, 64, 0, -3, 2])
+    half = edge_cnt >> 1
+    edge_s = np.array([
+        (1 << 32) - 1 - 31 + half[0], (1 << 32) - 31 + half[1], 0,
+        (1 << 32) - 1 - 31 * 7 + half[3], (1 << 32) - 31 * 7 + half[4],
+        (1 << 32) - 1 - 31 * 4096 + half[5], 1000, 0, 3, 31, 5, 9, 0])
+    s = np.concatenate([s, edge_s])
+    cnt = np.concatenate([cnt, edge_cnt])
+    applies, k = _closed_form_k(s, cnt)
+    assert applies[-13:].tolist() == [True, False, True, True, False, True,
+                                      True, True, True, True, False, False,
+                                      True]
+    assert applies.mean() > 0.5
+    want, _ = trice.find_optimal_k_u32(torch.from_numpy(s),
+                                       torch.from_numpy(cnt))
+    np.testing.assert_array_equal(k[applies], want.numpy()[applies])
 
 
 def test_rice_scan_refuses_what_no_version_takes():
@@ -276,6 +416,6 @@ def test_rice_scan_refuses_what_no_version_takes():
         trice.rice_scan(sums[:, :32].to("meta"), order.to("meta"), 4096, 0,
                         5)
     with pytest.raises(ValueError, match="no kernel"):
-        trice.rice_final(torch.zeros((2, 64), dtype=torch.int32,
-                                     device="meta"), order.to("meta"), 64, 0,
-                         3)
+        smp = torch.zeros((2, 64), dtype=torch.int32, device="meta")
+        trice.final_pass(smp, smp[:, :4], order.to("meta"), order.to("meta"),
+                         64, 0, 3)
