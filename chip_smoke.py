@@ -10,7 +10,9 @@ variants of the emission-profiling tool, U2, the merge prototypes
 ``merge_zero_fb``, one kernel with U1's zero variant, and R1 and R2, the
 Rice search from partition sums and the final pass from the samples (the
 residual, its int32 fit flag and the Rice search with the exact bits),
-which no Pallas kernel stands behind) and its host libraries (CRC
+and L, the LPC coefficient stage (Levinson for every order, or Schur and
+the seeded Levinson, then the quantizer, in one launch), which no Pallas
+kernel stands behind) and its host libraries (CRC
 patcher, decoder helpers) from this checkout, and holds each kernel
 against its plain PyTorch version: R1 and R2 on the inputs the first
 level-8 batch and the level-12 8192 bucket give them (timed there beside
@@ -79,8 +81,16 @@ timed at.
 equal their plain version on all three, K5's and K3's words on the two
 batches, where no frame may overflow the static rows, and K5's words on the
 frames of the made-up table that do not overflow them (some must); the zero
-floors must give ``torch.zeros``. The Schur and Levinson recursions of the EST order method
-must give the same float64 bits on the card and on the host.
+floors must give ``torch.zeros``. L must give its plain version's bits
+(NaNs equal) on the inputs of the first level-8 batch, the level-12 8192
+bucket, the first level-5 batch (EST) and the level-8 batch in float32,
+each timed beside its plain version and the launch floor of its grid, with
+its bounds by bytes, by operations and by its dependent chain at the
+card's measured float64 (float32) add latency, and on made-up tables (the
+shift search's edges at precisions 5-15, degenerate autocorrelations) in
+both dtypes and both modes. The Schur and Levinson recursions of the EST
+order method must give the same float64 bits on the card and on the host,
+and torch.addcmul in both dtypes is read against the host's.
 
 Three-second windows must give the same bytes through
 ``Encoder(device="cpu")`` (the plain versions) and
@@ -94,7 +104,7 @@ shared-memory cap, 32-bit / 44.1 kHz stereo at level 8, and 24-bit / 96
 kHz stereo at level 12, whose side channels give K4 25-bit samples).
 Each fixed-block stream (levels 8, 5, 7, 3, 2, 1, 0),
 each of those and the level-12 and level-11 streams is encoded once with
-K1-K4, R1 and R2 recorded, and every call they got, each batch and the
+K1-K4, R1, R2 and L recorded, and every call they got, each batch and the
 partial last block, is held against the plain version again (K1 at 13, 9, 7 and 33
 lags, K2 at orders 12, 8 and 32, K3 on 1152- to 8192-sample frames and in
 both instantiations, K4 on every bucket it sums). Then the main paths run, each with the launch counts set to 0 just before it
@@ -129,10 +139,15 @@ stay under ``PEAK_LIMIT_MIB``; levels 8 and 12 also print it by stage
 and K3 apart), with the slot layout's own tensors alive at its peak
 (:func:`live_tensors`). 600 s of the variable-block stream at level 12
 is encoded the same way, decoded with its MD5, and 3 s of it must give
-the same bytes through the CPU and the CUDA encoder. On every path R2
-must launch wherever a stream is predicted and R1 wherever a sweep runs
-(R1 also on the sp path, in its final search), and no plain version of
-the two, nor the plain final pass's lag loop, may see a card tensor.
+the same bytes through the CPU and the CUDA encoder. 600 s of the
+fixed-block stream at levels 2 and 7 is encoded once counted and once by
+stage, decoded with its MD5, and its peak device memory may lie no more
+than ``LONG_PEAK_SLACK_MIB`` above its level's short stream's (printed by
+stage beside it). On every path R2 must launch wherever a stream is
+predicted, R1 wherever a sweep runs (R1 also on the sp path, in its final
+search) and L wherever LPC runs (the sp path too), and no plain version of
+the three, nor the plain final pass's lag loop, nor a plain recursion or
+quantizer, may see a card tensor.
 
 Then the file path, as a user runs it (``flake_tpu_torch.cli.main``, the
 launch counts set to 0 around each run), on WAV files written by the
@@ -221,7 +236,7 @@ SECONDS = 180
 BLOCK = 4096
 BATCH = 512
 VBS_SECONDS = 60        # the level-12 and level-11 stream
-LONG_SECONDS = 600      # the long level-12 stream
+LONG_SECONDS = 600      # the long streams (levels 12, 2 and 7)
 PARITY_WINDOW = (4, 7)  # seconds of it through the CPU and the CUDA encoder
 FIXED_PARITY_WINDOW = (99, 102)  # of the fixed-block stream, levels 5 and 7
 # seconds of the fixed-block stream per level below 8 (level 8 takes it all)
@@ -279,12 +294,17 @@ U3_FBS = {"merge_v5d": (1, 8, 16, 32), "merge_v5c": (1, 4, 8, 16)}
 # are also given at that rate (``bound_ms_fp64_tensor``), which no kernel
 # of the port uses yet.
 HBM_BYTES_PER_MS = 3.35e9
+FP32_OPS_PER_MS = 67e9
 FP64_OPS_PER_MS = 33.5e9
 FP64_TENSOR_OPS_PER_MS = 67e9
 INT32_OPS_PER_MS = 33.5e9
 # the encoder's peak device memory above the smoke's at levels 11 and 12:
 # 6,559 MiB while the Rice scans held their k grids, level 8's 732 MiB since
 PEAK_LIMIT_MIB = 2048
+# how far a 600 s stream's peak device memory may lie above the same
+# level's short stream's (allocator rounding; nothing should grow)
+LONG_PEAK_SLACK_MIB = 4
+LONG_LEVELS = (2, 7)    # 600 s at these levels beside their short streams
 
 
 def fail(msg: str) -> None:
@@ -435,7 +455,7 @@ import json, resource, sys, time
 import torch
 from flake_tpu_torch import params as P
 from flake_tpu_torch.io import open_pcm
-from flake_tpu_torch.ops import autocorr, bitmerge, rice, sweep
+from flake_tpu_torch.ops import autocorr, bitmerge, lpc, rice, sweep
 from flake_tpu_torch.parallel import distributed as D
 rank, nproc, port, wav, out, level, device = (
     int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4], sys.argv[5],
@@ -450,7 +470,7 @@ cfg = P.StreamConfig(channels=info.channels, sample_rate=info.sample_rate,
 kernels = {"autocorr": autocorr.autocorr, "sweep_sums": sweep.sweep_sums,
            "sweep_granules": sweep.sweep_granules,
            "merge_words": bitmerge.merge_words, "rice_scan": rice.rice_scan,
-           "final_pass": rice.final_pass}
+           "final_pass": rice.final_pass, "candidates": lpc.candidates}
 for fn in kernels.values():
     fn.launches = 0
 t0 = time.perf_counter()
@@ -556,10 +576,10 @@ def sharded_paths(card, pcm, count_launches, launched) -> None:
     from flake_tpu_torch.parallel.runner import shard_ranges
 
     k1234 = ("autocorr", "sweep_sums", "merge_words", "sweep_granules",
-             "rice_scan", "final_pass")
+             "rice_scan", "final_pass", "candidates")
     # config 5's tails (2,048 and 512 samples) take K4, so K2 need not run
     on_card = ("autocorr", "sweep_granules", "merge_words", "rice_scan",
-               "final_pass")
+               "final_pass", "candidates")
     cfg8 = P.StreamConfig(channels=2, sample_rate=SAMPLE_RATE,
                           bits_per_sample=16, params=P.set_defaults(8))
 
@@ -785,7 +805,7 @@ def sp_paths(card, streams, count_launches, launched) -> None:
     plains = [(lpc, "autocorr"), (sweep, "sweep_sums_plain"),
               (sweep, "sweep_granules_plain"), (bitmerge, "merge_words_plain"),
               (rice, "rice_scan_plain"), (rice, "rice_final_plain"),
-              (rice, "final_pass_plain")]
+              (rice, "final_pass_plain"), (lpc, "candidates_plain")]
     originals = [(mod, name, getattr(mod, name)) for mod, name in plains]
     for mod, name, orig in originals:
         setattr(mod, name, cpu_only(name, orig))
@@ -837,9 +857,11 @@ def sp_paths(card, streams, count_launches, launched) -> None:
                     torch.cuda.reset_peak_memory_stats(i)
                 enc = Encoder(cfg, mesh=mesh)
                 t0 = time.perf_counter()
-                # R1: the order loop's scan and the final search
+                # R1: the order loop's scan and the final search; L: the
+                # coefficient stage, once a group
                 blob = count_launches(path, lambda: enc.encode_stream(pcm),
-                                      ("merge_words", "rice_scan"))
+                                      ("merge_words", "rice_scan",
+                                       "candidates"))
                 cold = time.perf_counter() - t0
                 peaks = {m["device"]: m["peak_bytes_in_use"] / 2**20
                          for m in profiling.device_memory_stats()
@@ -862,7 +884,8 @@ def sp_paths(card, streams, count_launches, launched) -> None:
                 host = count_launches(
                     f"{path}, host emission",
                     lambda: Encoder(cfg, mesh=mesh, pack_backend="host")
-                    .encode_stream(pcm), ("rice_scan",), ("merge_words",))
+                    .encode_stream(pcm), ("rice_scan", "candidates"),
+                    ("merge_words",))
                 if host != blob:
                     fail(f"{path}: the host emission's bytes differ from "
                          "K3's")
@@ -975,7 +998,7 @@ def sp_paths(card, streams, count_launches, launched) -> None:
     fn, args = graft_entry.entry()
     out = count_launches("graft entry", lambda: fn(*args),
                          ("autocorr", "sweep_granules", "merge_words",
-                          "rice_scan", "final_pass"))
+                          "rice_scan", "final_pass", "candidates"))
     if not torch.equal(out["total_bits"].to(torch.int64),
                        8 * out["frame_bytes"]):
         fail("graft entry: total_bits is not 8 x frame_bytes")
@@ -998,7 +1021,7 @@ def measurement_paths(card, count_launches) -> None:
     from flake_tpu_torch.util import bench_matrix, level_matrix, prof_an5
 
     k1234 = ("autocorr", "sweep_granules", "merge_words", "sweep_sums")
-    rice12 = ("rice_scan", "final_pass")
+    rice12 = ("rice_scan", "final_pass", "candidates")
     t0 = time.perf_counter()
     res = count_launches("bench", lambda: bench.run(device="cuda"),
                          k1234 + rice12)
@@ -1022,7 +1045,7 @@ def measurement_paths(card, count_launches) -> None:
           f"each decoded with its MD5, in {time.perf_counter() - t0:.1f} s",
           flush=True)
     for level in (5, 8, 12):
-        needs = ("autocorr", "final_pass") if level == 5 \
+        needs = ("autocorr", "final_pass", "candidates") if level == 5 \
             else ("autocorr", "sweep_granules") + rice12
         res = count_launches(
             f"prof_an5 level {level}",
@@ -1122,7 +1145,9 @@ def build_yardsticks():
     launches an empty kernel, ``r1_before`` takes ``rice_scan``'s arguments
     and ``r2_before`` a residual with ``rice_final_plain``'s (R1's and
     R2's first designs); ``mad_wide``, ``imad`` and ``dfma`` measure
-    the card's rate of each operation, in operations a ms."""
+    the card's rate of each operation, in operations a ms, and
+    ``dadd_latency`` and ``fadd_latency`` the ms of one dependent float64
+    and float32 add."""
     import ctypes
 
     import torch
@@ -1156,6 +1181,8 @@ def build_yardsticks():
     lib.flake_zero_floor_v1.argtypes = [P, I, I, I, P]
     lib.flake_zero_floor_bulk.argtypes = [P, I, I, P]
     lib.flake_launch_floor.argtypes = [I, I, P]
+    lib.flake_latency_dadd.argtypes = [P, I, P]
+    lib.flake_latency_fadd.argtypes = [P, I, P]
     lib.flake_rice_scan_v1.argtypes = [P] * 6 + [I] * 7 + [P]
     lib.flake_rice_final_v1.argtypes = [P] * 7 + [I] * 6 + [P]
 
@@ -1283,6 +1310,13 @@ def build_yardsticks():
         ms, = time_turns(lambda: call(fn, out, blocks, threads, iters))
         return blocks * threads * iters * 8 * 16 / ms
 
+    def latency(fn, dtype):
+        """ms of one add of ``fn``'s dependent chain (one warp)."""
+        iters = 1 << 14
+        out = torch.empty(32, dtype=dtype, device="cuda")
+        ms, = time_turns(lambda: call(fn, out, iters), reps=5)
+        return ms / (iters * 16)
+
     return report, {
         "k1_before": k1_before, "k2_before": k2_before,
         "k3_before": k3_before,
@@ -1305,7 +1339,11 @@ def build_yardsticks():
         "r1_before": r1_before, "r2_before": r2_before,
         "mad_wide": lambda: rate(lib.flake_rate_mad_wide, torch.int64),
         "imad": lambda: rate(lib.flake_rate_imad, torch.int32),
-        "dfma": lambda: rate(lib.flake_rate_dfma, torch.float64)}
+        "dfma": lambda: rate(lib.flake_rate_dfma, torch.float64),
+        "dadd_latency": lambda: latency(lib.flake_latency_dadd,
+                                        torch.float64),
+        "fadd_latency": lambda: latency(lib.flake_latency_fadd,
+                                        torch.float32)}
 
 
 def ptxas_table(report: str) -> dict:
@@ -1374,6 +1412,8 @@ def time_turns(*fns, loop=(), reps: int = 20):
 
 
 def main() -> None:
+    import hashlib
+
     t_smoke = time.perf_counter()
     try:
         import numpy as np
@@ -1446,6 +1486,11 @@ def main() -> None:
           f"ones (the int32 bound assumes {INT32_OPS_PER_MS / 2:.4g}), "
           f"{rates['dfma_per_ms']:.4g} float64 FMAs a ms (the sweeps' bound "
           f"assumes {FP64_OPS_PER_MS / 2:.4g})", flush=True)
+    rates["dadd_latency_ms"] = yard["dadd_latency"]()
+    rates["fadd_latency_ms"] = yard["fadd_latency"]()
+    print(f"latency on {card}: {rates['dadd_latency_ms'] * 1e6:.3f} ns a "
+          f"dependent float64 add, {rates['fadd_latency_ms'] * 1e6:.3f} ns a "
+          "float32 one", flush=True)
     t0 = time.perf_counter()
     native.build()
     native.get_verifier()
@@ -1505,7 +1550,7 @@ def main() -> None:
     cap8 = capture(
         [(frame, "autocorr"), (frame, "sweep_granules"),
          (bitpack, "merge_words"), (rice, "rice_scan"),
-         (frame, "final_pass")],
+         (frame, "final_pass"), (lpc, "candidates")],
         lambda: analyze_and_pack(
             torch.from_numpy(pcm[:BATCH * BLOCK].reshape(BATCH, BLOCK, 2))
             .to(dev), fcfg8, np.arange(BATCH, dtype=np.int64), 0))
@@ -1673,6 +1718,23 @@ def main() -> None:
             err = (a - b).abs().max().item()
         return float(err), same, f"bit-exact {same}"
 
+    def cmp_bits(name, a, b):
+        """Every output of a tuple equal in dtype, shape and bits, two
+        NaNs counting as equal (a silent stream's Schur gives NaNs)."""
+        same = True
+        for u, v in zip(a, b):
+            if u.dtype != v.dtype or u.shape != v.shape:
+                same = False
+            elif u.is_floating_point():
+                nan = u.isnan() & v.isnan()
+                bits = torch.int64 if u.dtype == torch.float64 \
+                    else torch.int32
+                same &= torch.equal(torch.where(nan, 0, u.view(bits)),
+                                    torch.where(nan, 0, v.view(bits)))
+            else:
+                same &= torch.equal(u, v)
+        return 0.0, bool(same), f"bit-exact {bool(same)} (NaNs equal)"
+
     k1_library = k1_library_on(x, window, max_o)
     check_k1_library("the level-8 batch", k1_library,
                      lpc.autocorr(x, max_o, window))
@@ -1767,7 +1829,7 @@ def main() -> None:
     cap12 = capture(
         [(frame, "autocorr"), (frame, "sweep_granules"),
          (bitpack, "merge_words"), (rice, "rice_scan"),
-         (frame, "final_pass")],
+         (frame, "final_pass"), (lpc, "candidates")],
         lambda: analyze_and_pack(
             torch.from_numpy(supers[f_idx[whole]]).to(dev), fcfg12,
             f_idx[whole] * vbs, 1))
@@ -2207,7 +2269,7 @@ def main() -> None:
     cfg5 = stream_config(5)
     fcfg5 = frame.FrameConfig.from_params(cfg5.params, 2, 16)
     cap5 = capture(
-        [(frame, "autocorr"), (bitpack, "merge_words")],
+        [(frame, "autocorr"), (bitpack, "merge_words"), (lpc, "candidates")],
         lambda: analyze_and_pack(
             torch.from_numpy(pcm[:BATCH * BLOCK].reshape(BATCH, BLOCK, 2))
             .to(dev), fcfg5, np.arange(BATCH, dtype=np.int64), 0))
@@ -2587,16 +2649,153 @@ def main() -> None:
           f"aligned_parts {al_prep:.4f} ms (all in a plain loop)",
           flush=True)
 
-    # -- 4c. the EST recursions on the card and on the host --------------------
+    # -- 4c. L, the coefficient stage --------------------------------------
+    def chain_ops(m, est):
+        """Dependent float operations on one stream's path through L's
+        work, a lower bound on its time at one add's latency each (a
+        division, a truncation and a compare count as one add): Levinson
+        order i's product, its fold of i adds (left to right, the plain
+        version's rounding), the subtraction, the division and the next
+        update (i + 4); under EST two a Schur step (the multiply-add and the
+        division) and one a seeded update; then the quantizer's longest
+        row, a compare a tap for its largest magnitude and four a tap of
+        error feedback (two adds, the truncation, the subtraction)."""
+        rec = 3 * m if est else m * (m - 1) // 2 + 4 * m
+        return rec + 5 * m
+
+    def l_ops(N, m, est):
+        """L's float operations on N streams: Levinson order i's i
+        products, i adds and i update multiply-adds (two each) and about
+        six more; under EST m Schur steps of two multiply-adds a lane and
+        the seeded updates; the quantizer's six a valid tap."""
+        rec = 4 * m * m if est else 2 * m * (m - 1) + 6 * m
+        if est:
+            rec += m * (m - 1)
+        return N * (rec + 3 * m * (m + 1))
+
+    def l_at(label, args, entry):
+        """L held against its plain version on ``args`` (autoc, est,
+        precision) and timed with it and the launch floor of its grid in
+        turns; bounds by bytes, by operations and by the dependent chain,
+        into ``entry``."""
+        autoc, est, precision = args
+        _, detail = check("candidates", lambda: lpc.candidates(*args),
+                          lambda: lpc.candidates_plain(*args), cmp_bits)
+        N, m = autoc.shape[0], autoc.shape[-1] - 1
+        grid = ((N + 3) // 4, 128)
+
+        def kern():
+            return lpc.candidates(*args)
+
+        def plain():
+            return lpc.candidates_plain(*args)
+
+        def floor():
+            yard["launch_floor"](*grid)
+
+        entry["plain_ms"], entry["ms"], entry["launch_floor_ms"] = \
+            time_turns(plain, kern, floor, loop=(plain,))
+        moved = nbytes(autoc) + nbytes(*kern())
+        entry["bound_ms"], entry["bound_by"] = bound(
+            moved, l_ops(N, m, est), FP64_OPS_PER_MS
+            if autoc.dtype == torch.float64 else FP32_OPS_PER_MS)
+        chain = chain_ops(m, est)
+        entry["chain_bound_ms"] = chain * rates[
+            "dadd_latency_ms" if autoc.dtype == torch.float64
+            else "fadd_latency_ms"]
+        entry["shape"] = list(autoc.shape)
+        entry["est"], entry["dtype"] = bool(est), str(autoc.dtype)
+        print(f"candidates on {label} {tuple(autoc.shape)}, "
+              f"{'EST' if est else 'Levinson'}, {autoc.dtype}: {detail}; "
+              f"kernel {entry['ms']:.4f} ms, plain {entry['plain_ms']:.4f} "
+              f"ms, the launch floor of its grid {grid} "
+              f"{entry['launch_floor_ms']:.4f} ms; bounds: "
+              f"{entry['bound_ms']:.5f} ms by {entry['bound_by']} "
+              f"({moved / 1e6:.2f} MB, {l_ops(N, m, est) / 1e9:.4f} G "
+              f"operations), the dependent chain {chain} operations = "
+              f"{entry['chain_bound_ms']:.5f} ms", flush=True)
+
+    l_entry = {"name": "candidates", "route": "cuda",
+               "source": "flake_tpu_torch/csrc/lpc.cu",
+               "replaces": "flake_tpu/ops/lpc.py:174 (levinson_all_orders; "
+                           "under EST schur_refs :242 and levinson_from_refs "
+                           ":271; then quantize_lpc_coefs :307; no "
+                           "pl.pallas_call)",
+               "library_ms": None, "max_abs_err": 0.0,
+               "timed": {"ms": "back_to_back", "plain_ms": "loop"}}
+    l_at("the level-8 batch", cap8["candidates"][0], l_entry)
+    x8, _, mo8 = cap8["autocorr"][0]
+    ac32 = lpc.autocorr(x8, mo8, lpc.welch_window_on(x8.shape[1], dev,
+                                                     torch.float32))
+    for key, label, args in (
+            (f"level12_{vbs}", f"the level-12 {vbs} bucket",
+             cap12["candidates"][0]),
+            ("level5_est", "the level-5 batch", cap5["candidates"][0]),
+            ("level8_float32", "the level-8 batch in float32",
+             (ac32, False, cap8["candidates"][0][2]))):
+        l_entry[key] = {}
+        l_at(label, args, l_entry[key])
+    kernels.append(l_entry)
+
+    # made-up tables: autocorrelations [1, c, 0, 0, 0], whose first row is
+    # c, at the quantizer's edges for every precision 5-15 (0, subnormals,
+    # powers of two, qmax * 2^-sh and its neighbours, above qmax), and
+    # degenerate ones (zero, negative, inf and NaN lags), in both dtypes
+    # and both modes
+    edge_rows = []
+    for precision in range(5, 16):
+        qmax = (1 << (precision - 1)) - 1
+        edges = [qmax * 2.0 ** -sh for sh in range(16)] \
+            + [2.0 ** k for k in range(-20, 21)] \
+            + [qmax + 0.5, qmax + 1.0, 2.0 * qmax, 1e6, 1e30, 1e300]
+        c = [0.0, -0.0, 5e-324, 1e-310, 2.2250738585072014e-308]
+        for e in edges:
+            c += [np.nextafter(e, 0.0), e, np.nextafter(e, np.inf)]
+        c = np.asarray(c)
+        edge_rows.append((precision, np.concatenate([c, -c[c != 0]])))
+    drng = np.random.default_rng(SEED + 17)
+    degenerate = drng.normal(0, 1, (64, 33)) \
+        * 10.0 ** drng.integers(-5, 6, (64, 1))
+    degenerate[:, 0] = np.abs(degenerate[:, 0])
+    degenerate[0], degenerate[1], degenerate[2, 0] = 0.0, 2.0, 0.0
+    degenerate[3, 0], degenerate[4, 3], degenerate[5, 2] = -1.0, np.inf, \
+        np.nan
+    held_tables = 0
+    for dtype in (torch.float64, torch.float32):
+        for est in (False, True):
+            for precision, c in edge_rows:
+                table = np.zeros((c.size, 5))
+                table[:, 0], table[:, 1] = 1.0, c
+                args = (torch.from_numpy(table).to(dev, dtype), est,
+                        precision)
+                check("candidates", lambda: lpc.candidates(*args),
+                      lambda: lpc.candidates_plain(*args), cmp_bits)
+                held_tables += 1
+            args = (torch.from_numpy(degenerate).to(dev, dtype), est, 15)
+            check("candidates", lambda: lpc.candidates(*args),
+                  lambda: lpc.candidates_plain(*args), cmp_bits)
+            held_tables += 1
+    print(f"candidates on {held_tables} made-up tables (the shift search's "
+          "edges at precisions 5-15, degenerate autocorrelations; float64 "
+          "and float32, Levinson and EST): bit-exact against the plain "
+          "version", flush=True)
+
+    # -- 4d. the EST recursions on the card and on the host --------------------
     # XLA:CPU fuses every multiply-add of Schur and Levinson, and the port
     # writes them as torch.addcmul; the card must round them the same way
     gen = torch.Generator().manual_seed(SEED)
-    fa, fb, fc = (torch.randn(1 << 20, dtype=torch.float64, generator=gen)
-                  for _ in range(3))
-    on_card = torch.addcmul(fa.to(dev), fb.to(dev), fc.to(dev)).cpu()
-    print(f"addcmul on 2^20 float64 triples: {int((on_card != torch.addcmul(fa, fb, fc)).sum())} "
-          f"differ between card and host; {int((on_card != fa + fb * fc).sum())} "
-          "differ from the unfused a + b*c", flush=True)
+    for dtype in (torch.float64, torch.float32):
+        fa, fb, fc = (torch.randn(1 << 20, dtype=torch.float64,
+                                  generator=gen).to(dtype) for _ in range(3))
+        on_card = torch.addcmul(fa.to(dev), fb.to(dev), fc.to(dev)).cpu()
+        print(f"addcmul on 2^20 {dtype} triples: "
+              f"{int((on_card != torch.addcmul(fa, fb, fc)).sum())} differ "
+              f"between card and host; {int((on_card != fa + fb * fc).sum())}"
+              " differ from the unfused a + b*c", flush=True)
+    nan = torch.tensor([float("nan")], dtype=torch.float64, device=dev)
+    print(f"a NaN to int32 on the card: float64 {int(nan.to(torch.int32))}, "
+          f"float32 {int(nan.float().to(torch.int32))} (ops/lpc maps a NaN "
+          "tap to 0 before the cast, and so does L)", flush=True)
     ax5, awin5, a_mo5 = cap5["autocorr"][0]
     ac5 = k1_mod.autocorr(ax5, awin5, a_mo5)
     refs5 = lpc.schur_refs(ac5)
@@ -2770,15 +2969,19 @@ def main() -> None:
                             cmp_exact),
             "sweep_granules": (sweep_mod.sweep_granules,
                                sweep_mod.sweep_granules_plain, cmp_exact),
+            "candidates": (lpc.candidates, lpc.candidates_plain, cmp_bits),
             **{name: (*fns, cmp_exact) for name, fns in rice_held.items()}}
 
     def with_rice(needs):
         """A path's kernels with R2, which runs wherever a stream is
-        predicted (LPC or FIXED), and R1, which runs wherever a sweep does
-        (the order method reads bit counts)."""
+        predicted (LPC or FIXED), R1, which runs wherever a sweep does
+        (the order method reads bit counts), and L, wherever LPC runs (K1
+        or a sweep; the float32 path has no K1)."""
         sweeps_run = set(needs) & {"sweep_sums", "sweep_granules"}
+        lpc_runs = sweeps_run or "autocorr" in needs
         return tuple(needs) + ("final_pass",) \
-            + (("rice_scan",) if sweeps_run else ())
+            + (("rice_scan",) if sweeps_run else ()) \
+            + (("candidates",) if lpc_runs else ())
 
     # the kernels each wide stream's encode calls: K2 only where a block
     # size K4 cannot sum occurs (the 32-bit stream's 2,728-sample tail; the
@@ -2803,7 +3006,8 @@ def main() -> None:
         calls = capture(
             [(frame, "autocorr"), (frame, "sweep_sums"),
              (frame, "sweep_granules"), (bitpack, "merge_words"),
-             (rice, "rice_scan"), (frame, "final_pass")],
+             (rice, "rice_scan"), (frame, "final_pass"),
+             (lpc, "candidates")],
             lambda: Encoder(cfg, device="cuda").encode_stream(stream))
         if set(calls) != set(needs):
             fail(f"{label} called {sorted(calls)}, expected "
@@ -2823,6 +3027,9 @@ def main() -> None:
             if name in rice_held:
                 at = 2 if name == "rice_scan" else 4
                 what = f", n {sorted({a[at] for a in args_of_calls})}"
+            if name == "candidates":
+                what = (f", EST {sorted({a[1] for a in args_of_calls})}, "
+                        f"{sorted({str(a[0].dtype) for a in args_of_calls})}")
             if name == "merge_words":
                 forms = {"shared" if k3_mod.merge_in_shared(args[3])
                          else "global" for args in args_of_calls}
@@ -2830,7 +3037,8 @@ def main() -> None:
                 what = (f", word rows {sorted({a[3] for a in args_of_calls})}"
                         f", K3 instantiations {sorted(forms)}")
             how = (f"max rel err {worst:.3e} (tolerance {K1_REL_TOL:g})"
-                   if compare is cmp_rel else "bit-exact")
+                   if compare is cmp_rel else "bit-exact" + (
+                       " (NaNs equal)" if compare is cmp_bits else ""))
             print(f"{label}: {name} on {len(args_of_calls)} calls, "
                   f"first-argument shapes {shapes}{what}: {how} against the "
                   "plain version", flush=True)
@@ -2852,7 +3060,8 @@ def main() -> None:
                "prof_merge_v5c": tool3.merge_v5c,
                "prof_merge_zero_fb": tool3.merge_zero_fb,
                "prof_merge_zero_rows": tool3.merge_zero_rows,
-               "rice_scan": rice.rice_scan, "final_pass": rice.final_pass}
+               "rice_scan": rice.rice_scan, "final_pass": rice.final_pass,
+               "candidates": lpc.candidates}
     launched = {name: {} for name in counted}   # name -> {path: count}
     k3_launched_by = {}     # path -> K3's launches by instantiation
 
@@ -2862,13 +3071,19 @@ def main() -> None:
         for fn in counted.values():
             fn.launches = 0
         k3_mod.merge_words.launches_by = {"shared": 0, "global": 0}
-        # no plain Rice search, and no lag loop of the plain final pass, may
-        # run on a card tensor on a main path
+        # no plain Rice search, no lag loop of the plain final pass and no
+        # plain recursion or quantizer may run on a card tensor on a main
+        # path
         plains = [(mod, name, getattr(mod, name))
                   for mod, name in ((rice, "rice_scan_plain"),
                                     (rice, "rice_final_plain"),
                                     (rice, "final_pass_plain"),
-                                    (predict, "residual_lpc_dynamic64"))]
+                                    (predict, "residual_lpc_dynamic64"),
+                                    (lpc, "candidates_plain"),
+                                    (lpc, "levinson_all_orders"),
+                                    (lpc, "schur_refs"),
+                                    (lpc, "levinson_from_refs"),
+                                    (lpc, "quantize_lpc_coefs"))]
         on_card = set()
 
         def guard(name, plain):
@@ -2976,7 +3191,8 @@ def main() -> None:
         print(f"encode {secs:g} s {label} on {card}: cold {cold:.3f} s "
               f"({secs / cold:.1f}x realtime), warm {warm:.3f} s "
               f"({secs / warm:.1f}x realtime); {len(blob)} bytes "
-              f"({len(blob) / pcm_bytes:.4f} of the PCM bytes); "
+              f"({len(blob) / pcm_bytes:.4f} of the PCM bytes, sha256 "
+              f"{hashlib.sha256(blob).hexdigest()[:16]}); "
               f"peak device memory {peak / 2**20:.0f} MiB above the "
               f"{held / 2**20:.0f} MiB the smoke held at the reset; warm "
               f"stats { {k: round(v, 4) for k, v in enc2.stats.items()} }",
@@ -3013,15 +3229,19 @@ def main() -> None:
         stage above the memory allocated when it begins: analyze_frames,
         the sweep's Rice scan (R1, ``rice_scan``), the final pass (R2,
         ``final_pass``), pack_frames_device and, inside it, the slot
-        layout (``slot_layout``) and K3 (``merge_words``) apart. A stage
+        layout (``slot_layout``) and K3 (``merge_words``) apart, and L
+        (``lpc_candidates``) inside the analysis. A stage
         that begins inside another hands its peak to the outer one, so each
         reading is that of the stage with everything it calls. The slot
         layout runs under :func:`live_tensors`: its largest call prints
-        the tensors alive at its peak and its operation count."""
+        the tensors alive at its peak and its operation count. Returns
+        (the bytes, the whole encode's peak bytes above the memory held at
+        its start, each stage's peak bytes)."""
         # the encoder analyses each batch through the mesh module's groups
-        hooks = [(mesh_mod, "analyze_frames"), (rice, "rice_scan"),
-                 (frame, "final_pass"), (bitpack, "pack_frames_device"),
-                 (bitpack, "slot_layout"), (bitpack, "merge_words")]
+        hooks = [(mesh_mod, "analyze_frames"), (frame, "lpc_candidates"),
+                 (rice, "rice_scan"), (frame, "final_pass"),
+                 (bitpack, "pack_frames_device"), (bitpack, "slot_layout"),
+                 (bitpack, "merge_words")]
         # [start, top] of the whole encode, then of each stage entered
         stack, peaks, layout = [], {}, {}
 
@@ -3061,7 +3281,7 @@ def main() -> None:
             torch.cuda.reset_peak_memory_stats(dev)
             held = torch.cuda.memory_allocated(dev)
             stack.append([held, held])
-            Encoder(cfg, device="cuda").encode_stream(stream)
+            blob = Encoder(cfg, device="cuda").encode_stream(stream)
             torch.cuda.synchronize()
             whole = max(stack.pop()[1], torch.cuda.max_memory_allocated(dev))
         finally:
@@ -3076,6 +3296,7 @@ def main() -> None:
               f"of its own tensors alive at once, {layout['operations']} "
               "operations; alive at that peak (operation, shape, dtype, "
               f"MiB): {layout['at_peak']}", flush=True)
+        return blob, whole - held, {k: v for k, (v, _) in peaks.items()}
 
     dec8 = drive("level 8", cfg8, pcm, k1234)
     stage_peaks("level 8", cfg8, pcm)
@@ -3124,6 +3345,52 @@ def main() -> None:
           f"{len(on_card)} bytes, equal {on_card == on_host}", flush=True)
     if on_card != on_host:
         fail(f"the CPU and CUDA encoders disagree on the {long_label} stream")
+    del lpcm
+
+    # the FIXED levels' most frames a second (level 2, blocks of 1,152) and
+    # level 7 over 600 s beside their short streams: decoded with the MD5,
+    # and the encode's peak device memory may not grow with the length
+    lpcm = make_stream(SEED, LONG_SECONDS)
+    for level in LONG_LEVELS:
+        cfg = stream_config(level)
+        short = f"level {level}, {LEVEL_SECONDS[level]} s"
+        _, short_peak, short_stages = stage_peaks(short, cfg,
+                                                  level_stream(level))
+        label = f"level {level}, {LONG_SECONDS} s"
+        needs, never = next((n, nv) for lv, n, nv in low_levels
+                            if lv == level)
+        torch.cuda.reset_peak_memory_stats(dev)
+        held = torch.cuda.memory_allocated(dev)
+        t0 = time.perf_counter()
+        blob = count_launches(
+            label, lambda: Encoder(cfg, device="cuda").encode_stream(lpcm),
+            with_rice(needs), never)
+        wall = time.perf_counter() - t0
+        print(f"encode {LONG_SECONDS} s level {level} on {card}: "
+              f"{wall:.3f} s ({LONG_SECONDS / wall:.1f}x realtime); "
+              f"{len(blob)} bytes, sha256 "
+              f"{hashlib.sha256(blob).hexdigest()[:16]}; peak device memory "
+              f"{(torch.cuda.max_memory_allocated(dev) - held) / 2**20:.0f} "
+              "MiB above the held", flush=True)
+        again, peak, stages = stage_peaks(label, cfg, lpcm)
+        if again != blob:
+            fail(f"{label}: two encodes differ")
+        t0 = time.perf_counter()
+        dec = decoder.decode_stream(blob)
+        if not dec.md5_ok or not np.array_equal(dec.samples, lpcm):
+            fail(f"{label}: the stream does not decode to its samples with "
+                 "its MD5")
+        grown = {k: round((v - short_stages.get(k, 0)) / 2**20, 1)
+                 for k, v in stages.items()}
+        print(f"{label}: lossless, MD5 ok, {dec.frames} frames "
+              f"({time.perf_counter() - t0:.1f} s); peak device memory "
+              f"{peak / 2**20:.1f} MiB above the held, the {short} stream's "
+              f"{short_peak / 2**20:.1f}; each stage's peak above the short "
+              f"stream's, MiB: {grown}", flush=True)
+        if peak > short_peak + (LONG_PEAK_SLACK_MIB << 20):
+            fail(f"{label}: the peak device memory grows with the stream: "
+                 f"{peak / 2**20:.1f} MiB against {short_peak / 2**20:.1f} "
+                 f"for {LEVEL_SECONDS[level]} s")
     del lpcm
 
     for label, stream in wide.items():

@@ -45,6 +45,8 @@ SIGNATURES = {
     # R2: smp, coefs, shift, order, res, fits, bits, porder, method, params,
     # exact, N, taps, n, pmin, pmax, pmax_static, log2(n ^ (n - 1)), threads
     "flake_final_pass": [_P] * 11 + [_I] * 8,
+    # L: autoc, qcoefs, shifts, refs, N, max_order, precision, est, float64
+    "flake_lpc_candidates": [_P] * 4 + [_I] * 5,
     # lengths, leading, payload, words, total_bits, F, M, W, shared
     "flake_merge_words": [_P, _P, _P, _P, _P, _I, _I, _I, _I],
     # w0t, hit, lot, words, F, S, W

@@ -9,8 +9,11 @@
 // compiler cannot lift a product out of the loop (with loop-invariant
 // factors it does, and the loop then times 64-bit adds). Beside them, an
 // empty kernel: the fixed cost of a launch, timed back to back like the
-// short kernels it stands beside (the zero floor). No path of the package
-// calls these; chip_smoke.py times them beside the kernels.
+// short kernels it stands beside (the zero floor); and the latency of one
+// float64 and one float32 add, from one warp's chain of dependent adds
+// (the dependent chain of the LPC stage, L, is timed against it). No path
+// of the package calls these; chip_smoke.py times them beside the
+// kernels.
 
 #include <cuda_runtime.h>
 
@@ -80,6 +83,24 @@ __global__ void dfma_kernel(double* out, int iters, double seed) {
 
 __global__ void empty_kernel() {}
 
+__device__ __forceinline__ double add_rn(double a, double b) {
+  return __dadd_rn(a, b);
+}
+__device__ __forceinline__ float add_rn(float a, float b) {
+  return __fadd_rn(a, b);
+}
+
+// one chain of iters x 16 dependent adds a thread
+template <typename T>
+__global__ void add_chain_kernel(T* out, int iters, T c) {
+  T a = static_cast<T>(threadIdx.x);
+  for (int i = 0; i < iters; ++i) {
+#pragma unroll
+    for (int u = 0; u < 16; ++u) a = add_rn(a, c);
+  }
+  out[threadIdx.x] = a;
+}
+
 }  // namespace
 
 // blocks x threads threads, each 8 * 16 * iters operations; out has one
@@ -106,5 +127,19 @@ extern "C" int flake_rate_dfma(double* out, int blocks, int threads,
 extern "C" int flake_launch_floor(int blocks, int threads,
                                   cudaStream_t stream) {
   empty_kernel<<<blocks, threads, 0, stream>>>();
+  return static_cast<int>(cudaGetLastError());
+}
+
+// one warp, each lane a chain of 16 x iters dependent float64 (float32)
+// adds; out has 32 elements
+extern "C" int flake_latency_dadd(double* out, int iters,
+                                  cudaStream_t stream) {
+  add_chain_kernel<double><<<1, 32, 0, stream>>>(out, iters, 1e-9);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int flake_latency_fadd(float* out, int iters,
+                                  cudaStream_t stream) {
+  add_chain_kernel<float><<<1, 32, 0, stream>>>(out, iters, 1e-3f);
   return static_cast<int>(cudaGetLastError());
 }

@@ -253,15 +253,12 @@ def lpc_candidates(cfg: FrameConfig, autoc: torch.Tensor):
     """Every candidate order's quantized coefficients from the
     autocorrelation: Levinson for all orders (under EST: Schur, then
     Levinson seeded with its reflection coefficients, lpc.c:125-162) and
-    the quantizer. Returns (qcoefs int32 [N, max_order, max_order], shifts
-    int32 [N, max_order], refs [N, max_order])."""
-    if cfg.order_method == P.OrderMethod.EST:
-        refs = lpc_ops.schur_refs(autoc)
-        lpc_rows = lpc_ops.levinson_from_refs(refs)
-    else:
-        lpc_rows, refs = lpc_ops.levinson_all_orders(autoc)
-    qcoefs, shifts = lpc_ops.quantize_lpc_coefs(lpc_rows, cfg.precision)
-    return qcoefs, shifts, refs
+    the quantizer, one launch of L on the card
+    (:func:`~flake_tpu_torch.ops.lpc.candidates`). Returns (qcoefs int32
+    [N, max_order, max_order], shifts int32 [N, max_order], refs [N,
+    max_order])."""
+    return lpc_ops.candidates(autoc, cfg.order_method == P.OrderMethod.EST,
+                              cfg.precision)
 
 
 def candidate_bits(cfg: FrameConfig, cN: torch.Tensor, qcoefs, shifts,

@@ -30,6 +30,12 @@ coefficient quantization (port of ``flake_tpu/ops/lpc.py``, lpc.c).
   for bit), so each is a ``torch.addcmul`` here. EST reads
   ``|ref| > 0.10`` and the quantizer truncates, so one ulp can move an
   order or a coefficient.
+
+- :func:`candidates` is the whole coefficient stage: on a CUDA tensor one
+  launch of ``csrc/lpc.cu`` (L), which runs the recursions and the
+  quantizer with the plain versions' roundings; on a CPU tensor
+  :func:`candidates_plain`, the composition of the functions above, which
+  the kernel is held against on the card.
 """
 
 from __future__ import annotations
@@ -38,6 +44,9 @@ import functools
 
 import numpy as np
 import torch
+
+from flake_tpu_torch import _cuda
+from flake_tpu_torch import params as P
 
 
 def welch_window(n: int) -> np.ndarray:
@@ -236,8 +245,60 @@ def quantize_lpc_coefs(lpc: torch.Tensor, precision: int):
         q = torch.where(q > qmax, float(qmax), q)
         q = torch.where(tap_valid, q, 0.0)
         error = torch.where(tap_valid, e2 - q, error)
-        qs.append(q.to(torch.int32))
+        # a NaN tap casts to 0, as XLA's convert gives it (the host's
+        # cvttsd2si and the card's float64 conversion give INT32_MIN)
+        qs.append(torch.where(q.isnan(), 0.0, q).to(torch.int32))
     coefs = torch.stack(qs, dim=-1)
     coefs = torch.where(zero_out[..., None], 0, coefs)
     shift = torch.where(zero_out, 0, sh).to(torch.int32)
     return coefs, shift
+
+
+def candidates_plain(autoc: torch.Tensor, est: bool, precision: int):
+    """Every candidate order's quantized coefficients from the
+    autocorrelation: :func:`levinson_all_orders` (or, under ``est``,
+    :func:`schur_refs` then :func:`levinson_from_refs`) and
+    :func:`quantize_lpc_coefs`. Returns (qcoefs int32 [..., m, m], shifts
+    int32 [..., m], refs [..., m] in ``autoc``'s dtype), m the max order."""
+    if est:
+        refs = schur_refs(autoc)
+        rows = levinson_from_refs(refs)
+    else:
+        rows, refs = levinson_all_orders(autoc)
+    qcoefs, shifts = quantize_lpc_coefs(rows, precision)
+    return qcoefs, shifts, refs
+
+
+def candidates(autoc: torch.Tensor, est: bool, precision: int):
+    """:func:`candidates_plain`'s function. ``autoc`` float64 or float32
+    [..., m + 1], 1 <= m <= 32. A CPU tensor takes the plain version; a
+    CUDA tensor launches the kernel (``csrc/lpc.cu``), one warp a
+    stream, whose outputs equal the plain version's bit for bit."""
+    if autoc.device.type == "cpu":
+        return candidates_plain(autoc, est, precision)
+    if autoc.device.type != "cuda":
+        raise ValueError(f"candidates: no kernel for {autoc.device}")
+    if autoc.dtype not in (torch.float64, torch.float32):
+        raise ValueError(f"candidates: no kernel for {autoc.dtype}")
+    m = autoc.shape[-1] - 1
+    if not 1 <= m <= P.MAX_LPC_ORDER or not 2 <= precision <= 16:
+        raise ValueError(f"candidates: max order {m}, precision "
+                         f"{precision}; the kernel takes orders 1-"
+                         f"{P.MAX_LPC_ORDER} and precisions 2-16")
+    batch = autoc.shape[:-1]
+    N = batch.numel()
+    dev = autoc.device
+    autoc = autoc.reshape(N, m + 1).contiguous()
+    qcoefs = torch.empty((N, m, m), dtype=torch.int32, device=dev)
+    shifts = torch.empty((N, m), dtype=torch.int32, device=dev)
+    refs = torch.empty((N, m), dtype=autoc.dtype, device=dev)
+    if N:
+        _cuda.launch("flake_lpc_candidates", dev, autoc, qcoefs, shifts,
+                     refs, N, m, precision, int(est),
+                     int(autoc.dtype == torch.float64))
+        candidates.launches += 1
+    return (qcoefs.reshape(batch + (m, m)), shifts.reshape(batch + (m,)),
+            refs.reshape(batch + (m,)))
+
+
+candidates.launches = 0

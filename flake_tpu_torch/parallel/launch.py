@@ -109,7 +109,7 @@ def main(argv=None) -> int:
 
     from flake_tpu_torch import params as P
     from flake_tpu_torch.io import open_pcm
-    from flake_tpu_torch.ops import autocorr, bitmerge, rice, sweep
+    from flake_tpu_torch.ops import autocorr, bitmerge, lpc, rice, sweep
     from flake_tpu_torch.parallel import distributed
 
     rank = args.process_id if args.process_id is not None else 0
@@ -137,7 +137,8 @@ def main(argv=None) -> int:
                    "sweep_granules": sweep.sweep_granules,
                    "merge_words": bitmerge.merge_words,
                    "rice_scan": rice.rice_scan,
-                   "final_pass": rice.final_pass}
+                   "final_pass": rice.final_pass,
+                   "candidates": lpc.candidates}
         for fn in kernels.values():
             fn.launches = 0
         t0 = time.perf_counter()

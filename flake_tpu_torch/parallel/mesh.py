@@ -53,7 +53,7 @@ from flake_tpu_torch.ops import predict, stereo, wasted
 from flake_tpu_torch.ops.common import wrap_int32
 from flake_tpu_torch.ops.frame import (LPC_DTYPES, SF_LPC, FrameConfig,
                                        analyze_frames, finalize_analysis,
-                                       select_order)
+                                       lpc_candidates, select_order)
 from flake_tpu_torch.ops.rice import (_partition_sums,
                                       limit_max_partition_order, rice_scan,
                                       subframe_bits_from_sums, zigzag_u32)
@@ -321,12 +321,7 @@ def analyze_frames_sp(shards: list, cfg: FrameConfig,
     obitsN = obits.reshape(N)
     with annotate("sp autocorrelation"):
         autoc = autocorr_sp(xs, max_o, LPC_DTYPES[cfg.lpc_dtype])
-    if cfg.order_method == P.OrderMethod.EST:
-        refs = lpc_ops.schur_refs(autoc)
-        lpc_rows = lpc_ops.levinson_from_refs(refs)
-    else:
-        lpc_rows, refs = lpc_ops.levinson_all_orders(autoc)
-    qcoefs, shifts = lpc_ops.quantize_lpc_coefs(lpc_rows, cfg.precision)
+    qcoefs, shifts, refs = lpc_candidates(cfg, autoc)
     with annotate("sp halo"):
         exts = [torch.cat([h, x], dim=-1).to(i64)
                 for h, x in zip(_left_halo(xs, max_o), xs)]

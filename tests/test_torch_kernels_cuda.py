@@ -43,11 +43,20 @@ boundary, ``merge_v3`` on inputs off it and on chunk bounds in no order,
 negative ones among them; the one zero floor behind U1's zero variant and
 U3e / U3f at fb = 1, 8, 16 and 32 and on a ragged 3 x 128 ints, and these,
 ``merge_v2``, ``merge_v3``, ``merge_v5d`` and ``merge_v5c`` writing into a
-view of a sentinel-filled buffer, on and off a 16-byte boundary. The
+view of a sentinel-filled buffer, on and off a 16-byte boundary. L (the
+LPC coefficient stage, ``csrc/lpc.cu``) in float64 and float32, under
+Levinson and EST, against its plain version bit for bit (NaNs equal) on
+windowed autocorrelations at orders 1-32 and precisions 5-15 for N from 1
+to 13,696, on the quantizer's shift boundaries (cmax 0, subnormal, powers
+of two, qmax * 2^-sh and its neighbours, above qmax) at precisions 5-15,
+on degenerate autocorrelations (inf and NaN), on a non-contiguous batched
+view, and on every call of the encoder at levels 5, 8 and 12. The
 command line (``flake_tpu_torch.cli``) on the card writes the file it
 writes with ``--device cpu`` at ``-5 -b 4608`` (both emissions) and
 ``-8``.
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -1095,3 +1104,156 @@ def test_cli_on_the_card_equals_the_cpu(dev, tmp_path, args):
     dec = decoder.decode_stream(blob)
     assert dec.md5_ok
     np.testing.assert_array_equal(dec.samples, pcm)
+
+
+# -- L: the LPC coefficient stage -------------------------------------------
+
+def _same_bits(got, want):
+    """Equal dtype, shape and bits; two NaNs count as equal."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if got.dtype.is_floating_point:
+        nan = got.isnan() & want.isnan()
+        bits = {torch.float32: torch.int32,
+                torch.float64: torch.int64}[got.dtype]
+        got = torch.where(nan, 0, got.view(bits))
+        want = torch.where(nan, 0, want.view(bits))
+    bad = int((got != want).sum())
+    assert bad == 0, f"{bad} of {got.numel()} differ"
+
+
+def _candidates_on_card(autoc, est, precision):
+    """L against its plain version on the same card tensor: every output
+    bit for bit; one launch."""
+    before = lpc.candidates.launches
+    got = lpc.candidates(autoc, est, precision)
+    torch.cuda.synchronize()
+    assert lpc.candidates.launches == before + 1
+    want = lpc.candidates_plain(autoc, est, precision)
+    for g, w in zip(got, want):
+        _same_bits(g, w)
+    return got
+
+
+def _stream_autoc(N, B, max_order, seed, dev):
+    x = _tonal(N, B, 16, seed).to(dev)
+    x[3::7] //= 1000                                  # quiet streams
+    return k1.autocorr(x, lpc.welch_window_on(B, dev), max_order)
+
+
+def _boundary_autoc(precision):
+    """[1, c, 0, 0, 0] for c at the quantizer's edges: row 0 is c, the
+    higher rows are far from positive definite."""
+    qmax = (1 << (precision - 1)) - 1
+    edges = [qmax * 2.0 ** -sh for sh in range(16)] \
+        + [2.0 ** k for k in range(-20, 21)] \
+        + [qmax + 0.5, qmax + 1.0, 2.0 * qmax, 1e6, 1e30, 1e300]
+    c = [0.0, -0.0, 5e-324, 1e-310, 2.2250738585072014e-308]
+    for e in edges:
+        c += [np.nextafter(e, 0.0), e, np.nextafter(e, np.inf)]
+    c = np.asarray(c)
+    c = np.concatenate([c, -c[c != 0]])
+    autoc = np.zeros((c.size, 5))
+    autoc[:, 0], autoc[:, 1] = 1.0, c
+    return torch.from_numpy(autoc)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("est", [False, True], ids=["levinson", "est"])
+@pytest.mark.parametrize("max_order,precision,N", [
+    (1, 15, 12), (12, 15, 1024), (12, 5, 77), (32, 15, 428), (32, 5, 3),
+    (8, 15, 1), (32, 15, 13696), (7, 11, 5)])
+def test_candidates_kernel_on_streams(dev, max_order, precision, N, est,
+                                      dtype):
+    """Windowed autocorrelations (silent, constant and quiet streams
+    among them; the silent one's Schur gives NaNs) at the orders and
+    precisions the levels use and the edges, N from 1 to 13,696 (the
+    level-12 batch's bucket of 4096 at order 32)."""
+    autoc = _stream_autoc(N, 1024 if N > 1024 else 4096, max_order,
+                          max_order * N, dev).to(dtype)
+    q, sh, _ = _candidates_on_card(autoc, est, precision)
+    if N > 1:
+        assert (q[0] != 0).any() and (sh[0] > 0).any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("est", [False, True], ids=["levinson", "est"])
+@pytest.mark.parametrize("precision", range(5, 16))
+def test_candidates_kernel_shift_boundaries(dev, precision, est, dtype):
+    """cmax at 0, subnormals, powers of two, the qmax * 2^-sh boundaries
+    and their neighbours, the zero-out edge and above qmax (scale-down),
+    and the inf and NaN rows above them."""
+    autoc = _boundary_autoc(precision).to(dev, dtype)
+    q, sh, _ = _candidates_on_card(autoc, est, precision)
+    assert (sh[:, 0] == 15).any() and (sh[:, 0] == 0).any()
+    assert (q[:, 0, 0].abs() == (1 << (precision - 1)) - 1).any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("est", [False, True], ids=["levinson", "est"])
+def test_candidates_kernel_degenerate(dev, est, dtype):
+    """Zero, negative, huge, inf and NaN lags; a zero or negative lag 0."""
+    rng = np.random.default_rng(17)
+    autoc = rng.normal(0, 1, (40, 33)) * 10.0 ** rng.integers(-5, 6, (40, 1))
+    autoc[:, 0] = np.abs(autoc[:, 0])
+    autoc[0], autoc[1], autoc[2, 0], autoc[3, 0] = 0.0, 2.0, 0.0, -1.0
+    autoc[4, 3], autoc[5, 2], autoc[7, 1:] = np.inf, np.nan, 0.0
+    _, _, refs = _candidates_on_card(
+        torch.from_numpy(autoc).to(dev, dtype), est, 15)
+    assert refs.isnan().any() or refs.isinf().any()
+
+
+def test_candidates_kernel_noncontiguous_and_batched(dev):
+    """A strided [2, 6, 13] view (every other column of a wider tensor)
+    gives the plain version's bits in the batch's shape."""
+    wide = _stream_autoc(12, 4096, 25, 5, dev).reshape(2, 6, 26)
+    autoc = wide[..., ::2]
+    assert not autoc.is_contiguous()
+    q, sh, refs = _candidates_on_card(autoc, False, 15)
+    assert q.shape == (2, 6, 12, 12) and sh.shape == refs.shape == (2, 6, 12)
+
+
+@pytest.mark.parametrize("level", [5, 8, 12])
+def test_candidates_kernel_on_encoder_calls(dev, level, monkeypatch):
+    """Every call the encoder makes at levels 5 (EST), 8 and 12 on 3 s of
+    music-like signal is one launch of L and equals the plain version;
+    no recursion of the plain version runs on the card."""
+    calls = []
+    kern = lpc.candidates
+
+    @functools.wraps(kern)      # carries .launches, which L counts on
+    def record(autoc, est, precision):
+        calls.append((autoc.clone(), est, precision))
+        return kern(autoc, est, precision)
+
+    def refuse(name):
+        def run(*args, **kwargs):
+            raise AssertionError(f"{name} ran on the card")
+        return run
+
+    monkeypatch.setattr(lpc, "candidates", record)
+    for name in ("levinson_all_orders", "schur_refs", "levinson_from_refs",
+                 "quantize_lpc_coefs"):
+        monkeypatch.setattr(lpc, name, refuse(name))
+    n = 3 * 44100
+    t = np.arange(n)
+    rng = np.random.default_rng(level)
+    pcm = np.stack([9000 * np.sin(2 * np.pi * 220 * t / 44100),
+                    7000 * np.sin(2 * np.pi * 330 * t / 44100)], 1) \
+        + rng.normal(0, 300, (n, 2))
+    pcm[44100:50000] = 0
+    pcm = np.clip(np.rint(pcm), -32768, 32767).astype(np.int32)
+    cfg = P.StreamConfig(params=P.set_defaults(level))
+    flake_tpu_torch.Encoder(cfg, device=dev).encode_stream(pcm)
+    monkeypatch.undo()
+    assert calls and all(est == (level == 5) for _, est, _ in calls)
+    for autoc, est, precision in calls:
+        _candidates_on_card(autoc, est, precision)
+
+
+def test_candidates_kernel_refuses(dev):
+    with pytest.raises(ValueError, match="max order"):
+        lpc.candidates(torch.ones((4, 34), dtype=torch.float64, device=dev),
+                       False, 15)
+    with pytest.raises(ValueError, match="int32"):
+        lpc.candidates(torch.ones((4, 13), dtype=torch.int32, device=dev),
+                       False, 15)
