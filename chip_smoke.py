@@ -10,9 +10,13 @@ variants of the emission-profiling tool, U2, the merge prototypes
 ``merge_zero_fb``, one kernel with U1's zero variant, and R1 and R2, the
 Rice search from partition sums and the final pass from the samples (the
 residual, its int32 fit flag and the Rice search with the exact bits),
-and L, the LPC coefficient stage (Levinson for every order, or Schur and
-the seeded Levinson, then the quantizer, in one launch), which no Pallas
-kernel stands behind) and its host libraries (CRC
+L, the LPC coefficient stage (Levinson for every order, or Schur and
+the seeded Levinson, then the quantizer, in one launch), and the four
+kernels of the last launch chains: S, the order selection (LOG, LEVEL and
+SEARCH), X, the FIXED order search, H, the frame head (stereo mode and
+decorrelation, wasted bits, constant flags) and E, the slot layout; no
+Pallas kernel stands behind R1, R2, L, S, X, H or E) and its host
+libraries (CRC
 patcher, decoder helpers) from this checkout, and holds each kernel
 against its plain PyTorch version: R1 and R2 on the inputs the first
 level-8 batch and the level-12 8192 bucket give them (timed there beside
@@ -90,7 +94,12 @@ card's measured float64 (float32) add latency, and on made-up tables (the
 shift search's edges at precisions 5-15, degenerate autocorrelations) in
 both dtypes and both modes. The Schur and Levinson recursions of the EST
 order method must give the same float64 bits on the card and on the host,
-and torch.addcmul in both dtypes is read against the host's.
+and torch.addcmul in both dtypes is read against the host's. S, H and E
+must give their plain versions' bits on the inputs of the first level-8
+batch and of the level-12 8192 bucket, X on those of the first level-2
+batch (512 frames of 1,152), each timed beside its plain version with its
+bound by bytes and int32 operations (no PyTorch call computes any of
+them: library none).
 
 Three-second windows must give the same bytes through
 ``Encoder(device="cpu")`` (the plain versions) and
@@ -107,7 +116,8 @@ each of those and the level-12 and level-11 streams is encoded once with
 K1-K4, R1, R2 and L recorded, and every call they got, each batch and the
 partial last block, is held against the plain version again (K1 at 13, 9, 7 and 33
 lags, K2 at orders 12, 8 and 32, K3 on 1152- to 8192-sample frames and in
-both instantiations, K4 on every bucket it sums). Then the main paths run, each with the launch counts set to 0 just before it
+both instantiations, K4 on every bucket it sums; S, X, H and E too).
+Then the main paths run, each with the launch counts set to 0 just before it
 and read just after: the profiling tool
 (``flake_tpu_torch.util.prof_merge.main``; K1, K3, K4, K5 and U1 must
 launch),
@@ -119,7 +129,9 @@ the merge-prototype tools (``prof_merge2.main`` and ``main_v3``: K5 and
 180 s of deterministic 16-bit / 44.1 kHz stereo at level 8 (K1-K4 must
 launch: K2 for the partial last block) and at level 5 (EST: K1 and K3
 must launch, K2 and K4 must not), 60 s of it at level 7 (K1-K4), 30 s at
-levels 3 (K1, K3) and 2, 1, 0 (block 1152, K3 only),
+levels 3 (K1, K3) and 2, 1, 0 (block 1152, K3 only), 32 blocks and a
+10-sample tail at level 8 (the tail takes X at an LPC level; the CPU
+encoder must give its bytes),
 a second deterministic stream with level jumps, bursts and silences
 at levels 12 and 11, whose variable block sizes must split into at least
 four sub-block sizes, 4096 and 8192 among them (K1-K4 must launch), and
@@ -145,9 +157,12 @@ stage, decoded with its MD5, and its peak device memory may lie no more
 than ``LONG_PEAK_SLACK_MIB`` above its level's short stream's (printed by
 stage beside it). On every path R2 must launch wherever a stream is
 predicted, R1 wherever a sweep runs (R1 also on the sp path, in its final
-search) and L wherever LPC runs (the sp path too), and no plain version of
-the three, nor the plain final pass's lag loop, nor a plain recursion or
-quantizer, may see a card tensor.
+search), L wherever LPC runs (the sp path too), S wherever the order
+method reads bits (the sp path too), X on every FIXED level, H on every
+dense analysis and E on every device emission (each sp rank's too), and
+no plain version of the seven, nor the plain final pass's lag loop, nor a
+plain recursion or quantizer, nor the plain pieces of the order
+selection, the FIXED search and the frame head, may see a card tensor.
 
 Then the file path, as a user runs it (``flake_tpu_torch.cli.main``, the
 launch counts set to 0 around each run), on WAV files written by the
@@ -455,7 +470,8 @@ import json, resource, sys, time
 import torch
 from flake_tpu_torch import params as P
 from flake_tpu_torch.io import open_pcm
-from flake_tpu_torch.ops import autocorr, bitmerge, lpc, rice, sweep
+from flake_tpu_torch.ops import autocorr, bitmerge, bitpack, frame, lpc
+from flake_tpu_torch.ops import rice, sweep
 from flake_tpu_torch.parallel import distributed as D
 rank, nproc, port, wav, out, level, device = (
     int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4], sys.argv[5],
@@ -470,7 +486,10 @@ cfg = P.StreamConfig(channels=info.channels, sample_rate=info.sample_rate,
 kernels = {"autocorr": autocorr.autocorr, "sweep_sums": sweep.sweep_sums,
            "sweep_granules": sweep.sweep_granules,
            "merge_words": bitmerge.merge_words, "rice_scan": rice.rice_scan,
-           "final_pass": rice.final_pass, "candidates": lpc.candidates}
+           "final_pass": rice.final_pass, "candidates": lpc.candidates,
+           "select_order_bits": frame.select_order_bits,
+           "fixed_search": rice.fixed_search, "frame_head": frame.frame_head,
+           "slot_layout": bitpack.slot_layout}
 for fn in kernels.values():
     fn.launches = 0
 t0 = time.perf_counter()
@@ -576,10 +595,12 @@ def sharded_paths(card, pcm, count_launches, launched) -> None:
     from flake_tpu_torch.parallel.runner import shard_ranges
 
     k1234 = ("autocorr", "sweep_sums", "merge_words", "sweep_granules",
-             "rice_scan", "final_pass", "candidates")
+             "rice_scan", "final_pass", "candidates", "select_order_bits",
+             "frame_head", "slot_layout")
     # config 5's tails (2,048 and 512 samples) take K4, so K2 need not run
     on_card = ("autocorr", "sweep_granules", "merge_words", "rice_scan",
-               "final_pass", "candidates")
+               "final_pass", "candidates", "select_order_bits", "frame_head",
+               "slot_layout")
     cfg8 = P.StreamConfig(channels=2, sample_rate=SAMPLE_RATE,
                           bits_per_sample=16, params=P.set_defaults(8))
 
@@ -604,8 +625,10 @@ def sharded_paths(card, pcm, count_launches, launched) -> None:
                 path, lambda: Encoder(cfg8, mesh=mesh, pack_backend=backend)
                 .encode_stream(seg),
                 k1234 if backend == "device"
-                else tuple(k for k in k1234 if k != "merge_words"),
-                () if backend == "device" else ("merge_words",))
+                else tuple(k for k in k1234
+                           if k not in ("merge_words", "slot_layout")),
+                () if backend == "device" else ("merge_words",
+                                                "slot_layout"))
             wall = time.perf_counter() - t0
             if got != want:
                 fail(f"{path}: the bytes differ from one device's")
@@ -796,16 +819,20 @@ def sp_paths(card, streams, count_launches, launched) -> None:
 
     def cpu_only(name, plain):
         def run(x, *args):
-            if x.device.type != "cpu":
+            # the slot layout's plain version takes the analysis dict
+            t = x["sf_type"] if isinstance(x, dict) else x
+            if t.device.type != "cpu":
                 fail(f"the sp path ran {name}, a plain version of a kernel, "
-                     f"on {x.device}")
+                     f"on {t.device}")
             return plain(x, *args)
         return run
 
     plains = [(lpc, "autocorr"), (sweep, "sweep_sums_plain"),
               (sweep, "sweep_granules_plain"), (bitmerge, "merge_words_plain"),
               (rice, "rice_scan_plain"), (rice, "rice_final_plain"),
-              (rice, "final_pass_plain"), (lpc, "candidates_plain")]
+              (rice, "final_pass_plain"), (lpc, "candidates_plain"),
+              (frame, "select_order_bits_plain"),
+              (bitpack, "slot_layout_plain")]
     originals = [(mod, name, getattr(mod, name)) for mod, name in plains]
     for mod, name, orig in originals:
         setattr(mod, name, cpu_only(name, orig))
@@ -858,10 +885,15 @@ def sp_paths(card, streams, count_launches, launched) -> None:
                 enc = Encoder(cfg, mesh=mesh)
                 t0 = time.perf_counter()
                 # R1: the order loop's scan and the final search; L: the
-                # coefficient stage, once a group
+                # coefficient stage, once a group; S where the order method
+                # reads bits; E before K3
+                reads_bits = cfg.params.order_method not in (
+                    P.OrderMethod.MAX, P.OrderMethod.EST)
                 blob = count_launches(path, lambda: enc.encode_stream(pcm),
-                                      ("merge_words", "rice_scan",
-                                       "candidates"))
+                                      ("merge_words", "slot_layout",
+                                       "rice_scan", "candidates")
+                                      + (("select_order_bits",)
+                                         if reads_bits else ()))
                 cold = time.perf_counter() - t0
                 peaks = {m["device"]: m["peak_bytes_in_use"] / 2**20
                          for m in profiling.device_memory_stats()
@@ -884,8 +916,9 @@ def sp_paths(card, streams, count_launches, launched) -> None:
                 host = count_launches(
                     f"{path}, host emission",
                     lambda: Encoder(cfg, mesh=mesh, pack_backend="host")
-                    .encode_stream(pcm), ("rice_scan", "candidates"),
-                    ("merge_words",))
+                    .encode_stream(pcm), ("rice_scan", "candidates")
+                    + (("select_order_bits",) if reads_bits else ()),
+                    ("merge_words", "slot_layout"))
                 if host != blob:
                     fail(f"{path}: the host emission's bytes differ from "
                          "K3's")
@@ -994,11 +1027,13 @@ def sp_paths(card, streams, count_launches, launched) -> None:
 
     # the entry points
     count_launches("dryrun_multichip(4)",
-                   lambda: graft_entry.dryrun_multichip(4), ("merge_words",))
+                   lambda: graft_entry.dryrun_multichip(4),
+                   ("merge_words", "slot_layout"))
     fn, args = graft_entry.entry()
     out = count_launches("graft entry", lambda: fn(*args),
                          ("autocorr", "sweep_granules", "merge_words",
-                          "rice_scan", "final_pass", "candidates"))
+                          "rice_scan", "final_pass", "candidates",
+                          "select_order_bits", "frame_head", "slot_layout"))
     if not torch.equal(out["total_bits"].to(torch.int64),
                        8 * out["frame_bytes"]):
         fail("graft entry: total_bits is not 8 x frame_bytes")
@@ -1022,16 +1057,19 @@ def measurement_paths(card, count_launches) -> None:
 
     k1234 = ("autocorr", "sweep_granules", "merge_words", "sweep_sums")
     rice12 = ("rice_scan", "final_pass", "candidates")
+    # S where the order method reads bits, H on every dense analysis, E on
+    # every device emission; X at the level matrix's FIXED levels
+    she = ("select_order_bits", "frame_head", "slot_layout")
     t0 = time.perf_counter()
     res = count_launches("bench", lambda: bench.run(device="cuda"),
-                         k1234 + rice12)
+                         k1234 + rice12 + she)
     if res["e2e_verified"] is not True or res["host_pack_gbps"] is None:
         fail(f"bench: {res}")
     print(f"bench on {card}: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     rows = count_launches("bench matrix",
                           lambda: bench_matrix.run(device="cuda"),
-                          k1234 + rice12)
+                          k1234 + rice12 + she)
     if [r["config"] for r in rows] != [c[0] for c in bench_matrix.CONFIGS] \
             or any(r["device_pack_parity"] is not True for r in rows):
         fail(f"bench matrix: {rows}")
@@ -1040,13 +1078,15 @@ def measurement_paths(card, count_launches) -> None:
     t0 = time.perf_counter()
     cells, seconds = count_launches(
         "level matrix",
-        lambda: level_matrix.run(device="cuda"), k1234 + rice12)
+        lambda: level_matrix.run(device="cuda"),
+        k1234 + rice12 + she + ("fixed_search",))
     print(f"level matrix on {card}: {len(cells)} cells of {seconds:g} s, "
           f"each decoded with its MD5, in {time.perf_counter() - t0:.1f} s",
           flush=True)
     for level in (5, 8, 12):
-        needs = ("autocorr", "final_pass", "candidates") if level == 5 \
-            else ("autocorr", "sweep_granules") + rice12
+        needs = ("autocorr", "final_pass", "candidates", "frame_head") \
+            if level == 5 else ("autocorr", "sweep_granules") + rice12 \
+            + ("select_order_bits", "frame_head")
         res = count_launches(
             f"prof_an5 level {level}",
             lambda: prof_an5.run(level, device="cuda"), needs,
@@ -1449,6 +1489,7 @@ def main() -> None:
     from flake_tpu_torch.ops import autocorr as k1_mod
     from flake_tpu_torch.ops import bitmerge as k3_mod
     from flake_tpu_torch.ops import bitpack, frame, lpc, predict, rice
+    from flake_tpu_torch.ops import stereo, wasted
     from flake_tpu_torch.ops import sweep as sweep_mod
     from flake_tpu_torch.ops.common import wrap_int32
     from flake_tpu_torch.parallel import mesh as mesh_mod
@@ -1550,7 +1591,9 @@ def main() -> None:
     cap8 = capture(
         [(frame, "autocorr"), (frame, "sweep_granules"),
          (bitpack, "merge_words"), (rice, "rice_scan"),
-         (frame, "final_pass"), (lpc, "candidates")],
+         (frame, "final_pass"), (lpc, "candidates"),
+         (frame, "select_order_bits"), (frame, "frame_head"),
+         (bitpack, "slot_layout")],
         lambda: analyze_and_pack(
             torch.from_numpy(pcm[:BATCH * BLOCK].reshape(BATCH, BLOCK, 2))
             .to(dev), fcfg8, np.arange(BATCH, dtype=np.int64), 0))
@@ -1829,7 +1872,9 @@ def main() -> None:
     cap12 = capture(
         [(frame, "autocorr"), (frame, "sweep_granules"),
          (bitpack, "merge_words"), (rice, "rice_scan"),
-         (frame, "final_pass"), (lpc, "candidates")],
+         (frame, "final_pass"), (lpc, "candidates"),
+         (frame, "select_order_bits"), (frame, "frame_head"),
+         (bitpack, "slot_layout")],
         lambda: analyze_and_pack(
             torch.from_numpy(supers[f_idx[whole]]).to(dev), fcfg12,
             f_idx[whole] * vbs, 1))
@@ -2818,6 +2863,126 @@ def main() -> None:
           f"{ {int(k): int(v) for k, v in zip(*torch.unique(est, return_counts=True))} }",
           flush=True)
 
+    # -- 4e. S, X, H and E: the analysis's and the emission's launch chains --
+    def frame_kernel(name, source, replaces, kern, plain, shapes):
+        """One of S, X, H and E held against its plain version bit for bit on
+        each of ``shapes`` (key, label, args, reads, ops) and timed with it
+        in turns (the kernel back to back, the plain version in a plain
+        loop, as the analysis calls it); its bound from the bytes of
+        ``reads`` (read once) and of its outputs (written once) and ``ops``
+        int32 operations. The first shape is the entry's own, the others
+        go under their keys."""
+        entry = {"name": name, "route": "cuda", "source": source,
+                 "replaces": replaces, "library_ms": None,
+                 "max_abs_err": 0.0,
+                 "timed": {"ms": "back_to_back", "plain_ms": "loop"}}
+        for key, label, args, reads, ops in shapes:
+            _, detail = check(name, lambda: kern(*args),
+                              lambda: plain(*args), cmp_exact)
+
+            def run_kern():
+                return kern(*args)
+
+            def run_plain():
+                return plain(*args)
+
+            plain_ms, ms = time_turns(run_plain, run_kern, loop=(run_plain,))
+            out = run_kern()
+            moved = nbytes(*reads) + nbytes(
+                *(out if isinstance(out, tuple) else (out,)))
+            bound_ms, bound_by = bound(moved, ops, INT32_OPS_PER_MS)
+            row = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                   "bound_by": bound_by, "shape": label}
+            print(f"{name} on {label}: {detail}; kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms by {bound_by} "
+                  f"({moved / 1e6:.2f} MB, {ops / 1e9:.4f} G int32 "
+                  "operations), library call none", flush=True)
+            if key is None:
+                entry.update(row)
+            else:
+                entry[key] = row
+        kernels.append(entry)
+
+    def s_ops(bits, method):
+        """S's int32 operations: LOG's 15 visits of about ten (a clamp, two
+        mask tests, two reads, a compare) a stream; the others two a read
+        column."""
+        N, m = bits.shape
+        return N * (150 if method == P.OrderMethod.LOG else 2 * m)
+
+    def s_shape(key, label, args):
+        return (key, label, args, (args[0],), s_ops(args[0], args[1]))
+
+    def h_shape(key, label, args):
+        """H reads the samples once; about 16 operations a sample for the
+        stereo sums and 8 a sample and channel for the OR, the compare, the
+        decorrelation and the shift."""
+        samples, cfg = args
+        F, n, C = samples.shape
+        return (key, label, args, (samples,), F * n * (16 + 8 * C))
+
+    def e_shape(key, label, args):
+        """E reads the analysis tables (the residual once) and the header;
+        about twenty operations a slot written."""
+        analysis, hb, hn, cfg = args
+        F = analysis["sf_type"].shape[0]
+        reads = [analysis[k] for k in (*bitpack._SLOT_TABLES, "coefs",
+                                       "rice_params", "residual",
+                                       "ch_mode")] + [hb, hn]
+        M = bitpack.slot_layout_plain(analysis, hb, hn, cfg)[0].shape[1]
+        return (key, label, args, reads, 20 * F * M)
+
+    cfg2 = stream_config(2)
+    block2 = cfg2.params.block_size
+    fcfg2 = frame.FrameConfig.from_params(cfg2.params, 2, 16)
+    cap2 = capture(
+        [(frame, "fixed_search")],
+        lambda: analyze_and_pack(
+            torch.from_numpy(pcm[:BATCH * block2].reshape(BATCH, block2, 2))
+            .to(dev), fcfg2, np.arange(BATCH, dtype=np.int64), 0))
+    x_args = cap2["fixed_search"][0]
+    xc = x_args[0]
+    orders_x = x_args[3] - x_args[2] + 1
+    x_ps = rice.limit_max_partition_order(x_args[5], xc.shape[-1], 1)
+    frame_kernel(
+        "select_order_bits", "flake_tpu_torch/csrc/select.cu",
+        "flake_tpu/ops/frame.py:102 (_select_order_log; LEVEL "
+        "_select_order_level :142, SEARCH's argmin :181; no pl.pallas_call)",
+        frame.select_order_bits, frame.select_order_bits_plain,
+        [s_shape(None, "the level-8 batch (LOG)",
+                 cap8["select_order_bits"][0]),
+         s_shape(f"level12_{vbs}", f"the level-12 {vbs} bucket",
+                 cap12["select_order_bits"][0])])
+    frame_kernel(
+        "fixed_search", "flake_tpu_torch/csrc/rice.cu",
+        "flake_tpu/ops/frame.py:323 (the FIXED order loop: "
+        "predict.residual_fixed and rice.subframe_bits, whose "
+        "calc_rice_params is rice.py:158; no pl.pallas_call)",
+        rice.fixed_search, rice.fixed_search_plain,
+        # about 40 operations a sample over five orders (their multiply-
+        # adds, zigzags and sums) and R1's scan of each level's partitions
+        [(None, f"the level-2 batch ({xc.shape[0]} x {xc.shape[1]} x "
+          f"{xc.shape[2]})", x_args, x_args[:2],
+          xc.numel() * 8 * orders_x
+          + xc.numel() // xc.shape[-1] * orders_x * (2 << x_ps) * 20)])
+    frame_kernel(
+        "frame_head", "flake_tpu_torch/csrc/head.cu",
+        "flake_tpu/ops/frame.py:279 (analyze_frames before the prediction: "
+        "stereo.decorr_mode, apply_decorr, wasted.remove_wasted_bits, the "
+        "constant test; no pl.pallas_call)",
+        frame.frame_head, frame.frame_head_plain,
+        [h_shape(None, "the level-8 batch", cap8["frame_head"][0]),
+         h_shape(f"level12_{vbs}", f"the level-12 {vbs} bucket",
+                 cap12["frame_head"][0])])
+    frame_kernel(
+        "slot_layout", "flake_tpu_torch/csrc/slots.cu",
+        "flake_tpu/ops/bitpack.py:402 (pack_frames_device's slot tables, "
+        ":421-625; no pl.pallas_call)",
+        bitpack.slot_layout, bitpack.slot_layout_plain,
+        [e_shape(None, "the level-8 batch", cap8["slot_layout"][0]),
+         e_shape(f"level12_{vbs}", f"the level-12 {vbs} bucket",
+                 cap12["slot_layout"][0])])
+
     # -- 5. the sweeps on every shape the level-12 path gives them ----------
     # every shape the sweeping levels give them: order 8 at level 7 and
     # order 12 at level 8 (their first 60 s), order 12 at every sub-block
@@ -2970,18 +3135,30 @@ def main() -> None:
             "sweep_granules": (sweep_mod.sweep_granules,
                                sweep_mod.sweep_granules_plain, cmp_exact),
             "candidates": (lpc.candidates, lpc.candidates_plain, cmp_bits),
+            "select_order_bits": (frame.select_order_bits,
+                                  frame.select_order_bits_plain, cmp_exact),
+            "fixed_search": (rice.fixed_search, rice.fixed_search_plain,
+                             cmp_exact),
+            "frame_head": (frame.frame_head, frame.frame_head_plain,
+                           cmp_exact),
+            "slot_layout": (bitpack.slot_layout, bitpack.slot_layout_plain,
+                            cmp_exact),
             **{name: (*fns, cmp_exact) for name, fns in rice_held.items()}}
 
     def with_rice(needs):
         """A path's kernels with R2, which runs wherever a stream is
-        predicted (LPC or FIXED), R1, which runs wherever a sweep does
-        (the order method reads bit counts), and L, wherever LPC runs (K1
-        or a sweep; the float32 path has no K1)."""
+        predicted (LPC or FIXED), H, on every dense analysis, R1 and S,
+        which run wherever a sweep does (the order method reads bit
+        counts), L wherever LPC runs (K1 or a sweep; the float32 path has no
+        K1), X where it does not (the FIXED levels; at the LPC levels X
+        takes only tails of at most the highest order's samples, and may
+        run), and E wherever K3 does (every device emission)."""
         sweeps_run = set(needs) & {"sweep_sums", "sweep_granules"}
         lpc_runs = sweeps_run or "autocorr" in needs
-        return tuple(needs) + ("final_pass",) \
-            + (("rice_scan",) if sweeps_run else ()) \
-            + (("candidates",) if lpc_runs else ())
+        return tuple(needs) + ("final_pass", "frame_head") \
+            + (("rice_scan", "select_order_bits") if sweeps_run else ()) \
+            + (("candidates",) if lpc_runs else ("fixed_search",)) \
+            + (("slot_layout",) if "merge_words" in needs else ())
 
     # the kernels each wide stream's encode calls: K2 only where a block
     # size K4 cannot sum occurs (the 32-bit stream's 2,728-sample tail; the
@@ -3007,9 +3184,12 @@ def main() -> None:
             [(frame, "autocorr"), (frame, "sweep_sums"),
              (frame, "sweep_granules"), (bitpack, "merge_words"),
              (rice, "rice_scan"), (frame, "final_pass"),
-             (lpc, "candidates")],
+             (lpc, "candidates"), (frame, "select_order_bits"),
+             (frame, "fixed_search"), (frame, "frame_head"),
+             (bitpack, "slot_layout")],
             lambda: Encoder(cfg, device="cuda").encode_stream(stream))
-        if set(calls) != set(needs):
+        tails = {"fixed_search"} if "candidates" in needs else set()
+        if set(calls) - tails != set(needs):
             fail(f"{label} called {sorted(calls)}, expected "
                  f"{sorted(needs)}")
         for name, args_of_calls in calls.items():
@@ -3020,7 +3200,9 @@ def main() -> None:
                                lambda: kern(*args), lambda: plain(*args),
                                compare)
                 worst = max(worst, rel_err.pop(f"{name} on {label}", err))
-            shapes = sorted({tuple(args[0].shape) for args in args_of_calls})
+            shapes = sorted({tuple(
+                (args[0]["residual"] if name == "slot_layout" else args[0])
+                .shape) for args in args_of_calls})
             what = (f", {args_of_calls[0][2] + 1} lags" if name == "autocorr"
                     else f", order {args_of_calls[0][3]}"
                     if name in sweeps else "")
@@ -3061,7 +3243,11 @@ def main() -> None:
                "prof_merge_zero_fb": tool3.merge_zero_fb,
                "prof_merge_zero_rows": tool3.merge_zero_rows,
                "rice_scan": rice.rice_scan, "final_pass": rice.final_pass,
-               "candidates": lpc.candidates}
+               "candidates": lpc.candidates,
+               "select_order_bits": frame.select_order_bits,
+               "fixed_search": rice.fixed_search,
+               "frame_head": frame.frame_head,
+               "slot_layout": bitpack.slot_layout}
     launched = {name: {} for name in counted}   # name -> {path: count}
     k3_launched_by = {}     # path -> K3's launches by instantiation
 
@@ -3071,9 +3257,10 @@ def main() -> None:
         for fn in counted.values():
             fn.launches = 0
         k3_mod.merge_words.launches_by = {"shared": 0, "global": 0}
-        # no plain Rice search, no lag loop of the plain final pass and no
-        # plain recursion or quantizer may run on a card tensor on a main
-        # path
+        # no plain Rice search, no lag loop of the plain final pass, no
+        # plain recursion or quantizer, and no plain order selection, FIXED
+        # search, frame head or slot layout (nor the pieces of them) may run
+        # on a card tensor on a main path
         plains = [(mod, name, getattr(mod, name))
                   for mod, name in ((rice, "rice_scan_plain"),
                                     (rice, "rice_final_plain"),
@@ -3083,12 +3270,22 @@ def main() -> None:
                                     (lpc, "levinson_all_orders"),
                                     (lpc, "schur_refs"),
                                     (lpc, "levinson_from_refs"),
-                                    (lpc, "quantize_lpc_coefs"))]
+                                    (lpc, "quantize_lpc_coefs"),
+                                    (frame, "select_order_bits_plain"),
+                                    (frame, "_select_order_log"),
+                                    (rice, "fixed_search_plain"),
+                                    (rice, "calc_rice_params"),
+                                    (frame, "frame_head_plain"),
+                                    (stereo, "decorr_mode"),
+                                    (wasted, "remove_wasted_bits"),
+                                    (bitpack, "slot_layout_plain"))]
         on_card = set()
 
         def guard(name, plain):
             def run_plain(x, *args):
-                if x.device.type != "cpu":
+                # the slot layout's plain version takes the analysis dict
+                t = x["sf_type"] if isinstance(x, dict) else x
+                if t.device.type != "cpu":
                     on_card.add(name)
                 return plain(x, *args)
             return run_plain
@@ -3205,8 +3402,9 @@ def main() -> None:
             f"{label}, host emission",
             lambda: Encoder(cfg, device="cuda",
                             pack_backend="host").encode_stream(stream),
-            tuple(n for n in needs if n != "merge_words"),
-            tuple(never) + ("merge_words",))
+            tuple(n for n in needs if n not in ("merge_words",
+                                                "slot_layout")),
+            tuple(never) + ("merge_words", "slot_layout"))
         if host_blob != blob:
             fail(f"{label}: the host emission's bytes differ from K3's")
         print(f"{label}: the host emission (native packer) gives K3's "
@@ -3325,6 +3523,17 @@ def main() -> None:
         dec = drive(f"level {level}", cfg, stream, needs, never)
         if dec.streaminfo.min_block_size != cfg.params.block_size:
             fail(f"level {level}: STREAMINFO min block is not the block size")
+
+    # a stream whose last block holds 10 samples, at most level 8's highest
+    # order: that block takes the FIXED search (X) at an LPC level
+    tail_pcm = pcm[:32 * BLOCK + 10]
+    tail_label = "level 8, a 10-sample tail"
+    drive(tail_label, cfg8, tail_pcm,
+          ("autocorr", "sweep_granules", "merge_words", "fixed_search"))
+    if Encoder(cfg8, device="cpu").encode_stream(tail_pcm) \
+            != blobs[tail_label]:
+        fail(f"{tail_label}: the CPU and CUDA encoders disagree")
+    print(f"{tail_label}: the CPU encoder gives the same bytes", flush=True)
 
     for level in (12, 11):
         dec = drive(f"level {level}", stream_config(level), vpcm, k1234)
@@ -3466,7 +3675,8 @@ def main() -> None:
         c1 = ["-q", "-5", "-b", CONFIG1_BLOCK]
         for backend, needs, never in (
                 ("device", ("autocorr", "merge_words"), sweeps),
-                ("host", ("autocorr",), sweeps + ("merge_words",))):
+                ("host", ("autocorr",),
+                 sweeps + ("merge_words", "slot_layout"))):
             out = tmp / f"config1_{backend}.flac"
             argv = c1 + ["--pack-backend", backend, wav, "-o", out]
             cold = run_cli(f"cli config 1 ({backend} emission)", argv,

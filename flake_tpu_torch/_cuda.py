@@ -47,6 +47,17 @@ SIGNATURES = {
     "flake_final_pass": [_P] * 11 + [_I] * 8,
     # L: autoc, qcoefs, shifts, refs, N, max_order, precision, est, float64
     "flake_lpc_candidates": [_P] * 4 + [_I] * 5,
+    # S: bits, order, N, m, method, min_o, max_o
+    "flake_select_order": [_P, _P] + [_I] * 5,
+    # X: smp, obits, order, coefs, N, n, min_o, max_o, taps, pmin, pmax,
+    # pmax_static, log2(n ^ (n - 1))
+    "flake_fixed_search": [_P] * 4 + [_I] * 9,
+    # H: smp, chans, obits, wasted, mode, constant, F, n, C, bps, est
+    "flake_frame_head": [_P] * 6 + [_I] * 5,
+    # E: sf_type, order, obits, wasted, method, porder, type_code, shift,
+    # coefs, rice_params, residual, ch_mode, hdr_bytes, hdr_nbytes, lengths,
+    # leading, payload, F, n, C, pmax_static, rp, wide, precision, bps_code
+    "flake_slot_layout": [_P] * 17 + [_I] * 8,
     # lengths, leading, payload, words, total_bits, F, M, W, shared
     "flake_merge_words": [_P, _P, _P, _P, _P, _I, _I, _I, _I],
     # w0t, hit, lot, words, F, S, W

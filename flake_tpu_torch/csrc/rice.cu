@@ -1,7 +1,7 @@
-// R1 and R2: the Rice partition-order and parameter search, and the final
-// pass from the samples.
+// R1, R2 and X: the Rice partition-order and parameter search, the final
+// pass from the samples, and the FIXED order search.
 //
-// No Pallas kernel stands behind these two. The JAX package writes the
+// No Pallas kernel stands behind these three. The JAX package writes the
 // search as tensor expressions inside one jitted program, where XLA fuses
 // the 31-wide k grid into its argmin and min, and the final residual as a
 // loop over taps in the same program.
@@ -24,6 +24,17 @@
 // parameters: the sum over samples past the warm-up of (z >> k) + 1 + k,
 // plus (4 + method) bits a partition. The FIXED predictors are the same
 // pass with their binomial coefficients and shift 0.
+// X, flake_fixed_search, replaces the FIXED order loop of analyze_frames
+// (flake_tpu/ops/frame.py:323-336: predict.residual_fixed, then
+// rice.subframe_bits, whose calc_rice_params is the static search of
+// rice.py:158): for each fixed order o of min_o..max_o (<= 4), the wrapped
+// residual, its zigzag partition sums with the warm-up zeroed, the level
+// scan over limit_max_partition_order(pmin or pmax, n, o) with (n >> p) - o
+// counted in a level's first partition (R1's scan: the same clamps, counts,
+// wraps and tie rules), then the estimate of rice.c:157-171 without LPC
+// fields, u32(bits + o * obits + 2 + method + 4); the order of the least
+// estimate, ascending with strict <, and its predictor's coefficients, which
+// R2 then takes for the final pass.
 //
 // Arithmetic, bit for bit the JAX package's: its limb form of the count,
 // cnt32 * (k + 1) + low32((s - (cnt >> 1)) >> k) in uint32, is the
@@ -70,6 +81,14 @@
 // partitions of 4 samples needs no reduction at all), the block folds the
 // pyramid, all its warps scan the slots as R1's warp does, one thread picks
 // the level, and the exact pass runs over the same shares.
+// X reads a stream's samples once from device memory (the lags of the
+// five predictors come from the cache) and writes an order and four
+// coefficients: 4 bytes a sample, 4.7 MB on the level-2 batch of 1,024
+// streams of 1,152 samples. Its operations, at most fifteen multiply-adds,
+// five zigzags and five adds a sample for the five orders and R1's scan
+// five times, are of the same size at the int32 rate. Design: one block of
+// 256 a stream, R2's partition shares, pyramid and scan once an order;
+// thread 0 compares the orders' estimates.
 
 #include <cuda_runtime.h>
 
@@ -83,6 +102,11 @@ constexpr int kMaxK4bit = 14;                    // params.MAX_RICE_PARAM_4BIT
 constexpr int kScanWarps = 4;                    // R1: rows a block
 constexpr int kTaps = 32;                        // params.MAX_LPC_ORDER
 constexpr int kZigCap = 8192;                    // R2: samples kept in shared
+constexpr int kFixedThreads = 256;               // X: threads a block
+constexpr int kMaxFixed = 4;                     // X: the highest order
+// predict.FIXED_COEFS, orders 0-4: coef[j] applies to smp[i - 1 - j]
+__constant__ int kFixedCoefs[kMaxFixed + 1][kMaxFixed] = {
+    {0, 0, 0, 0}, {1, 0, 0, 0}, {2, -1, 0, 0}, {3, -3, 1, 0}, {4, -6, 4, -1}};
 
 template <typename T>
 __device__ __forceinline__ T warp_sum(T v) {
@@ -294,6 +318,67 @@ __global__ void __launch_bounds__(kScanWarps * 32)
                lane, 32);
 }
 
+// A block's partition sums at ps (R2, X). Each thread takes a contiguous
+// share of one partition (tpp threads a partition, or a partition at a time
+// when there are more partitions than threads), read from lane % its length
+// on so that the lanes of a warp fall on different banks; a group's shares
+// sum by shuffles, or through quot_s where a partition spans warps.
+struct Shares {
+  int part, groups, from, len, tpp;
+};
+
+template <int kThreads>
+__device__ __forceinline__ Shares shares_of(int n, int ps, int tid) {
+  const int parts = 1 << ps, psize = n >> ps;
+  const int tpp = max(1, kThreads / parts);
+  const int share = (psize + tpp - 1) / tpp;
+  const int from = min((tid % tpp) * share, psize);
+  return {tid / tpp, kThreads / tpp, from, min(from + share, psize) - from,
+          tpp};
+}
+
+// the sums of zig(i) over each partition at ps into the pyramid's finest
+// level, then the pyramid folded (barriers included)
+template <int kThreads, typename Zig>
+__device__ void partition_sums(u64* pyr, u64* quot_s, const Shares& shares,
+                               Zig zig, int n, int ps, int tid) {
+  const int parts = 1 << ps, psize = n >> ps;
+  const int warp = tid >> 5, lane = tid & 31;
+  for (int j = shares.part; j < parts; j += shares.groups) {
+    u64 acc = 0;
+    const int a = j * psize + shares.from;
+    for (int q = 0, r = shares.len ? lane % shares.len : 0; q < shares.len;
+         ++q) {
+      acc += zig(a + r);
+      r = r + 1 == shares.len ? 0 : r + 1;
+    }
+    if (shares.tpp > 1) {
+      for (int off = min(shares.tpp, 32) >> 1; off; off >>= 1)
+        acc += __shfl_xor_sync(0xffffffffu, acc, off);
+    }
+    if (shares.tpp <= 32) {
+      if (tid % shares.tpp == 0) pyr[parts + j] = acc;
+    } else if (lane == 0) {
+      quot_s[warp] = acc;
+    }
+  }
+  if (shares.tpp > 32) {
+    __syncthreads();
+    if (tid < parts) {
+      u64 acc = 0;
+      for (int w = 0; w < shares.tpp / 32; ++w)
+        acc += quot_s[tid * (shares.tpp / 32) + w];
+      pyr[parts + tid] = acc;
+    }
+  }
+  __syncthreads();
+  for (int p = ps - 1; p >= 0; --p) {
+    for (int i = (1 << p) + tid; i < (2 << p); i += kThreads)
+      pyr[i] = pyr[2 * i] + pyr[2 * i + 1];
+    __syncthreads();
+  }
+}
+
 // R2: one block of kThreads a stream. Dynamic shared memory: the pyramid
 // (heap_size(ps) uint64), the sample tile with its halo (kTaps + 4 kThreads
 // int32), the zigzag row (n uint32, when n <= kZigCap) and the k bytes.
@@ -380,47 +465,8 @@ __global__ void __launch_bounds__(kThreads)
     return i >= o ? zigzag(row[i]) : 0u;
   };
 
-  // Each thread takes a contiguous share of one partition at ps (tpp
-  // threads a partition, or a partition at a time when there are more
-  // partitions than threads), read from lane % its length on so that the
-  // lanes of a warp fall on different banks; a group's shares sum by
-  // shuffles, or through quot_s where a partition spans warps.
-  const int parts = 1 << ps, psize = n >> ps;
-  const int tpp = max(1, kThreads / parts), groups = kThreads / tpp;
-  const int part = tid / tpp, share = (psize + tpp - 1) / tpp;
-  const int from = min((tid % tpp) * share, psize);
-  const int len = min(from + share, psize) - from;
-  for (int j = part; j < parts; j += groups) {
-    u64 acc = 0;
-    const int a = j * psize + from;
-    for (int q = 0, r = len ? lane % len : 0; q < len; ++q) {
-      acc += zig_at(a + r);
-      r = r + 1 == len ? 0 : r + 1;
-    }
-    if (tpp > 1) {
-      for (int off = min(tpp, 32) >> 1; off; off >>= 1)
-        acc += __shfl_xor_sync(0xffffffffu, acc, off);
-    }
-    if (tpp <= 32) {
-      if (tid % tpp == 0) pyr[parts + j] = acc;
-    } else if (lane == 0) {
-      quot_s[warp] = acc;
-    }
-  }
-  if (tpp > 32) {
-    __syncthreads();
-    if (tid < parts) {
-      u64 acc = 0;
-      for (int w = 0; w < tpp / 32; ++w) acc += quot_s[tid * (tpp / 32) + w];
-      pyr[parts + tid] = acc;
-    }
-  }
-  __syncthreads();
-  for (int p = ps - 1; p >= 0; --p) {
-    for (int i = (1 << p) + tid; i < (2 << p); i += kThreads)
-      pyr[i] = pyr[2 * i] + pyr[2 * i + 1];
-    __syncthreads();
-  }
+  const Shares shares = shares_of<kThreads>(n, ps, tid);
+  partition_sums<kThreads>(pyr, quot_s, shares, zig_at, n, ps, tid);
   int lo, hi;
   level_range(n, o, pmin, pmax, ub, ps, lo, hi);
   scan_slots(pyr, ks, &lv, ps, n, o, lo, hi, tid, kThreads);
@@ -434,15 +480,17 @@ __global__ void __launch_bounds__(kThreads)
   // partition (0 where no level was in range)
   u64 quot = 0;
   unsigned ovh = 0;
-  for (int j = part; j < parts; j += groups) {
+  const int parts = 1 << ps, psize = n >> ps;
+  for (int j = shares.part; j < parts; j += shares.groups) {
     const int k = ch.taken ? ks[(1 << ch.porder) + (j >> (ps - ch.porder))]
                            : 0;
-    const int a = j * psize + from;
-    for (int q = 0, r = len ? lane % len : 0; q < len; ++q) {
+    const int a = j * psize + shares.from;
+    for (int q = 0, r = shares.len ? lane % shares.len : 0; q < shares.len;
+         ++q) {
       quot += zig_at(a + r) >> k;
-      r = r + 1 == len ? 0 : r + 1;
+      r = r + 1 == shares.len ? 0 : r + 1;
     }
-    ovh += max(0, a + len - max(a, o)) * (1 + k);
+    ovh += max(0, a + shares.len - max(a, o)) * (1 + k);
   }
   quot = warp_sum(quot);
   ovh = warp_sum(ovh);
@@ -461,6 +509,76 @@ __global__ void __launch_bounds__(kThreads)
     fits[s] = fit ? 1 : 0;
   }
   write_params(params + s * parts, ks, parts, ch, tid, kThreads);
+}
+
+// X: one block of kThreads a stream; dynamic shared memory: the pyramid
+// (heap_size(ps) uint64) and the k bytes. For each order o of min_o..max_o:
+// the order-o residual's zigzag values (warm-up zeroed) summed by partition
+// (partition_sums), R1's scan of the levels limit_max_partition_order(pmin
+// or pmax, n, o) allows, the pick, and the estimate of _overhead_bits
+// (precision 0, not LPC); thread 0 keeps the first order of the least
+// estimate (strict <, ascending) and writes it with its coefficients.
+template <int kThreads>
+__global__ void __launch_bounds__(kThreads)
+    fixed_search_kernel(const int* __restrict__ smp,
+                        const int* __restrict__ obits,
+                        int* __restrict__ order_out,
+                        int* __restrict__ coefs_out, int n, int min_o,
+                        int max_o, int taps, int pmin, int pmax, int ps,
+                        int ub) {
+  extern __shared__ u64 fixed_smem[];
+  __shared__ u64 quot_s[kThreads / 32];
+  __shared__ Levels lv;
+  u64* pyr = fixed_smem;
+  unsigned char* ks = reinterpret_cast<unsigned char*>(pyr + heap_size(ps));
+  const int tid = threadIdx.x;
+  const long long s = blockIdx.x;
+  const int* x = smp + s * n;
+  const Shares shares = shares_of<kThreads>(n, ps, tid);
+  long long best_bits = 0;
+  int best_o = min_o;
+  for (int o = min_o; o <= max_o; ++o) {
+    if (tid <= kMaxPorder) lv.bits[tid] = lv.wide[tid] = 0;
+    // predict.residual_fixed: the prediction in int64, the residual
+    // wrapped to int32
+    auto zig = [&](int i) -> unsigned {
+      if (i < o) return 0u;
+      long long r = x[i];
+      switch (o) {
+        case 1: r -= x[i - 1]; break;
+        case 2: r -= 2ll * x[i - 1] - x[i - 2]; break;
+        case 3: r -= 3ll * x[i - 1] - 3ll * x[i - 2] + x[i - 3]; break;
+        case 4:
+          r -= 4ll * x[i - 1] - 6ll * x[i - 2] + 4ll * x[i - 3] - x[i - 4];
+          break;
+        default: break;
+      }
+      return zigzag(static_cast<int>(static_cast<unsigned>(r)));
+    };
+    partition_sums<kThreads>(pyr, quot_s, shares, zig, n, ps, tid);
+    int lo, hi;
+    level_range(n, o, pmin, pmax, ub, ps, lo, hi);
+    scan_slots(pyr, ks, &lv, ps, n, o, lo, hi, tid, kThreads);
+    __syncthreads();
+    if (tid == 0) {
+      const Choice c = pick_level(&lv, lo, hi);
+      const long long est = (static_cast<long long>(c.bits) +
+                             static_cast<long long>(o) * obits[s] + 2 +
+                             c.method + 4) & 0xFFFFFFFFll;
+      if (o == min_o || est < best_bits) {
+        best_bits = est;
+        best_o = o;
+      }
+    }
+    __syncthreads();                // lv and the pyramid are rewritten
+  }
+  __shared__ int chosen;
+  if (tid == 0) {
+    chosen = best_o;
+    order_out[s] = best_o;
+  }
+  __syncthreads();
+  if (tid < taps) coefs_out[s * taps + tid] = kFixedCoefs[chosen][tid];
 }
 
 template <int kThreads>
@@ -528,4 +646,24 @@ extern "C" int flake_final_pass(const int* smp, const int* coefs,
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// X. smp int32 [N, n], obits int32 [N] -> order int32 [N] (the FIXED
+// order of the least estimated bits, min_o..max_o, 0 <= min_o <= max_o <=
+// 4) and coefs int32 [N, taps] (its predictor's coefficients, zero-padded;
+// max_o <= taps <= 4); n a multiple of 2^ps, ps and ub as for R1.
+extern "C" int flake_fixed_search(const int* smp, const int* obits,
+                                  int* order, int* coefs, int N, int n,
+                                  int min_o, int max_o, int taps, int pmin,
+                                  int pmax, int ps, int ub,
+                                  cudaStream_t stream) {
+  if (min_o < 0 || min_o > max_o || max_o > kMaxFixed || taps < max_o ||
+      taps > kMaxFixed || n <= max_o)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (N > 0)
+    fixed_search_kernel<kFixedThreads>
+        <<<N, kFixedThreads, heap_size(ps) * (sizeof(u64) + 1), stream>>>(
+            smp, obits, order, coefs, n, min_o, max_o, taps, pmin, pmax, ps,
+            ub);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -3,8 +3,10 @@
 Every frame is a fixed layout of variable-length bit fields (header
 bytes, subframe headers, warm-ups, coefficients, Rice parameters, one
 Rice code per sample). :func:`slot_layout` turns a batch's analysis into
-dense [F, M] slot tables (bit length, leading zero bits, payload);
-K3 (:mod:`flake_tpu_torch.ops.bitmerge`) places the payloads into each
+dense [F, M] slot tables (bit length, leading zero bits, payload): on the
+card in one launch of E (``csrc/slots.cu``), on the CPU through its plain
+version :func:`slot_layout_plain`. K3
+(:mod:`flake_tpu_torch.ops.bitmerge`) places the payloads into each
 frame's big-endian 32-bit words. CRC-8/CRC-16 placeholders are emitted
 as zeros and patched on the host.
 
@@ -28,6 +30,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from flake_tpu_torch import _cuda
 from flake_tpu_torch import params as P
 from flake_tpu_torch.ops.bitmerge import LANE, merge_words, slot_words
 from flake_tpu_torch.ops.common import U32_MASK, wrap_int32
@@ -112,9 +115,10 @@ def _low_mask(bits: torch.Tensor) -> torch.Tensor:
         .bitwise_not_()
 
 
-def slot_layout(analysis: dict, hdr_bytes: torch.Tensor,
-                hdr_nbytes: torch.Tensor, cfg: FrameConfig):
-    """Slot tables of a batch of analysed frames (``bitpack.py:421-625``).
+def slot_layout_plain(analysis: dict, hdr_bytes: torch.Tensor,
+                      hdr_nbytes: torch.Tensor, cfg: FrameConfig):
+    """E's plain version: the slot tables of a batch of analysed frames
+    (``bitpack.py:421-625``).
 
     ``analysis`` is the :func:`~flake_tpu_torch.ops.frame.analyze_frames`
     dict; hdr_bytes uint8 [F, HDR_SLOTS] and hdr_nbytes int32 [F] come
@@ -286,6 +290,64 @@ def slot_layout(analysis: dict, hdr_bytes: torch.Tensor,
     lengths[:, -1] = 16
     payload[:, -2:] = 0
     return lengths, leading, payload
+
+
+# E's inputs from the analysis dict: the per-channel tables, int32 [F, C]
+_SLOT_TABLES = ("sf_type", "order", "obits", "wasted", "method", "porder",
+                "type_code", "shift")
+
+
+def slot_layout(analysis: dict, hdr_bytes: torch.Tensor,
+                hdr_nbytes: torch.Tensor, cfg: FrameConfig):
+    """:func:`slot_layout_plain`'s function. A batch on the CPU (its
+    ``sf_type``) takes the plain version; one on a CUDA device launches E
+    (``csrc/slots.cu``), one block a frame, whose three tables equal the
+    plain version's."""
+    dev = analysis["sf_type"].device
+    if dev.type == "cpu":
+        return slot_layout_plain(analysis, hdr_bytes, hdr_nbytes, cfg)
+    if dev.type != "cuda":
+        raise ValueError(f"slot_layout: no kernel for {dev}")
+    n, C = cfg.block_size, cfg.channels
+    ps = limit_max_partition_order(cfg.max_partition_order, n, 1)
+    F = analysis["sf_type"].shape[0]
+    wide = _split_wide(cfg)
+    L = (100 if wide else 68) + (1 << ps) * (1 + (2 if wide else 1)
+                                             * (n >> ps))
+    M = HDR_SLOTS + C * L + 2
+    args = []
+    for key in _SLOT_TABLES:
+        t = analysis[key].contiguous()
+        _cuda.check(t, key, torch.int32, (F, C), dev)
+        args.append(t)
+    coefs = analysis["coefs"].contiguous()
+    _cuda.check(coefs, "coefs", torch.int32, (F, C, P.MAX_LPC_ORDER), dev)
+    params = analysis["rice_params"].contiguous()
+    rp = params.shape[-1]
+    _cuda.check(params, "rice_params", torch.int32, (F, C, rp), dev)
+    if rp < 1 << ps:
+        raise ValueError(f"slot_layout: {rp} Rice parameters a subframe, "
+                         f"the layout reads {1 << ps}")
+    res = analysis["residual"].contiguous()
+    _cuda.check(res, "residual", torch.int32, (F, C, n), dev)
+    ch_mode = analysis["ch_mode"].contiguous()
+    _cuda.check(ch_mode, "ch_mode", torch.int32, (F,), dev)
+    hdr_bytes = hdr_bytes.to(dev).contiguous()
+    _cuda.check(hdr_bytes, "hdr_bytes", torch.uint8, (F, HDR_SLOTS), dev)
+    hdr_nbytes = hdr_nbytes.to(dev).contiguous()
+    _cuda.check(hdr_nbytes, "hdr_nbytes", torch.int32, (F,), dev)
+    lengths, leading, payload = (
+        torch.empty((F, M), dtype=torch.int32, device=dev) for _ in range(3))
+    if F:
+        _cuda.launch("flake_slot_layout", dev, *args, coefs, params, res,
+                     ch_mode, hdr_bytes, hdr_nbytes, lengths, leading,
+                     payload, F, n, C, ps, rp, int(wide), cfg.precision,
+                     P.bps_code(cfg.bps))
+        slot_layout.launches += 1
+    return lengths, leading, payload
+
+
+slot_layout.launches = 0
 
 
 def pack_frames_device(analysis: dict, hdr_bytes: torch.Tensor,

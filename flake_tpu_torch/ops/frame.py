@@ -17,6 +17,14 @@ Every order method is ported. EST (levels 3-6) takes its reflection
 coefficients from the Schur recursion and seeds Levinson with them, and
 runs no sweep; the 2/4/8-LEVEL methods (level 7) run the sweep and read
 only their candidates' columns of the per-order bit counts.
+
+Two more Hopper kernels take the analysis's eager launch chains, each with
+its plain version beside it, which a CPU tensor takes: H,
+:func:`frame_head` (``csrc/head.cu``), everything before the prediction
+(the stereo mode and decorrelation, the wasted bits, the constant flags)
+in one launch, and S, :func:`select_order_bits` (``csrc/select.cu``), the
+LOG, LEVEL and SEARCH order selection from the per-order bits. The FIXED
+order search is X (``ops/rice.fixed_search``).
 """
 
 from __future__ import annotations
@@ -25,13 +33,15 @@ import dataclasses
 
 import torch
 
+from flake_tpu_torch import _cuda
 from flake_tpu_torch import params as P
 from flake_tpu_torch.ops import lpc as lpc_ops
-from flake_tpu_torch.ops import predict, stereo, wasted
+from flake_tpu_torch.ops import stereo, wasted
 from flake_tpu_torch.ops.autocorr import autocorr
 from flake_tpu_torch.ops.common import U32_MASK
-from flake_tpu_torch.ops.rice import (final_pass, limit_max_partition_order,
-                                      subframe_bits, subframe_bits_from_sums)
+from flake_tpu_torch.ops.rice import (final_pass, fixed_search,
+                                      limit_max_partition_order,
+                                      subframe_bits_from_sums)
 from flake_tpu_torch.ops.sweep import (sweep_granules, sweep_sums,
                                        uses_granule_kernel)
 
@@ -131,19 +141,11 @@ def _select_order_level(bits_all: torch.Tensor,
     return best_order + 1
 
 
-def select_order(cfg: FrameConfig, bits_all, refs, batch,
-                 device: torch.device) -> torch.Tensor:
-    """Order-method dispatch (optimize.c:196-261). bits_all int64
-    [..., max_order] (None for MAX and EST); refs float64
-    [..., max_order], the reflection coefficients (read by EST only).
-    Returns the order (1-based) int32 [batch]."""
-    method = cfg.order_method
-    min_o = cfg.min_prediction_order
-    max_o = cfg.max_prediction_order
-    if method == P.OrderMethod.MAX:
-        return torch.full(batch, max_o, dtype=torch.int32, device=device)
-    if method == P.OrderMethod.EST:
-        return lpc_ops.estimate_order(refs, max_o)
+def select_order_bits_plain(bits_all: torch.Tensor, method: int,
+                            min_o: int, max_o: int) -> torch.Tensor:
+    """S's plain version: the order the LEVEL2/4/8, SEARCH or LOG method
+    picks from the per-order bits ``bits_all`` int64 [..., >= max_o]
+    (optimize.c:202-261). Returns the order (1-based) int32 [...]."""
     if method in (P.OrderMethod.LEVEL2, P.OrderMethod.LEVEL4,
                   P.OrderMethod.LEVEL8):
         levels = 1 << (method - 1)
@@ -153,12 +155,59 @@ def select_order(cfg: FrameConfig, bits_all, refs, batch,
     if method == P.OrderMethod.SEARCH:
         # torch.argmin, like jnp.argmin, takes the first (lowest) order
         # among equal minima on every device
-        idx = torch.argmin(bits_all[..., :cfg.max_prediction_order], dim=-1)
+        idx = torch.argmin(bits_all[..., :max_o], dim=-1)
         return (idx + 1).to(torch.int32)
     if method == P.OrderMethod.LOG:
-        return _select_order_log(bits_all, cfg.min_prediction_order,
-                                 cfg.max_prediction_order)
+        return _select_order_log(bits_all, min_o, max_o)
     raise ValueError(f"bad order method {method}")
+
+
+def select_order_bits(bits_all: torch.Tensor, method: int, min_o: int,
+                      max_o: int) -> torch.Tensor:
+    """:func:`select_order_bits_plain`'s function. A CPU tensor takes the
+    plain version; a CUDA tensor launches S (``csrc/select.cu``), one
+    thread a stream, whose orders equal the plain version's."""
+    if bits_all.device.type == "cpu":
+        return select_order_bits_plain(bits_all, method, min_o, max_o)
+    if bits_all.device.type != "cuda":
+        raise ValueError(f"select_order_bits: no kernel for "
+                         f"{bits_all.device}")
+    m = bits_all.shape[-1]
+    if not 1 <= min_o <= max_o <= m <= P.MAX_LPC_ORDER:
+        raise ValueError(f"select_order_bits: orders {min_o}-{max_o} of "
+                         f"{m} columns; the kernel takes 1 <= min <= max <= "
+                         f"columns <= {P.MAX_LPC_ORDER}")
+    batch = bits_all.shape[:-1]
+    N = batch.numel()
+    dev = bits_all.device
+    bits_all = bits_all.reshape(N, m).contiguous()
+    _cuda.check(bits_all, "bits_all", torch.int64, (N, m), dev)
+    order = torch.empty(N, dtype=torch.int32, device=dev)
+    if N:
+        _cuda.launch("flake_select_order", dev, bits_all, order, N, m,
+                     int(method), min_o, max_o)
+        select_order_bits.launches += 1
+    return order.reshape(batch)
+
+
+select_order_bits.launches = 0
+
+
+def select_order(cfg: FrameConfig, bits_all, refs, batch,
+                 device: torch.device) -> torch.Tensor:
+    """Order-method dispatch (optimize.c:196-261). bits_all int64
+    [..., max_order] (None for MAX and EST); refs float64
+    [..., max_order], the reflection coefficients (read by EST only).
+    Returns the order (1-based) int32 [batch]: MAX and EST here, the
+    methods that read bits through S (:func:`select_order_bits`)."""
+    method = cfg.order_method
+    max_o = cfg.max_prediction_order
+    if method == P.OrderMethod.MAX:
+        return torch.full(batch, max_o, dtype=torch.int32, device=device)
+    if method == P.OrderMethod.EST:
+        return lpc_ops.estimate_order(refs, max_o)
+    return select_order_bits(bits_all, method, cfg.min_prediction_order,
+                             max_o)
 
 
 def finalize_analysis(cfg: FrameConfig, chans, obits, wasted_bits,
@@ -331,16 +380,19 @@ def _lpc_search(cfg: FrameConfig, chans, obits):
             (~fits & (shift > 0)).reshape(F, C))
 
 
-def analyze_frames(samples: torch.Tensor, cfg: FrameConfig,
-                   hdr_bits: torch.Tensor) -> dict:
-    """Analyse a batch of frames.
+def _stereo_estimate(cfg: FrameConfig) -> bool:
+    """Whether the batch estimates its stereo mode (encode.c:648-694)."""
+    return cfg.channels == 2 and cfg.block_size > 32 \
+        and cfg.stereo_method == P.StereoMethod.ESTIMATE
 
-    samples: int32 [F, B, C] (channels on the last axis).
-    hdr_bits: int32 [F], each frame's header bit count incl. CRC-8, for
-      the exact frame byte counts and the verbatim fallback
-      (encode.c:949-964).
-    Returns the dict of per-frame/channel selection tensors + residuals.
-    """
+
+def frame_head_plain(samples: torch.Tensor, cfg: FrameConfig):
+    """H's plain version: everything :func:`analyze_frames` does before the
+    prediction, from ``samples`` int32 [F, B, C]: the stereo mode and
+    decorrelation (encode.c:648-694), the wasted bits (encode.c:558-593)
+    and the constant flags (optimize.c:143-151). Returns (chans int32 [F,
+    C, B], obits int32 [F, C], wasted int32 [F, C], mode int32 [F],
+    constant bool [F, C])."""
     n = cfg.block_size
     C = cfg.channels
     F = samples.shape[0]
@@ -350,8 +402,7 @@ def analyze_frames(samples: torch.Tensor, cfg: FrameConfig,
     chans = samples.permute(0, 2, 1)                   # [F, C, B]
     obits = torch.full((F, C), cfg.bps, dtype=i32, device=dev)
 
-    # stereo decorrelation (encode.c:648-694)
-    if C == 2 and n > 32 and cfg.stereo_method == P.StereoMethod.ESTIMATE:
+    if _stereo_estimate(cfg):
         mode = stereo.decorr_mode(chans[:, 0], chans[:, 1], n)
         if cfg.bps >= 32:
             # a 33-bit side value cannot ride the int32 residual pipeline:
@@ -369,11 +420,60 @@ def analyze_frames(samples: torch.Tensor, cfg: FrameConfig,
     else:
         mode = torch.full((F,), stereo.NOT_STEREO, dtype=i32, device=dev)
 
-    # wasted bits (encode.c:558-593) and constant blocks
-    # (optimize.c:143-151)
     chans, wasted_bits = wasted.remove_wasted_bits(chans, cfg.bps)
     obits = obits - wasted_bits
     constant = (chans == chans[..., :1]).all(dim=-1)
+    return chans, obits, wasted_bits, mode, constant
+
+
+def frame_head(samples: torch.Tensor, cfg: FrameConfig):
+    """:func:`frame_head_plain`'s function. A CPU tensor takes the plain
+    version; a CUDA tensor launches H (``csrc/head.cu``), one block a
+    frame, whose outputs equal the plain version's (``chans``
+    contiguous)."""
+    if samples.device.type == "cpu":
+        return frame_head_plain(samples, cfg)
+    if samples.device.type != "cuda":
+        raise ValueError(f"frame_head: no kernel for {samples.device}")
+    n, C = cfg.block_size, cfg.channels
+    F = samples.shape[0]
+    dev = samples.device
+    samples = samples.contiguous()
+    _cuda.check(samples, "samples", torch.int32, (F, n, C), dev)
+    chans = torch.empty((F, C, n), dtype=torch.int32, device=dev)
+    obits = torch.empty((F, C), dtype=torch.int32, device=dev)
+    wasted_bits = torch.empty((F, C), dtype=torch.int32, device=dev)
+    mode = torch.empty(F, dtype=torch.int32, device=dev)
+    constant = torch.empty((F, C), dtype=torch.bool, device=dev)
+    if F:
+        _cuda.launch("flake_frame_head", dev, samples, chans, obits,
+                     wasted_bits, mode, constant, F, n, C, cfg.bps,
+                     int(_stereo_estimate(cfg)))
+        frame_head.launches += 1
+    return chans, obits, wasted_bits, mode, constant
+
+
+frame_head.launches = 0
+
+
+def analyze_frames(samples: torch.Tensor, cfg: FrameConfig,
+                   hdr_bits: torch.Tensor) -> dict:
+    """Analyse a batch of frames.
+
+    samples: int32 [F, B, C] (channels on the last axis).
+    hdr_bits: int32 [F], each frame's header bit count incl. CRC-8, for
+      the exact frame byte counts and the verbatim fallback
+      (encode.c:949-964).
+    Returns the dict of per-frame/channel selection tensors + residuals.
+    """
+    n = cfg.block_size
+    C = cfg.channels
+    F = samples.shape[0]
+    dev = samples.device
+    i32 = torch.int32
+
+    # stereo decorrelation, wasted bits and constant blocks (H)
+    chans, obits, wasted_bits, mode, constant = frame_head(samples, cfg)
 
     pmin, pmax = cfg.min_partition_order, cfg.max_partition_order
     zeros32 = torch.zeros((F, C, P.MAX_LPC_ORDER), dtype=i32, device=dev)
@@ -391,25 +491,13 @@ def analyze_frames(samples: torch.Tensor, cfg: FrameConfig,
         unfit = None
     elif (cfg.prediction_type == P.Prediction.FIXED
           or n <= cfg.max_prediction_order):
-        # FIXED path (optimize.c:167-190): ascending orders, strict <
-        min_o = cfg.min_prediction_order
-        max_o = min(cfg.max_prediction_order, 4)
-        best_bits = best_order = None
-        for o in range(min_o, max_o + 1):
-            bits = subframe_bits(predict.residual_fixed(chans, o), n, o,
-                                 obits, pmin, pmax, 0, False)
-            if best_bits is None:
-                best_bits = bits
-                best_order = torch.full((F, C), o, dtype=i32, device=dev)
-            else:
-                take = bits < best_bits
-                best_bits = torch.where(take, bits, best_bits)
-                best_order = torch.where(take, o, best_order)
-        # the final pass (R2) with the chosen predictor's coefficients
-        order = best_order
+        # FIXED path (optimize.c:167-190): the order search (X), then the
+        # final pass (R2) with the chosen predictor's coefficients
+        order, fcoefs = fixed_search(chans, obits, cfg.min_prediction_order,
+                                     min(cfg.max_prediction_order, 4), pmin,
+                                     pmax)
         shift = torch.zeros_like(order)
-        rc = final_pass(chans, predict.fixed_coefs(order, max_o), shift,
-                        order, n, pmin, pmax)
+        rc = final_pass(chans, fcoefs, shift, order, n, pmin, pmax)
         res = rc.pop("residual")
         del rc["fits"]         # an unshifted prediction decodes mod 2^32
         unfit = None

@@ -47,14 +47,24 @@ def residual_fixed(smp: torch.Tensor, order: int) -> torch.Tensor:
                      dim=-1)
 
 
+_fixed_tables: dict = {}
+
+
 def fixed_coefs(order: torch.Tensor, max_order: int) -> torch.Tensor:
     """Each element's fixed predictor as LPC coefficients: FIXED_COEFS of
     its ``order`` (int32 [...], 0..max_order <= 4), zero-padded, int32
-    [..., max_order]; with shift 0 the LPC residual is the fixed one."""
-    table = torch.tensor([list(FIXED_COEFS[o]) + [0] * (max_order - o)
-                          for o in range(max_order + 1)],
-                         dtype=torch.int32).reshape(max_order + 1, max_order)
-    return table.to(order.device)[order.long()]
+    [..., max_order]; with shift 0 the LPC residual is the fixed one. The
+    table is built once a device and width, so no call copies it from the
+    host."""
+    key = (order.device, max_order)
+    table = _fixed_tables.get(key)
+    if table is None:
+        table = torch.tensor([list(FIXED_COEFS[o]) + [0] * (max_order - o)
+                              for o in range(max_order + 1)],
+                             dtype=torch.int32).reshape(max_order + 1,
+                                                        max_order)
+        table = _fixed_tables.setdefault(key, table.to(order.device))
+    return table[order.long()]
 
 
 def fits_int32(res64: torch.Tensor) -> torch.Tensor:

@@ -9,7 +9,7 @@ reference truncates to uint32 the port masks with ``& U32_MASK``. For
 ``k <= 31`` the low 32 bits of ``t >> k`` do not depend on whether the
 shift is arithmetic or logical, so the int64 forms are exact.
 
-Two CUDA kernels written for Hopper (``flake_tpu_torch/csrc/rice.cu``)
+Three CUDA kernels written for Hopper (``flake_tpu_torch/csrc/rice.cu``)
 run the per-element search on the card: R1, :func:`rice_scan`, the
 partition-order and k scan from partition sums (the sweep's, and the sp
 final search's), and R2, :func:`final_pass`, the final pass from the
@@ -18,9 +18,12 @@ search with the exact bits in one launch. Neither holds a k grid in
 device memory. :func:`rice_scan_plain` and :func:`final_pass_plain` are
 their plain versions, which a CPU tensor takes; the second composes
 :func:`~flake_tpu_torch.ops.predict.residual_lpc_dynamic64` and
-:func:`rice_final_plain`, the search from a residual. The static search
-of the FIXED order loop (:func:`calc_rice_params`) and the stereo mode's
-:func:`find_optimal_k` stay tensor code.
+:func:`rice_final_plain`, the search from a residual. The third, X,
+:func:`fixed_search`, is the FIXED order search in one launch: its plain
+version :func:`fixed_search_plain` runs the static search
+(:func:`calc_rice_params`) once an order. The stereo mode's
+:func:`find_optimal_k` belongs to H's plain version
+(``ops/frame.frame_head_plain``).
 
 Shapes: ``res`` is [..., B] with arbitrary leading batch dims.
 """
@@ -410,3 +413,61 @@ def subframe_bits(res: torch.Tensor, n: int, order: int, obits,
     """Estimated subframe bits for one static order (rice.c:157-171)."""
     bits, method = calc_rice_params(res, n, order, pmin, pmax)
     return _overhead_bits(bits, method, order, obits, precision, is_lpc)
+
+
+def fixed_search_plain(chans: torch.Tensor, obits: torch.Tensor, min_o: int,
+                       max_o: int, pmin: int, pmax: int):
+    """X's plain version: the FIXED order loop of the analysis
+    (optimize.c:167-190, ``flake_tpu/ops/frame.py:323-336``): each order
+    ``min_o..max_o`` (<= 4)'s residual and static Rice search
+    (:func:`subframe_bits`), ascending with strict <. ``chans`` int32 [...,
+    n], ``obits`` int32 [...]. Returns (order int32 [...], its predictor's
+    coefficients int32 [..., max_o], :func:`predict.fixed_coefs`)."""
+    n = chans.shape[-1]
+    best_bits = best_order = None
+    for o in range(min_o, max_o + 1):
+        bits = subframe_bits(predict.residual_fixed(chans, o), n, o, obits,
+                             pmin, pmax, 0, False)
+        if best_bits is None:
+            best_bits = bits
+            best_order = torch.full(bits.shape, o, dtype=torch.int32,
+                                    device=chans.device)
+        else:
+            take = bits < best_bits
+            best_bits = torch.where(take, bits, best_bits)
+            best_order = torch.where(take, o, best_order)
+    return best_order, predict.fixed_coefs(best_order, max_o)
+
+
+def fixed_search(chans: torch.Tensor, obits: torch.Tensor, min_o: int,
+                 max_o: int, pmin: int, pmax: int):
+    """:func:`fixed_search_plain`'s function. A CPU tensor takes the plain
+    version; a CUDA tensor launches X (``csrc/rice.cu``), one block a
+    stream, whose order and coefficients equal the plain version's."""
+    if chans.device.type == "cpu":
+        return fixed_search_plain(chans, obits, min_o, max_o, pmin, pmax)
+    if chans.device.type != "cuda":
+        raise ValueError(f"fixed_search: no kernel for {chans.device}")
+    batch = chans.shape[:-1]
+    n = chans.shape[-1]
+    if not 0 <= min_o <= max_o <= 4 or n <= max_o:
+        raise ValueError(f"fixed_search: orders {min_o}-{max_o} on {n} "
+                         "samples; the kernel takes 0 <= min <= max <= 4, "
+                         "max < n")
+    N = batch.numel()
+    dev = chans.device
+    chans = chans.reshape(N, n).contiguous()
+    obits = obits.reshape(N).contiguous()
+    _cuda.check(chans, "chans", torch.int32, (N, n), dev)
+    _cuda.check(obits, "obits", torch.int32, (N,), dev)
+    order = torch.empty(N, dtype=torch.int32, device=dev)
+    coefs = torch.empty((N, max_o), dtype=torch.int32, device=dev)
+    if N:
+        _cuda.launch("flake_fixed_search", dev, chans, obits, order, coefs,
+                     N, n, min_o, max_o, max_o,
+                     *_search_args(n, pmin, pmax)[1:])
+        fixed_search.launches += 1
+    return order.reshape(batch), coefs.reshape(batch + (max_o,))
+
+
+fixed_search.launches = 0

@@ -109,7 +109,8 @@ def main(argv=None) -> int:
 
     from flake_tpu_torch import params as P
     from flake_tpu_torch.io import open_pcm
-    from flake_tpu_torch.ops import autocorr, bitmerge, lpc, rice, sweep
+    from flake_tpu_torch.ops import autocorr, bitmerge, bitpack, frame, lpc
+    from flake_tpu_torch.ops import rice, sweep
     from flake_tpu_torch.parallel import distributed
 
     rank = args.process_id if args.process_id is not None else 0
@@ -138,7 +139,11 @@ def main(argv=None) -> int:
                    "merge_words": bitmerge.merge_words,
                    "rice_scan": rice.rice_scan,
                    "final_pass": rice.final_pass,
-                   "candidates": lpc.candidates}
+                   "candidates": lpc.candidates,
+                   "select_order_bits": frame.select_order_bits,
+                   "fixed_search": rice.fixed_search,
+                   "frame_head": frame.frame_head,
+                   "slot_layout": bitpack.slot_layout}
         for fn in kernels.values():
             fn.launches = 0
         t0 = time.perf_counter()

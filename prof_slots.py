@@ -21,6 +21,7 @@ the same script. Needs one CUDA device.
 
 from __future__ import annotations
 
+import functools
 import json
 import pathlib
 import sys
@@ -59,6 +60,9 @@ def main() -> None:
                      ("slot_layout", "merge_words", "pack_frames_device")}
 
         def wrap(name, orig):
+            # wraps carries the kernel wrapper's launch count, which it
+            # bumps under the name it looks itself up by
+            @functools.wraps(orig)
             def run(*args):
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats(dev)

@@ -6,9 +6,10 @@ For each level asked for, encodes ``chip_smoke.py``'s deterministic stream
 stream with level jumps, bursts and silences at levels 9-12) once to warm
 up, three times timed on the host clock, and
 once under ``torch.profiler``. Prints the warm walls, the profiled wall,
-the device's busy time (the union of its kernel and copy intervals), the
-idle share of the median warm wall that this leaves, and the operators
-with the most device time.
+the device's busy time (the union of its kernel and copy intervals), its
+device events and the encoder's batches (and their ratio), the idle share
+of the median warm wall that this leaves, and the operators with the most
+device time.
 
     python3 prof_torch.py [--levels 8 5 12 11] [--rows 14]
 
@@ -70,8 +71,10 @@ def main() -> None:
                              bits_per_sample=16, params=P.set_defaults(level))
 
         def run():
-            Encoder(cfg, device="cuda").encode_stream(pcm)
+            enc = Encoder(cfg, device="cuda")
+            enc.encode_stream(pcm)
             torch.cuda.synchronize()
+            return enc.stats["batches"]
 
         run()
         walls = []
@@ -82,7 +85,7 @@ def main() -> None:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            run()
+            batches = run()
             prof_wall = time.perf_counter() - t0
         busy, n_ev = busy_ms(prof.events())
         warm = statistics.median(walls)
@@ -90,8 +93,9 @@ def main() -> None:
         print(f"level {level}, {secs:g} s: warm walls "
               f"{[round(w, 4) for w in walls]} s; profiled wall "
               f"{prof_wall * 1000:.1f} ms, device busy {busy:.1f} ms in "
-              f"{n_ev} device events; idle share of the median warm wall "
-              f"{1 - busy / 1000 / warm:.3f}", flush=True)
+              f"{n_ev} device events ({batches} batches, "
+              f"{n_ev / batches:.1f} events a batch); idle share of the "
+              f"median warm wall {1 - busy / 1000 / warm:.3f}", flush=True)
         print(prof.key_averages().table(sort_by="self_cuda_time_total",
                                         row_limit=args.rows), flush=True)
 

@@ -50,7 +50,15 @@ windowed autocorrelations at orders 1-32 and precisions 5-15 for N from 1
 to 13,696, on the quantizer's shift boundaries (cmax 0, subnormal, powers
 of two, qmax * 2^-sh and its neighbours, above qmax) at precisions 5-15,
 on degenerate autocorrelations (inf and NaN), on a non-contiguous batched
-view, and on every call of the encoder at levels 5, 8 and 12. The
+view, and on every call of the encoder at levels 5, 8 and 12. S, X, H and
+E (the order selection, the FIXED order search, the frame head and the
+slot layout) against their plain versions bit for bit: S under every
+order method on tables with ties and U32_MASK at the level-8 and level-12
+shapes and the edges, X at the level-2 batch, on 32-bit content, short
+tails and n up to 65,535, H at the level-8 batch, 32 bits (the side veto)
+and 1, 6 and 8 channels, E on the card's analyses at levels 2, 5, 8 and
+12, 24 and 32 bits and tails of 20, 10 and 3 samples; an encode launches
+them once a batch. The
 command line (``flake_tpu_torch.cli``) on the card writes the file it
 writes with ``--device cpu`` at ``-5 -b 4608`` (both emissions) and
 ``-8``.
@@ -66,7 +74,7 @@ import flake_tpu_torch
 from flake_tpu_torch import params as P
 from flake_tpu_torch.ops import autocorr as k1
 from flake_tpu_torch.ops import bitmerge as k3
-from flake_tpu_torch.ops import bitpack, frame, lpc
+from flake_tpu_torch.ops import bitpack, frame, lpc, rice
 from flake_tpu_torch.ops import sweep as k2
 from flake_tpu_torch.ops.sweep import sweep_granules as k4
 from flake_tpu_torch.util import prof_merge, prof_merge2, prof_merge3
@@ -847,7 +855,7 @@ def test_search_ties_on_the_card(dev):
 def test_ties_on_the_card(dev):
     """The Rice k scan and the stereo mode on the card pick the index the
     CPU picks on equal counts: the first minimum."""
-    from flake_tpu_torch.ops import rice, stereo
+    from flake_tpu_torch.ops import stereo
 
     rng = np.random.default_rng(6)
     nbits = torch.from_numpy(rng.integers(10, 13, (4096, 31)))
@@ -1257,3 +1265,203 @@ def test_candidates_kernel_refuses(dev):
     with pytest.raises(ValueError, match="int32"):
         lpc.candidates(torch.ones((4, 13), dtype=torch.int32, device=dev),
                        False, 15)
+
+
+# -- S, X, H and E: the analysis's and the emission's launch chains ---------
+
+def _order_bits(rng, N, m):
+    """int64 per-order bits: a narrow range (ties everywhere), rows of
+    U32_MASK, rows tied throughout, full-range uint32 rows."""
+    bits = rng.integers(1000, 1004, (N, m)).astype(np.int64)
+    bits[0] = 7
+    bits[1] = 0xFFFFFFFF
+    bits[2, ::2] = 0xFFFFFFFF
+    bits[3:64] = rng.integers(0, 1 << 32, (61, m))
+    bits[64:80, -1] = 0
+    return torch.from_numpy(bits)
+
+
+@pytest.mark.parametrize("method", [P.OrderMethod.LEVEL2, P.OrderMethod.LEVEL4,
+                                    P.OrderMethod.LEVEL8,
+                                    P.OrderMethod.SEARCH, P.OrderMethod.LOG])
+@pytest.mark.parametrize("m,min_o,N", [(12, 1, 1024), (32, 1, 13696),
+                                       (8, 1, 1), (32, 3, 300), (1, 1, 77),
+                                       (12, 12, 129)])
+def test_select_order_kernel(dev, method, m, min_o, N):
+    """S against its plain version on tables with ties and U32_MASK, at
+    the level-8 batch (1,024 streams of order 12) and the level-12 bucket
+    (13,696 of 32) and the edges: one stream, one order, min = max."""
+    bits = _order_bits(np.random.default_rng(m * 7 + N), max(N, 80), m)[:N]
+    before = frame.select_order_bits.launches
+    got = frame.select_order_bits(bits.to(dev), int(method), min_o, m)
+    assert frame.select_order_bits.launches == before + 1
+    want = frame.select_order_bits_plain(bits, int(method), min_o, m)
+    assert got.dtype == torch.int32 and torch.equal(got.cpu(), want)
+
+
+def _fixed_chans(rng, F, n, bps):
+    """[F, 2, n] int32: tones with noise, full-scale noise (whose fixed
+    predictions wrap int32 at 32 bits), a ramp, silence, a constant."""
+    lim = 1 << (bps - 1)
+    t = np.arange(n)
+    x = (lim // 3) * np.sin(2 * np.pi * rng.uniform(40, 900, (F, 2, 1))
+                            * t / 44100) + rng.normal(0, lim / 200,
+                                                      (F, 2, n))
+    x[1] = rng.integers(-lim, lim, (2, n))
+    x[2] = (np.arange(n) * 7) % lim
+    x[3] = 0
+    x[4] = -5
+    return torch.from_numpy(np.clip(np.rint(x), -lim, lim - 1)
+                            .astype(np.int32))
+
+
+@pytest.mark.parametrize("n,min_o,max_o,pmin,pmax,F,bps", [
+    (1152, 0, 4, 0, 4, 512, 16), (1152, 0, 4, 0, 8, 64, 32),
+    (4608, 1, 4, 0, 5, 16, 16), (20, 1, 4, 0, 8, 8, 16),
+    (10, 0, 4, 0, 8, 8, 32), (5, 0, 4, 2, 3, 8, 16), (4096, 2, 2, 0, 6, 8, 24),
+    (65535, 0, 4, 0, 8, 5, 16), (16, 1, 1, 0, 8, 8, 16)])
+def test_fixed_search_kernel(dev, n, min_o, max_o, pmin, pmax, F, bps):
+    """X's orders and coefficient rows equal its plain version's, at the
+    level-2 batch (512 stereo frames of 1,152) and the edges: 32-bit
+    content, short tails, one order, odd n, the longest block."""
+    chans = _fixed_chans(np.random.default_rng(n + bps), F, n, bps)
+    obits = torch.full((F, 2), bps, dtype=torch.int32)
+    obits[:, 1] += 1
+    before = rice.fixed_search.launches
+    order, coefs = rice.fixed_search(chans.to(dev), obits.to(dev), min_o,
+                                     max_o, pmin, pmax)
+    assert rice.fixed_search.launches == before + 1
+    want_o, want_c = rice.fixed_search_plain(chans, obits, min_o, max_o,
+                                             pmin, pmax)
+    assert torch.equal(order.cpu(), want_o)
+    assert torch.equal(coefs.cpu(), want_c)
+
+
+def _head_frames(rng, F, n, C, bps):
+    """[F, n, C] int32: music-like frames, all-zero, constant, 15 trailing
+    zero bits, equal channels, mid/side, and at 32 bits full-scale
+    opposites (the side veto)."""
+    lim = 1 << (bps - 1)
+    t = np.arange(n)[:, None]
+    x = (lim // 3) * np.sin(2 * np.pi * rng.uniform(40, 900, (F, 1, C))
+                            * t / 44100) + rng.normal(0, lim / 500, (F, n, C))
+    x = np.clip(np.rint(x), -lim, lim - 1).astype(np.int64)
+    x[1] = 0
+    x[2] = 12
+    x[3] = (x[3] >> 15) << 15
+    x[4, :, -1] = x[4, :, 0]
+    if C == 2:
+        x[5, :, 1] = x[5, :, 0] // 2 + 7
+        x[6, :, 0], x[6, :, 1] = lim - 1, -lim
+        x[7, :, 1] = x[7, :, 0] - 1
+    return torch.from_numpy(np.clip(x, -lim, lim - 1).astype(np.int32))
+
+
+@pytest.mark.parametrize("C,bps,n,estimate,F", [
+    (2, 16, 4096, True, 512), (2, 32, 4096, True, 16), (2, 24, 96, True, 16),
+    (2, 16, 33, True, 16), (2, 16, 32, True, 16), (2, 16, 20, False, 16),
+    (1, 24, 1000, True, 16), (6, 16, 4608, True, 16), (8, 24, 8192, True, 9),
+    (2, 16, 65535, True, 9)])
+def test_frame_head_kernel(dev, C, bps, n, estimate, F):
+    """H's five outputs equal its plain version's: the level-8 batch (512
+    stereo frames of 4,096) and the edges (32-bit and its side veto, n at
+    the stereo estimate's 32-sample edge, 1, 6 and 8 channels, the longest
+    block)."""
+    x = _head_frames(np.random.default_rng(C * n + bps), F, n, C, bps)
+    p = P.set_defaults(8)
+    p.stereo_method = int(estimate)
+    cfg = frame.FrameConfig.from_params(p, C, bps, block_size=n)
+    before = frame.frame_head.launches
+    got = frame.frame_head(x.to(dev), cfg)
+    assert frame.frame_head.launches == before + 1
+    want = frame.frame_head_plain(x, cfg)
+    assert got[0].is_contiguous()
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g.cpu(), w)
+    if bps == 32 and estimate:
+        assert want[3][6] == 1                  # LEFT_RIGHT: the veto
+
+
+@pytest.mark.parametrize("level,C,bps,n,F", [
+    (8, 2, 16, 4096, 512), (2, 2, 16, 1152, 64), (8, 2, 24, 4096, 16),
+    (8, 2, 32, 4096, 16), (5, 6, 16, 4608, 8), (5, 8, 24, 2048, 8),
+    (12, 2, 16, 8192, 8), (8, 2, 16, 20, 8), (8, 2, 16, 10, 8),
+    (8, 2, 16, 3, 8), (5, 1, 32, 1000, 8)])
+def test_slot_layout_kernel(dev, level, C, bps, n, F):
+    """E's three tables equal its plain version's on the analysis of a
+    batch on the card: the level-8 batch (512 frames of 4,096), FIXED at
+    level 2, 24 bits, 32-bit stereo (the wide (hi, lo) form), 6 and 8
+    channels, the level-12 8192 size, tails of 20, 10 and 3 samples
+    (LPC, FIXED, VERBATIM), 32-bit mono."""
+    rng = np.random.default_rng(level * n + C + bps)
+    x = _head_frames(rng, F, n, C, bps)
+    x[-1] = torch.from_numpy(rng.choice([-(1 << (bps - 1)),
+                                         (1 << (bps - 1)) - 1], (n, C))
+                             .astype(np.int32))
+    cfg = frame.FrameConfig.from_params(P.set_defaults(level), C, bps,
+                                        block_size=n)
+    nums = np.arange(F, dtype=np.int64) * 977
+    hb, hn = bitpack.frame_header_bytes(
+        nums, bs_code=P.blocksize_code(n), sr_code=P.samplerate_code(44100),
+        allow_vbs=0)
+    analysis = frame.analyze_frames(x.to(dev), cfg,
+                                    torch.from_numpy(hn * 8).to(dev))
+    hb, hn = torch.from_numpy(hb).to(dev), torch.from_numpy(hn).to(dev)
+    before = bitpack.slot_layout.launches
+    got = bitpack.slot_layout(analysis, hb, hn, cfg)
+    assert bitpack.slot_layout.launches == before + 1
+    want = bitpack.slot_layout_plain(analysis, hb, hn, cfg)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    words, total_bits = bitpack.pack_frames_device(analysis, hb, hn, cfg)
+    assert torch.equal(total_bits.to(torch.int64),
+                       analysis["frame_bytes"] * 8)
+
+
+@pytest.mark.parametrize("level", [8, 2, 12])
+def test_encoder_launches_the_frame_kernels(dev, level):
+    """An encode launches H and E once a batch, S (LPC levels that read
+    bits) or X (FIXED levels), and its bytes equal the CPU encoder's."""
+    cfg = P.StreamConfig(channels=2, sample_rate=44100, bits_per_sample=16,
+                         params=P.set_defaults(level))
+    n = 2 * 44100 + 777
+    t = np.arange(n)
+    rng = np.random.default_rng(level)
+    pcm = np.stack([9000 * np.sin(2 * np.pi * 220 * t / 44100),
+                    7000 * np.sin(2 * np.pi * 330 * t / 44100)], 1) \
+        + rng.normal(0, 200, (n, 2))
+    pcm = np.clip(np.rint(pcm), -32768, 32767).astype(np.int32)
+    kernels = (frame.select_order_bits, rice.fixed_search, frame.frame_head,
+               bitpack.slot_layout)
+    before = [k.launches for k in kernels]
+    got = flake_tpu_torch.Encoder(cfg, device=dev,
+                                  batch_frames=8).encode_stream(pcm)
+    torch.cuda.synchronize()
+    ran = [k.launches - b for k, b in zip(kernels, before)]
+    want = flake_tpu_torch.Encoder(cfg, device="cpu",
+                                   batch_frames=8).encode_stream(pcm)
+    assert got == want
+    assert ran[2] >= 1 and ran[3] >= 1
+    if level == 2:
+        assert ran[1] >= 1 and ran[0] == 0
+    else:
+        assert ran[0] >= 1
+
+
+def test_frame_kernels_refuse_other_types(dev):
+    cfg = frame.FrameConfig.from_params(P.set_defaults(8), 2, 16,
+                                        block_size=64)
+    with pytest.raises(ValueError, match="int32"):
+        frame.frame_head(torch.zeros((4, 64, 2), dtype=torch.int64,
+                                     device=dev), cfg)
+    with pytest.raises(ValueError, match="int64"):
+        frame.select_order_bits(torch.zeros((4, 12), dtype=torch.int32,
+                                            device=dev), 6, 1, 12)
+    with pytest.raises(ValueError, match="orders"):
+        frame.select_order_bits(torch.zeros((4, 40), dtype=torch.int64,
+                                            device=dev), 6, 1, 40)
+    with pytest.raises(ValueError, match="orders"):
+        rice.fixed_search(torch.zeros((4, 2, 64), dtype=torch.int32,
+                                      device=dev),
+                          torch.zeros((4, 2), dtype=torch.int32, device=dev),
+                          0, 5, 0, 3)
