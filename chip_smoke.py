@@ -85,21 +85,29 @@ timed at.
 equal their plain version on all three, K5's and K3's words on the two
 batches, where no frame may overflow the static rows, and K5's words on the
 frames of the made-up table that do not overflow them (some must); the zero
-floors must give ``torch.zeros``. L must give its plain version's bits
-(NaNs equal) on the inputs of the first level-8 batch, the level-12 8192
-bucket, the first level-5 batch (EST) and the level-8 batch in float32,
-each timed beside its plain version and the launch floor of its grid, with
-its bounds by bytes, by operations and by its dependent chain at the
-card's measured float64 (float32) add latency, and on made-up tables (the
-shift search's edges at precisions 5-15, degenerate autocorrelations) in
-both dtypes and both modes. The Schur and Levinson recursions of the EST
-order method must give the same float64 bits on the card and on the host,
-and torch.addcmul in both dtypes is read against the host's. S, H and E
-must give their plain versions' bits on the inputs of the first level-8
-batch and of the level-12 8192 bucket, X on those of the first level-2
-batch (512 frames of 1,152), each timed beside its plain version with its
-bound by bytes and int32 operations (no PyTorch call computes any of
-them: library none).
+floors must give ``torch.zeros``. L (32 streams a block, the recursion
+one stream a lane in registers, the quantizer on other warps as rows are
+published) and its first design (``csrc/yardsticks/lpc_v1.cu``, a warp a
+stream) must give their plain version's bits (NaNs equal) on the inputs
+of the first level-8 batch, the level-12 8192 bucket, the first level-5
+batch (EST) and the level-8 batch in float32, each timed beside the other
+(``ms_before``), its plain version and the launch floor of its grid, with
+its bounds by bytes, by operations and by its dependent chain, each
+operation at its own probed latency (adds, correctly rounded divisions,
+truncations; a shuffle's latency is printed and not counted), and L on
+made-up tables (the shift search's edges at precisions 5-15, degenerate
+autocorrelations) in both dtypes and both modes. The Schur and Levinson
+recursions of the EST order method must give the same float64 bits on
+the card and on the host, and torch.addcmul in both dtypes is read
+against the host's. S, H and E must give their plain versions' bits on
+the inputs of the first level-8 batch and of the level-12 8192 bucket, X
+on those of the first level-2 batch (512 frames of 1,152), each timed
+beside its plain version with its bound by bytes and int32 operations; E
+(a thread-block cluster a frame) beside its first design
+(``csrc/yardsticks/slots_v1.cu``, a block a frame), which must give the
+same bits, and S on the 8192 bucket (SEARCH) beside ``torch.argmin``, the
+one PyTorch call of its function there (no PyTorch call computes X, H,
+E, or S under LOG: library none).
 
 Three-second windows must give the same bytes through
 ``Encoder(device="cpu")`` (the plain versions) and
@@ -1171,8 +1179,9 @@ def build_yardsticks():
     ``merge_v5d``, ``merge_v5c`` and of the zero floor, the combined-node
     merge with its spill sets read by flagged columns, the row-layout merges
     at other geometries, K4's design on the integer pipes, the zero floor by
-    bulk asynchronous stores and the card's rate probes) into a library of
-    their own. Returns (the compiler's report, a dict of functions):
+    bulk asynchronous stores, the first designs of L and E and the card's
+    rate and latency probes) into a library of their own, one nvcc a
+    source, all started together. Returns (the compiler's report, a dict of functions):
     ``k1_before`` to ``k4_before``, ``v2_before``, ``v3_before``,
     ``v5a_before``, ``v5b_before``, ``v5d_before`` and ``v5c_before`` take
     the wrappers' arguments and launch the first designs (K3's zeroes its
@@ -1184,10 +1193,16 @@ def build_yardsticks():
     design on the integer pipes, ``launch_floor(blocks, threads)``
     launches an empty kernel, ``r1_before`` takes ``rice_scan``'s arguments
     and ``r2_before`` a residual with ``rice_final_plain``'s (R1's and
-    R2's first designs); ``mad_wide``, ``imad`` and ``dfma`` measure
-    the card's rate of each operation, in operations a ms, and
-    ``dadd_latency`` and ``fadd_latency`` the ms of one dependent float64
-    and float32 add."""
+    R2's first designs); ``l_before`` takes ``lpc.candidates``' arguments
+    and ``e_before`` ``bitpack.slot_layout``'s (L's and E's first
+    designs); ``mad_wide``, ``imad`` and ``dfma`` measure the card's rate
+    of each operation, in operations a ms, and the latency probes the ms
+    of one dependent operation: ``dadd_latency`` and ``fadd_latency`` a
+    float64 and a float32 add, ``ddiv_latency`` and ``fdiv_latency`` a
+    correctly rounded division, ``dtrunc_latency`` and ``ftrunc_latency``
+    a truncation and the add after it, ``shfl_latency`` a float64
+    shuffle."""
+    import concurrent.futures
     import ctypes
 
     import torch
@@ -1196,9 +1211,15 @@ def build_yardsticks():
     srcs = sorted((ROOT / "flake_tpu_torch" / "csrc" / "yardsticks")
                   .glob("*.cu"))
     lib_path = _build.BUILD_DIR / "libflake_yardsticks.so"
-    report = _build.build([_cuda.nvcc(), *_cuda.ARCH, "-std=c++17", "-O3",
-                           "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-                           "-shared"], srcs, lib_path)
+    # one nvcc a source, all started together, then one link
+    objs = [_build.BUILD_DIR / f"yardstick_{src.stem}.o" for src in srcs]
+    with concurrent.futures.ThreadPoolExecutor(len(srcs)) as pool:
+        reports = list(pool.map(
+            lambda src, obj: _build.build(
+                [_cuda.nvcc(), *_cuda.ARCH, "-std=c++17", "-O3", "-Xcompiler",
+                 "-fPIC", "-Xptxas", "-v", "-c"], [src], obj), srcs, objs))
+    report = "".join(reports) + _build.build(
+        [_cuda.nvcc(), *_cuda.ARCH, "-shared"], objs, lib_path)
     lib = ctypes.CDLL(str(lib_path))
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.flake_autocorr_v1.argtypes = [P, P, P, I, I, I, P]
@@ -1221,8 +1242,11 @@ def build_yardsticks():
     lib.flake_zero_floor_v1.argtypes = [P, I, I, I, P]
     lib.flake_zero_floor_bulk.argtypes = [P, I, I, P]
     lib.flake_launch_floor.argtypes = [I, I, P]
-    lib.flake_latency_dadd.argtypes = [P, I, P]
-    lib.flake_latency_fadd.argtypes = [P, I, P]
+    for probe in ("dadd", "fadd", "ddiv", "fdiv", "dtrunc", "ftrunc",
+                  "shfl"):
+        getattr(lib, f"flake_latency_{probe}").argtypes = [P, I, P]
+    lib.flake_slot_layout_v1.argtypes = [P] * 17 + [I] * 8 + [P]
+    lib.flake_lpc_candidates_v1.argtypes = [P] * 4 + [I] * 5 + [P]
     lib.flake_rice_scan_v1.argtypes = [P] * 6 + [I] * 7 + [P]
     lib.flake_rice_final_v1.argtypes = [P] * 7 + [I] * 6 + [P]
 
@@ -1343,6 +1367,24 @@ def build_yardsticks():
              *out.values(), N, *ints)
         return {k: v.reshape(batch + v.shape[1:]) for k, v in out.items()}
 
+    def l_before(autoc, est, precision):
+        from flake_tpu_torch.ops import lpc
+
+        ins, outs, ints, batch = lpc.candidates_operands(autoc, est,
+                                                         precision)
+        call(lib.flake_lpc_candidates_v1, *ins, *outs, *ints)
+        m = ints[1]
+        return (outs[0].reshape(batch + (m, m)),
+                outs[1].reshape(batch + (m,)), outs[2].reshape(batch + (m,)))
+
+    def e_before(analysis, hdr_bytes, hdr_nbytes, cfg):
+        from flake_tpu_torch.ops import bitpack
+
+        ins, outs, ints = bitpack.slot_operands(analysis, hdr_bytes,
+                                                hdr_nbytes, cfg)
+        call(lib.flake_slot_layout_v1, *ins, *outs, *ints)
+        return outs
+
     def rate(fn, dtype):
         """Operations a ms of ``fn`` on 8 blocks of 256 threads an SM."""
         blocks, threads, iters = 8 * 132, 256, 256
@@ -1380,10 +1422,13 @@ def build_yardsticks():
         "mad_wide": lambda: rate(lib.flake_rate_mad_wide, torch.int64),
         "imad": lambda: rate(lib.flake_rate_imad, torch.int32),
         "dfma": lambda: rate(lib.flake_rate_dfma, torch.float64),
-        "dadd_latency": lambda: latency(lib.flake_latency_dadd,
-                                        torch.float64),
-        "fadd_latency": lambda: latency(lib.flake_latency_fadd,
-                                        torch.float32)}
+        "l_before": l_before, "e_before": e_before,
+        **{f"{probe}_latency": (
+            lambda probe=probe: latency(
+                getattr(lib, f"flake_latency_{probe}"),
+                torch.float32 if probe[0] == "f" else torch.float64))
+           for probe in ("dadd", "fadd", "ddiv", "fdiv", "dtrunc", "ftrunc",
+                         "shfl")}}
 
 
 def ptxas_table(report: str) -> dict:
@@ -1527,11 +1572,20 @@ def main() -> None:
           f"ones (the int32 bound assumes {INT32_OPS_PER_MS / 2:.4g}), "
           f"{rates['dfma_per_ms']:.4g} float64 FMAs a ms (the sweeps' bound "
           f"assumes {FP64_OPS_PER_MS / 2:.4g})", flush=True)
-    rates["dadd_latency_ms"] = yard["dadd_latency"]()
-    rates["fadd_latency_ms"] = yard["fadd_latency"]()
-    print(f"latency on {card}: {rates['dadd_latency_ms'] * 1e6:.3f} ns a "
-          f"dependent float64 add, {rates['fadd_latency_ms'] * 1e6:.3f} ns a "
-          "float32 one", flush=True)
+    for probe in ("dadd", "fadd", "ddiv", "fdiv", "dtrunc", "ftrunc",
+                  "shfl"):
+        rates[f"{probe}_latency_ms"] = yard[f"{probe}_latency"]()
+    # the truncation probes time a truncation and the add after it
+    rates["dtrunc_latency_ms"] -= rates["dadd_latency_ms"]
+    rates["ftrunc_latency_ms"] -= rates["fadd_latency_ms"]
+    print(f"latency on {card}, ns a dependent operation: "
+          f"float64 add {rates['dadd_latency_ms'] * 1e6:.3f}, float32 add "
+          f"{rates['fadd_latency_ms'] * 1e6:.3f}, float64 division "
+          f"{rates['ddiv_latency_ms'] * 1e6:.3f}, float32 division "
+          f"{rates['fdiv_latency_ms'] * 1e6:.3f}, float64 truncation "
+          f"{rates['dtrunc_latency_ms'] * 1e6:.3f}, float32 truncation "
+          f"{rates['ftrunc_latency_ms'] * 1e6:.3f}, float64 shuffle "
+          f"{rates['shfl_latency_ms'] * 1e6:.3f}", flush=True)
     t0 = time.perf_counter()
     native.build()
     native.get_verifier()
@@ -2696,17 +2750,24 @@ def main() -> None:
 
     # -- 4c. L, the coefficient stage --------------------------------------
     def chain_ops(m, est):
-        """Dependent float operations on one stream's path through L's
-        work, a lower bound on its time at one add's latency each (a
-        division, a truncation and a compare count as one add): Levinson
-        order i's product, its fold of i adds (left to right, the plain
-        version's rounding), the subtraction, the division and the next
-        update (i + 4); under EST two a Schur step (the multiply-add and the
-        division) and one a seeded update; then the quantizer's longest
-        row, a compare a tap for its largest magnitude and four a tap of
-        error feedback (two adds, the truncation, the subtraction)."""
-        rec = 3 * m if est else m * (m - 1) // 2 + 4 * m
-        return rec + 5 * m
+        """The operations on one stream's dependent path through L's
+        necessary work, by kind, a lower bound on its time at each kind's
+        probed latency (a multiply, an FMA, a subtraction, a compare or a
+        conversion counts as an add; no shuffle counts, since moving a
+        value between lanes is no part of the work). Levinson: order 0's
+        subtraction and division; order i >= 1's update FMA, its first
+        product, the fold of i adds (left to right, the plain version's
+        rounding), the subtraction and the division; under EST a Schur step
+        is one FMA (after the first) and the division. Then the last
+        order's update, the last row's quantizer: its largest magnitude as
+        a tree of ceil(log2 m) compares, the shift search (the float32
+        image, a product and a compare), and a tap's error feedback (two
+        adds, the truncation, the clamp's compare and the subtraction) on
+        each of its m taps. The scale-down's division, which only rows
+        whose largest tap passes qmax at shift 0 take, is not counted."""
+        rec = m - 1 if est else 2 * (m - 1) + m * (m - 1) // 2 + m
+        quant = 1 + (m - 1).bit_length() + 3 + 4 * m
+        return {"add": rec + quant, "div": m, "trunc": m}
 
     def l_ops(N, m, est):
         """L's float operations on N streams: Levinson order i's i
@@ -2719,18 +2780,23 @@ def main() -> None:
         return N * (rec + 3 * m * (m + 1))
 
     def l_at(label, args, entry):
-        """L held against its plain version on ``args`` (autoc, est,
-        precision) and timed with it and the launch floor of its grid in
-        turns; bounds by bytes, by operations and by the dependent chain,
-        into ``entry``."""
+        """L and its first design held against the plain version on
+        ``args`` (autoc, est, precision) and timed with it and the launch
+        floor of its grid in turns; bounds by bytes, by operations and by
+        the dependent chain at each operation's probed latency, into
+        ``entry``."""
         autoc, est, precision = args
-        _, detail = check("candidates", lambda: lpc.candidates(*args),
-                          lambda: lpc.candidates_plain(*args), cmp_bits)
+        for fn in (lpc.candidates, yard["l_before"]):
+            _, detail = check("candidates", lambda fn=fn: fn(*args),
+                              lambda: lpc.candidates_plain(*args), cmp_bits)
         N, m = autoc.shape[0], autoc.shape[-1] - 1
-        grid = ((N + 3) // 4, 128)
+        grid = ((N + 31) // 32, 512)
 
         def kern():
             return lpc.candidates(*args)
+
+        def before():
+            return yard["l_before"](*args)
 
         def plain():
             return lpc.candidates_plain(*args)
@@ -2738,27 +2804,32 @@ def main() -> None:
         def floor():
             yard["launch_floor"](*grid)
 
-        entry["plain_ms"], entry["ms"], entry["launch_floor_ms"] = \
-            time_turns(plain, kern, floor, loop=(plain,))
+        entry["plain_ms"], entry["ms"], entry["ms_before"], \
+            entry["launch_floor_ms"] = time_turns(plain, kern, before, floor,
+                                                  loop=(plain,))
         moved = nbytes(autoc) + nbytes(*kern())
         entry["bound_ms"], entry["bound_by"] = bound(
             moved, l_ops(N, m, est), FP64_OPS_PER_MS
             if autoc.dtype == torch.float64 else FP32_OPS_PER_MS)
         chain = chain_ops(m, est)
-        entry["chain_bound_ms"] = chain * rates[
-            "dadd_latency_ms" if autoc.dtype == torch.float64
-            else "fadd_latency_ms"]
+        prefix = "d" if autoc.dtype == torch.float64 else "f"
+        entry["chain_ops"] = chain
+        entry["chain_bound_ms"] = sum(
+            count * rates[f"{prefix}{kind}_latency_ms"]
+            for kind, count in chain.items())
         entry["shape"] = list(autoc.shape)
         entry["est"], entry["dtype"] = bool(est), str(autoc.dtype)
         print(f"candidates on {label} {tuple(autoc.shape)}, "
               f"{'EST' if est else 'Levinson'}, {autoc.dtype}: {detail}; "
-              f"kernel {entry['ms']:.4f} ms, plain {entry['plain_ms']:.4f} "
+              f"kernel {entry['ms']:.4f} ms (first design "
+              f"{entry['ms_before']:.4f} ms), plain {entry['plain_ms']:.4f} "
               f"ms, the launch floor of its grid {grid} "
               f"{entry['launch_floor_ms']:.4f} ms; bounds: "
               f"{entry['bound_ms']:.5f} ms by {entry['bound_by']} "
               f"({moved / 1e6:.2f} MB, {l_ops(N, m, est) / 1e9:.4f} G "
-              f"operations), the dependent chain {chain} operations = "
-              f"{entry['chain_bound_ms']:.5f} ms", flush=True)
+              f"operations), the dependent chain {chain} = "
+              f"{entry['chain_bound_ms']:.5f} ms at the probed latencies",
+              flush=True)
 
     l_entry = {"name": "candidates", "route": "cuda",
                "source": "flake_tpu_torch/csrc/lpc.cu",
@@ -2864,14 +2935,19 @@ def main() -> None:
           flush=True)
 
     # -- 4e. S, X, H and E: the analysis's and the emission's launch chains --
-    def frame_kernel(name, source, replaces, kern, plain, shapes):
+    def frame_kernel(name, source, replaces, kern, plain, shapes,
+                     before=None, library=None):
         """One of S, X, H and E held against its plain version bit for bit on
         each of ``shapes`` (key, label, args, reads, ops) and timed with it
         in turns (the kernel back to back, the plain version in a plain
         loop, as the analysis calls it); its bound from the bytes of
         ``reads`` (read once) and of its outputs (written once) and ``ops``
-        int32 operations. The first shape is the entry's own, the others
-        go under their keys."""
+        int32 operations. ``before``, a first design taking the same
+        arguments, is held and timed beside it (``ms_before``);
+        ``library`` maps a key to (the call's name, a function of the
+        shape's arguments), one PyTorch call of the same function, timed
+        back to back beside it. The first shape is the entry's own, the
+        others go under their keys."""
         entry = {"name": name, "route": "cuda", "source": source,
                  "replaces": replaces, "library_ms": None,
                  "max_abs_err": 0.0,
@@ -2879,24 +2955,34 @@ def main() -> None:
         for key, label, args, reads, ops in shapes:
             _, detail = check(name, lambda: kern(*args),
                               lambda: plain(*args), cmp_exact)
-
-            def run_kern():
-                return kern(*args)
-
-            def run_plain():
-                return plain(*args)
-
-            plain_ms, ms = time_turns(run_plain, run_kern, loop=(run_plain,))
-            out = run_kern()
+            fns = [lambda: plain(*args), lambda: kern(*args)]
+            if before is not None:
+                check(name, lambda: before(*args), lambda: plain(*args),
+                      cmp_exact)
+                fns.append(lambda: before(*args))
+            lib_name, lib_fn = (library or {}).get(key, (None, None))
+            if lib_fn is not None:
+                fns.append(lambda: lib_fn(*args))
+            times = time_turns(*fns, loop=(fns[0],))
+            plain_ms, ms = times[:2]
+            out = kern(*args)
             moved = nbytes(*reads) + nbytes(
                 *(out if isinstance(out, tuple) else (out,)))
             bound_ms, bound_by = bound(moved, ops, INT32_OPS_PER_MS)
             row = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                    "bound_by": bound_by, "shape": label}
-            print(f"{name} on {label}: {detail}; kernel {ms:.4f} ms, plain "
-                  f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms by {bound_by} "
-                  f"({moved / 1e6:.2f} MB, {ops / 1e9:.4f} G int32 "
-                  "operations), library call none", flush=True)
+            if before is not None:
+                row["ms_before"] = times[2]
+            if lib_fn is not None:
+                row["library_ms"], row["library"] = times[-1], lib_name
+            print(f"{name} on {label}: {detail}; kernel {ms:.4f} ms"
+                  + (f" (first design {row['ms_before']:.4f} ms)"
+                     if before is not None else "")
+                  + f", plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms by "
+                  f"{bound_by} ({moved / 1e6:.2f} MB, {ops / 1e9:.4f} G int32 "
+                  "operations), library call "
+                  + (f"{lib_name} {row['library_ms']:.4f} ms"
+                     if lib_fn is not None else "none"), flush=True)
             if key is None:
                 entry.update(row)
             else:
@@ -2952,7 +3038,13 @@ def main() -> None:
         [s_shape(None, "the level-8 batch (LOG)",
                  cap8["select_order_bits"][0]),
          s_shape(f"level12_{vbs}", f"the level-12 {vbs} bucket",
-                 cap12["select_order_bits"][0])])
+                 cap12["select_order_bits"][0])],
+        # SEARCH's function is one argmin (the first order among equal
+        # minima), then the 1-based int32 order
+        library={f"level12_{vbs}": (
+            "torch.argmin",
+            lambda bits, method, min_o, max_o: torch.argmin(
+                bits[..., :max_o], dim=-1))})
     frame_kernel(
         "fixed_search", "flake_tpu_torch/csrc/rice.cu",
         "flake_tpu/ops/frame.py:323 (the FIXED order loop: "
@@ -2981,7 +3073,7 @@ def main() -> None:
         bitpack.slot_layout, bitpack.slot_layout_plain,
         [e_shape(None, "the level-8 batch", cap8["slot_layout"][0]),
          e_shape(f"level12_{vbs}", f"the level-12 {vbs} bucket",
-                 cap12["slot_layout"][0])])
+                 cap12["slot_layout"][0])], before=yard["e_before"])
 
     # -- 5. the sweeps on every shape the level-12 path gives them ----------
     # every shape the sweeping levels give them: order 8 at level 7 and

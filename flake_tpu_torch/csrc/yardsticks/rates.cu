@@ -9,11 +9,15 @@
 // compiler cannot lift a product out of the loop (with loop-invariant
 // factors it does, and the loop then times 64-bit adds). Beside them, an
 // empty kernel: the fixed cost of a launch, timed back to back like the
-// short kernels it stands beside (the zero floor); and the latency of one
-// float64 and one float32 add, from one warp's chain of dependent adds
-// (the dependent chain of the LPC stage, L, is timed against it). No path
-// of the package calls these; chip_smoke.py times them beside the
-// kernels.
+// short kernels it stands beside (the zero floor); and the latencies of
+// the operations on the dependent chain of the LPC stage, L, each from one
+// warp's chain of them: a float64 and a float32 add, a correctly rounded
+// division (__ddiv_rn, __fdiv_rn: a sequence with a slow path, not one
+// instruction), a truncation followed by an add (the quantizer's step; the
+// add's own latency is taken off by the reader) and a float64 shuffle
+// round trip (__shfl_xor_sync, two 32-bit shuffles), which L's chain bound
+// does not count but its first design paid. No path of the package calls
+// these; chip_smoke.py times them beside the kernels.
 
 #include <cuda_runtime.h>
 
@@ -89,6 +93,14 @@ __device__ __forceinline__ double add_rn(double a, double b) {
 __device__ __forceinline__ float add_rn(float a, float b) {
   return __fadd_rn(a, b);
 }
+__device__ __forceinline__ double div_rn(double a, double b) {
+  return __ddiv_rn(a, b);
+}
+__device__ __forceinline__ float div_rn(float a, float b) {
+  return __fdiv_rn(a, b);
+}
+__device__ __forceinline__ double trunc_of(double a) { return ::trunc(a); }
+__device__ __forceinline__ float trunc_of(float a) { return truncf(a); }
 
 // one chain of iters x 16 dependent adds a thread
 template <typename T>
@@ -97,6 +109,39 @@ __global__ void add_chain_kernel(T* out, int iters, T c) {
   for (int i = 0; i < iters; ++i) {
 #pragma unroll
     for (int u = 0; u < 16; ++u) a = add_rn(a, c);
+  }
+  out[threadIdx.x] = a;
+}
+
+// one chain of iters x 16 dependent divisions a thread, c / a: the values
+// alternate between a and c / a and stay normal (no slow path)
+template <typename T>
+__global__ void div_chain_kernel(T* out, int iters, T c) {
+  T a = static_cast<T>(1.25) + static_cast<T>(threadIdx.x) / 1024;
+  for (int i = 0; i < iters; ++i) {
+#pragma unroll
+    for (int u = 0; u < 16; ++u) a = div_rn(c, a);
+  }
+  out[threadIdx.x] = a;
+}
+
+// one chain of iters x 16 dependent (truncation, add) pairs a thread
+template <typename T>
+__global__ void trunc_chain_kernel(T* out, int iters, T c) {
+  T a = static_cast<T>(threadIdx.x);
+  for (int i = 0; i < iters; ++i) {
+#pragma unroll
+    for (int u = 0; u < 16; ++u) a = add_rn(trunc_of(a), c);
+  }
+  out[threadIdx.x] = a;
+}
+
+// one chain of iters x 16 dependent float64 shuffles a lane
+__global__ void shfl_chain_kernel(double* out, int iters) {
+  double a = threadIdx.x;
+  for (int i = 0; i < iters; ++i) {
+#pragma unroll
+    for (int u = 0; u < 16; ++u) a = __shfl_xor_sync(0xffffffffu, a, 1);
   }
   out[threadIdx.x] = a;
 }
@@ -141,5 +186,41 @@ extern "C" int flake_latency_dadd(double* out, int iters,
 extern "C" int flake_latency_fadd(float* out, int iters,
                                   cudaStream_t stream) {
   add_chain_kernel<float><<<1, 32, 0, stream>>>(out, iters, 1e-3f);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// one warp, each lane a chain of 16 x iters dependent float64 (float32)
+// divisions; out has 32 elements
+extern "C" int flake_latency_ddiv(double* out, int iters,
+                                  cudaStream_t stream) {
+  div_chain_kernel<double><<<1, 32, 0, stream>>>(out, iters, 1.7);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int flake_latency_fdiv(float* out, int iters,
+                                  cudaStream_t stream) {
+  div_chain_kernel<float><<<1, 32, 0, stream>>>(out, iters, 1.7f);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// one warp, each lane a chain of 16 x iters dependent float64 (float32)
+// truncations, each followed by an add; out has 32 elements
+extern "C" int flake_latency_dtrunc(double* out, int iters,
+                                    cudaStream_t stream) {
+  trunc_chain_kernel<double><<<1, 32, 0, stream>>>(out, iters, 0.75);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int flake_latency_ftrunc(float* out, int iters,
+                                    cudaStream_t stream) {
+  trunc_chain_kernel<float><<<1, 32, 0, stream>>>(out, iters, 0.75f);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// one warp, each lane a chain of 16 x iters dependent float64 shuffles;
+// out has 32 elements
+extern "C" int flake_latency_shfl(double* out, int iters,
+                                  cudaStream_t stream) {
+  shfl_chain_kernel<<<1, 32, 0, stream>>>(out, iters);
   return static_cast<int>(cudaGetLastError());
 }

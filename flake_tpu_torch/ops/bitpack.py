@@ -297,29 +297,29 @@ _SLOT_TABLES = ("sf_type", "order", "obits", "wasted", "method", "porder",
                 "type_code", "shift")
 
 
-def slot_layout(analysis: dict, hdr_bytes: torch.Tensor,
-                hdr_nbytes: torch.Tensor, cfg: FrameConfig):
-    """:func:`slot_layout_plain`'s function. A batch on the CPU (its
-    ``sf_type``) takes the plain version; one on a CUDA device launches E
-    (``csrc/slots.cu``), one block a frame, whose three tables equal the
-    plain version's."""
+def slot_operands(analysis: dict, hdr_bytes: torch.Tensor,
+                  hdr_nbytes: torch.Tensor, cfg: FrameConfig):
+    """E's operands on the batch's CUDA device, in the order its entry
+    point takes them: (inputs, outputs, ints). The outputs are the three
+    int32 [F, M] tables, allocated here (``torch.empty``: 16-byte aligned,
+    as E's int4 stores need); ``ints`` are F, n, C, pmax_static, rp, wide,
+    precision and the bps code. Raises on a shape or dtype E does not
+    take."""
     dev = analysis["sf_type"].device
-    if dev.type == "cpu":
-        return slot_layout_plain(analysis, hdr_bytes, hdr_nbytes, cfg)
-    if dev.type != "cuda":
-        raise ValueError(f"slot_layout: no kernel for {dev}")
     n, C = cfg.block_size, cfg.channels
+    if C > 8:
+        raise ValueError(f"slot_layout: {C} channels; the kernel takes 8")
     ps = limit_max_partition_order(cfg.max_partition_order, n, 1)
     F = analysis["sf_type"].shape[0]
     wide = _split_wide(cfg)
     L = (100 if wide else 68) + (1 << ps) * (1 + (2 if wide else 1)
                                              * (n >> ps))
     M = HDR_SLOTS + C * L + 2
-    args = []
+    ins = []
     for key in _SLOT_TABLES:
         t = analysis[key].contiguous()
         _cuda.check(t, key, torch.int32, (F, C), dev)
-        args.append(t)
+        ins.append(t)
     coefs = analysis["coefs"].contiguous()
     _cuda.check(coefs, "coefs", torch.int32, (F, C, P.MAX_LPC_ORDER), dev)
     params = analysis["rice_params"].contiguous()
@@ -336,15 +336,29 @@ def slot_layout(analysis: dict, hdr_bytes: torch.Tensor,
     _cuda.check(hdr_bytes, "hdr_bytes", torch.uint8, (F, HDR_SLOTS), dev)
     hdr_nbytes = hdr_nbytes.to(dev).contiguous()
     _cuda.check(hdr_nbytes, "hdr_nbytes", torch.int32, (F,), dev)
-    lengths, leading, payload = (
-        torch.empty((F, M), dtype=torch.int32, device=dev) for _ in range(3))
-    if F:
-        _cuda.launch("flake_slot_layout", dev, *args, coefs, params, res,
-                     ch_mode, hdr_bytes, hdr_nbytes, lengths, leading,
-                     payload, F, n, C, ps, rp, int(wide), cfg.precision,
-                     P.bps_code(cfg.bps))
+    outs = tuple(torch.empty((F, M), dtype=torch.int32, device=dev)
+                 for _ in range(3))
+    ins += [coefs, params, res, ch_mode, hdr_bytes, hdr_nbytes]
+    return ins, outs, (F, n, C, ps, rp, int(wide), cfg.precision,
+                       P.bps_code(cfg.bps))
+
+
+def slot_layout(analysis: dict, hdr_bytes: torch.Tensor,
+                hdr_nbytes: torch.Tensor, cfg: FrameConfig):
+    """:func:`slot_layout_plain`'s function. A batch on the CPU (its
+    ``sf_type``) takes the plain version; one on a CUDA device launches E
+    (``csrc/slots.cu``), one thread-block cluster a frame, whose three
+    tables equal the plain version's."""
+    dev = analysis["sf_type"].device
+    if dev.type == "cpu":
+        return slot_layout_plain(analysis, hdr_bytes, hdr_nbytes, cfg)
+    if dev.type != "cuda":
+        raise ValueError(f"slot_layout: no kernel for {dev}")
+    ins, outs, ints = slot_operands(analysis, hdr_bytes, hdr_nbytes, cfg)
+    if ints[0]:
+        _cuda.launch("flake_slot_layout", dev, *ins, *outs, *ints)
         slot_layout.launches += 1
-    return lengths, leading, payload
+    return outs
 
 
 slot_layout.launches = 0

@@ -269,15 +269,14 @@ def candidates_plain(autoc: torch.Tensor, est: bool, precision: int):
     return qcoefs, shifts, refs
 
 
-def candidates(autoc: torch.Tensor, est: bool, precision: int):
-    """:func:`candidates_plain`'s function. ``autoc`` float64 or float32
-    [..., m + 1], 1 <= m <= 32. A CPU tensor takes the plain version; a
-    CUDA tensor launches the kernel (``csrc/lpc.cu``), one warp a
-    stream, whose outputs equal the plain version's bit for bit."""
-    if autoc.device.type == "cpu":
-        return candidates_plain(autoc, est, precision)
-    if autoc.device.type != "cuda":
-        raise ValueError(f"candidates: no kernel for {autoc.device}")
+def candidates_operands(autoc: torch.Tensor, est: bool, precision: int):
+    """L's operands on ``autoc``'s CUDA device, in the order its entry
+    point takes them: (inputs, outputs, ints, batch). ``inputs`` is
+    ``autoc`` as a contiguous [N, m + 1]; the outputs, allocated here
+    (``torch.empty``: 16-byte aligned, as L's int4 stores need), are
+    qcoefs int32 [N, m, m], shifts int32 [N, m] and refs [N, m] in
+    ``autoc``'s dtype; ``ints`` are N, m, precision, est and whether the
+    dtype is float64. Raises on what L does not take."""
     if autoc.dtype not in (torch.float64, torch.float32):
         raise ValueError(f"candidates: no kernel for {autoc.dtype}")
     m = autoc.shape[-1] - 1
@@ -289,13 +288,29 @@ def candidates(autoc: torch.Tensor, est: bool, precision: int):
     N = batch.numel()
     dev = autoc.device
     autoc = autoc.reshape(N, m + 1).contiguous()
-    qcoefs = torch.empty((N, m, m), dtype=torch.int32, device=dev)
-    shifts = torch.empty((N, m), dtype=torch.int32, device=dev)
-    refs = torch.empty((N, m), dtype=autoc.dtype, device=dev)
-    if N:
-        _cuda.launch("flake_lpc_candidates", dev, autoc, qcoefs, shifts,
-                     refs, N, m, precision, int(est),
-                     int(autoc.dtype == torch.float64))
+    outs = (torch.empty((N, m, m), dtype=torch.int32, device=dev),
+            torch.empty((N, m), dtype=torch.int32, device=dev),
+            torch.empty((N, m), dtype=autoc.dtype, device=dev))
+    return ((autoc,), outs,
+            (N, m, precision, int(est), int(autoc.dtype == torch.float64)),
+            batch)
+
+
+def candidates(autoc: torch.Tensor, est: bool, precision: int):
+    """:func:`candidates_plain`'s function. ``autoc`` float64 or float32
+    [..., m + 1], 1 <= m <= 32. A CPU tensor takes the plain version; a
+    CUDA tensor launches the kernel (``csrc/lpc.cu``), 32 streams a block,
+    whose outputs equal the plain version's bit for bit."""
+    if autoc.device.type == "cpu":
+        return candidates_plain(autoc, est, precision)
+    if autoc.device.type != "cuda":
+        raise ValueError(f"candidates: no kernel for {autoc.device}")
+    ins, (qcoefs, shifts, refs), ints, batch = candidates_operands(
+        autoc, est, precision)
+    m = ints[1]
+    if ints[0]:
+        _cuda.launch("flake_lpc_candidates", autoc.device, *ins, qcoefs,
+                     shifts, refs, *ints)
         candidates.launches += 1
     return (qcoefs.reshape(batch + (m, m)), shifts.reshape(batch + (m,)),
             refs.reshape(batch + (m,)))

@@ -57,8 +57,11 @@ order method on tables with ties and U32_MASK at the level-8 and level-12
 shapes and the edges, X at the level-2 batch, on 32-bit content, short
 tails and n up to 65,535, H at the level-8 batch, 32 bits (the side veto)
 and 1, 6 and 8 channels, E on the card's analyses at levels 2, 5, 8 and
-12, 24 and 32 bits and tails of 20, 10 and 3 samples; an encode launches
-them once a batch. The
+12, 24 and 32 bits and tails of 20, 10 and 3 samples, and on made-up
+analyses (every subframe type in a frame, 1 to 512 frames, the wide form,
+8 channels, odd n, ps 0 to 8, 65,535 samples); an encode launches them
+once a batch. L also at max orders 1, 2, 31 and 32 on 1, 5 and 1,024
+streams with degenerate rows among them. The
 command line (``flake_tpu_torch.cli``) on the card writes the file it
 writes with ``--device cpu`` at ``-5 -b 4608`` (both emissions) and
 ``-8``.
@@ -1267,6 +1270,32 @@ def test_candidates_kernel_refuses(dev):
                        False, 15)
 
 
+
+def _mixed_autoc(N, m, seed, dev, dtype):
+    """N windowed-stream autocorrelations at max order m with degenerate
+    rows among them: silent (all zero, whose Schur gives NaNs), a NaN lag,
+    an inf lag, a zero lag 0 under nonzero lags, a negative lag 0."""
+    autoc = _stream_autoc(N, 1024 if N > 64 else 4096, m, seed, dev)
+    bad = [np.zeros(m + 1), np.full(m + 1, np.nan), np.full(m + 1, np.inf),
+           np.r_[0.0, np.ones(m)], np.r_[-1.0, np.full(m, 0.5)]]
+    for row, values in zip(range(0, N, 3), bad):
+        autoc[row] = torch.from_numpy(values)
+    return autoc.to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("est", [False, True], ids=["levinson", "est"])
+@pytest.mark.parametrize("m", [1, 2, 31, 32])
+@pytest.mark.parametrize("N", [1, 5, 1024])
+def test_candidates_kernel_orders_and_counts(dev, N, m, est, dtype):
+    """L on 1, 5 and 1,024 streams (one block short of full, several
+    full) at max orders 1, 2, 31 and 32 (each unrolled bound's edge; 31 and
+    1, 2 write their rows tap by tap, 32 in 16-byte stores), NaN and
+    degenerate rows among them, in both dtypes and both modes."""
+    autoc = _mixed_autoc(N, m, N * 64 + m, dev, dtype)
+    q, sh, refs = _candidates_on_card(autoc, est, 15)
+    assert q.shape == (N, m, m) and sh.shape == refs.shape == (N, m)
+
 # -- S, X, H and E: the analysis's and the emission's launch chains ---------
 
 def _order_bits(rng, N, m):
@@ -1416,6 +1445,74 @@ def test_slot_layout_kernel(dev, level, C, bps, n, F):
     words, total_bits = bitpack.pack_frames_device(analysis, hb, hn, cfg)
     assert torch.equal(total_bits.to(torch.int64),
                        analysis["frame_bytes"] * 8)
+
+
+def _made_up_analysis(rng, F, C, n, bps, level, dev):
+    """A made-up analysis E and its plain version take: every subframe
+    type in every frame (CONSTANT, VERBATIM, FIXED, LPC in turn over the
+    channels, from a random start), orders up to 4 (FIXED) and 32 (LPC),
+    obits up to the field's width, wasted bits, both Rice methods,
+    partition orders 0..ps, parameters 0..30, residuals from small to
+    the full int32 range, random header bytes."""
+    cfg = frame.FrameConfig.from_params(P.set_defaults(level), C, bps,
+                                        block_size=n)
+    ps = rice.limit_max_partition_order(cfg.max_partition_order, n, 1)
+    kinds = np.array([frame.SF_CONSTANT, frame.SF_VERBATIM, frame.SF_FIXED,
+                      frame.SF_LPC])
+    sf = kinds[(np.arange(C)[None, :] + rng.integers(0, 4, (F, 1))) % 4]
+    order = np.where(sf == frame.SF_FIXED, rng.integers(0, 5, (F, C)),
+                     np.where(sf == frame.SF_LPC,
+                              rng.integers(1, 33, (F, C)), 0))
+    width = bps + (1 if C == 2 else 0)
+    scale = 2.0 ** rng.integers(0, 32, (F, C, 1))
+    residual = np.clip(np.rint(rng.normal(0, 1, (F, C, n)) * scale),
+                       -2.0 ** 31, 2.0 ** 31 - 1)
+    residual[0, 0, :5] = [-2 ** 31, 2 ** 31 - 1, -1, 0, 1][:n]
+    table = {
+        "sf_type": sf, "order": order,
+        "obits": rng.integers(1, width + 1, (F, C)),
+        "wasted": rng.integers(0, 4, (F, C)),
+        "method": rng.integers(0, 2, (F, C)),
+        "porder": rng.integers(0, ps + 1, (F, C)),
+        "type_code": rng.integers(0, 64, (F, C)),
+        "shift": rng.integers(0, 16, (F, C)),
+        "coefs": rng.integers(-(1 << 14), 1 << 14, (F, C, P.MAX_LPC_ORDER)),
+        "rice_params": rng.integers(0, 31, (F, C, (1 << ps) + 3)),
+        "residual": residual, "ch_mode": rng.integers(0, 4, F)}
+    analysis = {k: torch.from_numpy(np.asarray(v).astype(np.int32)).to(dev)
+                for k, v in table.items()}
+    hb = torch.from_numpy(rng.integers(0, 256, (F, bitpack.HDR_SLOTS))
+                          .astype(np.uint8)).to(dev)
+    hn = torch.from_numpy(rng.integers(6, 17, F).astype(np.int32)).to(dev)
+    return analysis, hb, hn, cfg, ps
+
+
+@pytest.mark.parametrize("F,C,n,bps,level,ps", [
+    (1, 2, 4096, 16, 8, 6), (3, 2, 4096, 16, 8, 6), (214, 2, 8192, 16, 12, 8),
+    (512, 2, 4096, 16, 8, 6), (5, 2, 4096, 32, 8, 6), (3, 8, 4096, 24, 8, 6),
+    (4, 8, 2048, 32, 12, 8), (6, 2, 777, 16, 8, 0), (7, 2, 4095, 24, 12, 0),
+    (2, 1, 3, 16, 8, 0), (9, 2, 20, 16, 8, 2), (3, 6, 1152, 16, 2, 3),
+    (2, 2, 256, 16, 12, 8), (5, 2, 1024, 32, 12, 8), (1, 8, 65535, 24, 8, 0)])
+def test_slot_layout_kernel_made_up(dev, F, C, n, bps, level, ps):
+    """E's three tables equal its plain version's on made-up analyses: one
+    frame, 3, 214 (the level-12 8192 bucket) and 512 (the level-8 batch);
+    the wide (hi, lo) form of 32-bit stereo; 6 and 8 channels; odd n and
+    VBS sub-block sizes (256 to 8192), ps 0 to 8 (n odd or a short tail
+    takes 0); rows that start off a 16-byte boundary (M not a multiple of
+    4); and
+    65,535 samples of 8 channels, whose blocks lay out their spans in
+    several passes."""
+    rng = np.random.default_rng(F * n + C + bps)
+    analysis, hb, hn, cfg, got_ps = _made_up_analysis(rng, F, C, n, bps,
+                                                      level, dev)
+    assert got_ps == ps
+    before = bitpack.slot_layout.launches
+    got = bitpack.slot_layout(analysis, hb, hn, cfg)
+    torch.cuda.synchronize()
+    assert bitpack.slot_layout.launches == before + 1
+    want = bitpack.slot_layout_plain(analysis, hb, hn, cfg)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.parametrize("level", [8, 2, 12])
