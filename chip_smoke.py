@@ -12,9 +12,10 @@ Rice search from partition sums and the final pass from the samples (the
 residual, its int32 fit flag and the Rice search with the exact bits),
 L, the LPC coefficient stage (Levinson for every order, or Schur and
 the seeded Levinson, then the quantizer, in one launch), and the four
-kernels of the last launch chains: S, the order selection (LOG, LEVEL and
-SEARCH), X, the FIXED order search, H, the frame head (stereo mode and
-decorrelation, wasted bits, constant flags) and E, the slot layout; no
+kernels of the last launch chains: S, the order selection under every
+order method and its candidate's coefficients and shift, X, the FIXED
+order search, H, the frame head (stereo mode and decorrelation, wasted
+bits, constant flags) and E, the slot layout; no
 Pallas kernel stands behind R1, R2, L, S, X, H or E) and its host
 libraries (CRC
 patcher, decoder helpers) from this checkout, and holds each kernel
@@ -102,12 +103,15 @@ the card and on the host, and torch.addcmul in both dtypes is read
 against the host's. S, H and E must give their plain versions' bits on
 the inputs of the first level-8 batch and of the level-12 8192 bucket, X
 on those of the first level-2 batch (512 frames of 1,152), each timed
-beside its plain version with its bound by bytes and int32 operations; E
-(a thread-block cluster a frame) beside its first design
-(``csrc/yardsticks/slots_v1.cu``, a block a frame), which must give the
-same bits, and S on the 8192 bucket (SEARCH) beside ``torch.argmin``, the
-one PyTorch call of its function there (no PyTorch call computes X, H,
-E, or S under LOG: library none).
+beside its plain version with its bound by bytes and int32 operations
+and its share of it; E (a thread-block cluster a frame), H (a block a
+frame, staged by bulk copies) and S (a warp a stream) beside their first
+designs (``csrc/yardsticks/slots_v1.cu``, ``head_v1.cu`` and
+``select_v1.cu``), which must give the same bits, H and S beside an
+empty kernel on their grids, S also without its gather (the order alone,
+as its first design computes it) and on the 8192 bucket (SEARCH) beside
+``torch.argmin``, the one PyTorch call of SEARCH's selection (no PyTorch
+call computes X, H, E, or S under LOG: library none).
 
 Three-second windows must give the same bytes through
 ``Encoder(device="cpu")`` (the plain versions) and
@@ -165,8 +169,8 @@ stage, decoded with its MD5, and its peak device memory may lie no more
 than ``LONG_PEAK_SLACK_MIB`` above its level's short stream's (printed by
 stage beside it). On every path R2 must launch wherever a stream is
 predicted, R1 wherever a sweep runs (R1 also on the sp path, in its final
-search), L wherever LPC runs (the sp path too), S wherever the order
-method reads bits (the sp path too), X on every FIXED level, H on every
+search), L and S wherever LPC runs (the sp path too), X on every FIXED
+level, H on every
 dense analysis and E on every device emission (each sp rank's too), and
 no plain version of the seven, nor the plain final pass's lag loop, nor a
 plain recursion or quantizer, nor the plain pieces of the order
@@ -495,7 +499,7 @@ kernels = {"autocorr": autocorr.autocorr, "sweep_sums": sweep.sweep_sums,
            "sweep_granules": sweep.sweep_granules,
            "merge_words": bitmerge.merge_words, "rice_scan": rice.rice_scan,
            "final_pass": rice.final_pass, "candidates": lpc.candidates,
-           "select_order_bits": frame.select_order_bits,
+           "select_candidate": frame.select_candidate,
            "fixed_search": rice.fixed_search, "frame_head": frame.frame_head,
            "slot_layout": bitpack.slot_layout}
 for fn in kernels.values():
@@ -603,11 +607,11 @@ def sharded_paths(card, pcm, count_launches, launched) -> None:
     from flake_tpu_torch.parallel.runner import shard_ranges
 
     k1234 = ("autocorr", "sweep_sums", "merge_words", "sweep_granules",
-             "rice_scan", "final_pass", "candidates", "select_order_bits",
+             "rice_scan", "final_pass", "candidates", "select_candidate",
              "frame_head", "slot_layout")
     # config 5's tails (2,048 and 512 samples) take K4, so K2 need not run
     on_card = ("autocorr", "sweep_granules", "merge_words", "rice_scan",
-               "final_pass", "candidates", "select_order_bits", "frame_head",
+               "final_pass", "candidates", "select_candidate", "frame_head",
                "slot_layout")
     cfg8 = P.StreamConfig(channels=2, sample_rate=SAMPLE_RATE,
                           bits_per_sample=16, params=P.set_defaults(8))
@@ -827,8 +831,10 @@ def sp_paths(card, streams, count_launches, launched) -> None:
 
     def cpu_only(name, plain):
         def run(x, *args):
-            # the slot layout's plain version takes the analysis dict
-            t = x["sf_type"] if isinstance(x, dict) else x
+            # the slot layout's plain version takes the analysis dict; S's
+            # takes no bits under MAX and EST
+            t = next(a for a in (x["sf_type"] if isinstance(x, dict) else x,
+                                 *args) if isinstance(a, torch.Tensor))
             if t.device.type != "cpu":
                 fail(f"the sp path ran {name}, a plain version of a kernel, "
                      f"on {t.device}")
@@ -840,6 +846,7 @@ def sp_paths(card, streams, count_launches, launched) -> None:
               (rice, "rice_scan_plain"), (rice, "rice_final_plain"),
               (rice, "final_pass_plain"), (lpc, "candidates_plain"),
               (frame, "select_order_bits_plain"),
+              (frame, "select_candidate_plain"), (lpc, "estimate_order"),
               (bitpack, "slot_layout_plain")]
     originals = [(mod, name, getattr(mod, name)) for mod, name in plains]
     for mod, name, orig in originals:
@@ -893,15 +900,12 @@ def sp_paths(card, streams, count_launches, launched) -> None:
                 enc = Encoder(cfg, mesh=mesh)
                 t0 = time.perf_counter()
                 # R1: the order loop's scan and the final search; L: the
-                # coefficient stage, once a group; S where the order method
-                # reads bits; E before K3
-                reads_bits = cfg.params.order_method not in (
-                    P.OrderMethod.MAX, P.OrderMethod.EST)
+                # coefficient stage and S, the selection and its gather,
+                # once a group; E before K3
                 blob = count_launches(path, lambda: enc.encode_stream(pcm),
                                       ("merge_words", "slot_layout",
-                                       "rice_scan", "candidates")
-                                      + (("select_order_bits",)
-                                         if reads_bits else ()))
+                                       "rice_scan", "candidates",
+                                       "select_candidate"))
                 cold = time.perf_counter() - t0
                 peaks = {m["device"]: m["peak_bytes_in_use"] / 2**20
                          for m in profiling.device_memory_stats()
@@ -924,8 +928,8 @@ def sp_paths(card, streams, count_launches, launched) -> None:
                 host = count_launches(
                     f"{path}, host emission",
                     lambda: Encoder(cfg, mesh=mesh, pack_backend="host")
-                    .encode_stream(pcm), ("rice_scan", "candidates")
-                    + (("select_order_bits",) if reads_bits else ()),
+                    .encode_stream(pcm),
+                    ("rice_scan", "candidates", "select_candidate"),
                     ("merge_words", "slot_layout"))
                 if host != blob:
                     fail(f"{path}: the host emission's bytes differ from "
@@ -1041,7 +1045,7 @@ def sp_paths(card, streams, count_launches, launched) -> None:
     out = count_launches("graft entry", lambda: fn(*args),
                          ("autocorr", "sweep_granules", "merge_words",
                           "rice_scan", "final_pass", "candidates",
-                          "select_order_bits", "frame_head", "slot_layout"))
+                          "select_candidate", "frame_head", "slot_layout"))
     if not torch.equal(out["total_bits"].to(torch.int64),
                        8 * out["frame_bytes"]):
         fail("graft entry: total_bits is not 8 x frame_bytes")
@@ -1065,9 +1069,9 @@ def measurement_paths(card, count_launches) -> None:
 
     k1234 = ("autocorr", "sweep_granules", "merge_words", "sweep_sums")
     rice12 = ("rice_scan", "final_pass", "candidates")
-    # S where the order method reads bits, H on every dense analysis, E on
-    # every device emission; X at the level matrix's FIXED levels
-    she = ("select_order_bits", "frame_head", "slot_layout")
+    # S wherever LPC runs, H on every dense analysis, E on every device
+    # emission; X at the level matrix's FIXED levels
+    she = ("select_candidate", "frame_head", "slot_layout")
     t0 = time.perf_counter()
     res = count_launches("bench", lambda: bench.run(device="cuda"),
                          k1234 + rice12 + she)
@@ -1092,9 +1096,10 @@ def measurement_paths(card, count_launches) -> None:
           f"each decoded with its MD5, in {time.perf_counter() - t0:.1f} s",
           flush=True)
     for level in (5, 8, 12):
-        needs = ("autocorr", "final_pass", "candidates", "frame_head") \
+        needs = ("autocorr", "final_pass", "candidates", "select_candidate",
+                 "frame_head") \
             if level == 5 else ("autocorr", "sweep_granules") + rice12 \
-            + ("select_order_bits", "frame_head")
+            + ("select_candidate", "frame_head")
         res = count_launches(
             f"prof_an5 level {level}",
             lambda: prof_an5.run(level, device="cuda"), needs,
@@ -1179,8 +1184,8 @@ def build_yardsticks():
     ``merge_v5d``, ``merge_v5c`` and of the zero floor, the combined-node
     merge with its spill sets read by flagged columns, the row-layout merges
     at other geometries, K4's design on the integer pipes, the zero floor by
-    bulk asynchronous stores, the first designs of L and E and the card's
-    rate and latency probes) into a library of their own, one nvcc a
+    bulk asynchronous stores, the first designs of L, E, S and H and the
+    card's rate and latency probes) into a library of their own, one nvcc a
     source, all started together. Returns (the compiler's report, a dict of functions):
     ``k1_before`` to ``k4_before``, ``v2_before``, ``v3_before``,
     ``v5a_before``, ``v5b_before``, ``v5d_before`` and ``v5c_before`` take
@@ -1195,7 +1200,8 @@ def build_yardsticks():
     and ``r2_before`` a residual with ``rice_final_plain``'s (R1's and
     R2's first designs); ``l_before`` takes ``lpc.candidates``' arguments
     and ``e_before`` ``bitpack.slot_layout``'s (L's and E's first
-    designs); ``mad_wide``, ``imad`` and ``dfma`` measure the card's rate
+    designs), ``s_before`` ``frame.select_order_bits``' and ``h_before``
+    ``frame.frame_head``'s (S's and H's); ``mad_wide``, ``imad`` and ``dfma`` measure the card's rate
     of each operation, in operations a ms, and the latency probes the ms
     of one dependent operation: ``dadd_latency`` and ``fadd_latency`` a
     float64 and a float32 add, ``ddiv_latency`` and ``fdiv_latency`` a
@@ -1249,6 +1255,8 @@ def build_yardsticks():
     lib.flake_lpc_candidates_v1.argtypes = [P] * 4 + [I] * 5 + [P]
     lib.flake_rice_scan_v1.argtypes = [P] * 6 + [I] * 7 + [P]
     lib.flake_rice_final_v1.argtypes = [P] * 7 + [I] * 6 + [P]
+    lib.flake_select_order_v1.argtypes = [P, P] + [I] * 5 + [P]
+    lib.flake_frame_head_v1.argtypes = [P] * 6 + [I] * 5 + [P]
 
     def call(fn, *args):
         rc = fn(*[P(a.data_ptr()) if isinstance(a, torch.Tensor) else a
@@ -1385,6 +1393,26 @@ def build_yardsticks():
         call(lib.flake_slot_layout_v1, *ins, *outs, *ints)
         return outs
 
+    def s_before(bits, method, min_o, max_o):
+        N, m = bits.shape
+        order = torch.empty(N, dtype=torch.int32, device=bits.device)
+        call(lib.flake_select_order_v1, bits, order, N, m, int(method), min_o,
+             max_o)
+        return order
+
+    def h_before(samples, cfg):
+        from flake_tpu_torch.ops import frame
+
+        F, n, C = samples.shape
+        outs = (torch.empty((F, C, n), dtype=torch.int32, device="cuda"),
+                *(torch.empty((F, C), dtype=torch.int32, device="cuda")
+                  for _ in range(2)),
+                torch.empty(F, dtype=torch.int32, device="cuda"),
+                torch.empty((F, C), dtype=torch.bool, device="cuda"))
+        call(lib.flake_frame_head_v1, samples, *outs, F, n, C, cfg.bps,
+             int(frame._stereo_estimate(cfg)))
+        return outs
+
     def rate(fn, dtype):
         """Operations a ms of ``fn`` on 8 blocks of 256 threads an SM."""
         blocks, threads, iters = 8 * 132, 256, 256
@@ -1422,7 +1450,8 @@ def build_yardsticks():
         "mad_wide": lambda: rate(lib.flake_rate_mad_wide, torch.int64),
         "imad": lambda: rate(lib.flake_rate_imad, torch.int32),
         "dfma": lambda: rate(lib.flake_rate_dfma, torch.float64),
-        "l_before": l_before, "e_before": e_before,
+        "l_before": l_before, "e_before": e_before, "s_before": s_before,
+        "h_before": h_before,
         **{f"{probe}_latency": (
             lambda probe=probe: latency(
                 getattr(lib, f"flake_latency_{probe}"),
@@ -1646,7 +1675,7 @@ def main() -> None:
         [(frame, "autocorr"), (frame, "sweep_granules"),
          (bitpack, "merge_words"), (rice, "rice_scan"),
          (frame, "final_pass"), (lpc, "candidates"),
-         (frame, "select_order_bits"), (frame, "frame_head"),
+         (frame, "select_candidate"), (frame, "frame_head"),
          (bitpack, "slot_layout")],
         lambda: analyze_and_pack(
             torch.from_numpy(pcm[:BATCH * BLOCK].reshape(BATCH, BLOCK, 2))
@@ -1927,7 +1956,7 @@ def main() -> None:
         [(frame, "autocorr"), (frame, "sweep_granules"),
          (bitpack, "merge_words"), (rice, "rice_scan"),
          (frame, "final_pass"), (lpc, "candidates"),
-         (frame, "select_order_bits"), (frame, "frame_head"),
+         (frame, "select_candidate"), (frame, "frame_head"),
          (bitpack, "slot_layout")],
         lambda: analyze_and_pack(
             torch.from_numpy(supers[f_idx[whole]]).to(dev), fcfg12,
@@ -2936,17 +2965,19 @@ def main() -> None:
 
     # -- 4e. S, X, H and E: the analysis's and the emission's launch chains --
     def frame_kernel(name, source, replaces, kern, plain, shapes,
-                     before=None, library=None):
-        """One of S, X, H and E held against its plain version bit for bit on
+                     before=None, library=None, floor=None):
+        """One of X, H and E held against its plain version bit for bit on
         each of ``shapes`` (key, label, args, reads, ops) and timed with it
         in turns (the kernel back to back, the plain version in a plain
         loop, as the analysis calls it); its bound from the bytes of
         ``reads`` (read once) and of its outputs (written once) and ``ops``
-        int32 operations. ``before``, a first design taking the same
-        arguments, is held and timed beside it (``ms_before``);
-        ``library`` maps a key to (the call's name, a function of the
-        shape's arguments), one PyTorch call of the same function, timed
-        back to back beside it. The first shape is the entry's own, the
+        int32 operations, and the kernel's share of it. ``before``, a first
+        design taking the same arguments, is held and timed beside it
+        (``ms_before``); ``library`` maps a key to (the call's name, a
+        function of the shape's arguments), one PyTorch call of the same
+        function, timed back to back beside it; ``floor``, a function of
+        the arguments, launches an empty kernel on the kernel's grid
+        (``launch_floor_ms``). The first shape is the entry's own, the
         others go under their keys."""
         entry = {"name": name, "route": "cuda", "source": source,
                  "replaces": replaces, "library_ms": None,
@@ -2960,6 +2991,8 @@ def main() -> None:
                 check(name, lambda: before(*args), lambda: plain(*args),
                       cmp_exact)
                 fns.append(lambda: before(*args))
+            if floor is not None:
+                fns.append(lambda: floor(*args))
             lib_name, lib_fn = (library or {}).get(key, (None, None))
             if lib_fn is not None:
                 fns.append(lambda: lib_fn(*args))
@@ -2970,17 +3003,24 @@ def main() -> None:
                 *(out if isinstance(out, tuple) else (out,)))
             bound_ms, bound_by = bound(moved, ops, INT32_OPS_PER_MS)
             row = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                   "bound_by": bound_by, "shape": label}
+                   "bound_by": bound_by, "share_of_bound": bound_ms / ms,
+                   "shape": label}
             if before is not None:
                 row["ms_before"] = times[2]
+            if floor is not None:
+                row["launch_floor_ms"] = times[2 + (before is not None)]
             if lib_fn is not None:
                 row["library_ms"], row["library"] = times[-1], lib_name
             print(f"{name} on {label}: {detail}; kernel {ms:.4f} ms"
                   + (f" (first design {row['ms_before']:.4f} ms)"
                      if before is not None else "")
+                  + (f", an empty kernel on its grid "
+                     f"{row['launch_floor_ms']:.4f} ms"
+                     if floor is not None else "")
                   + f", plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms by "
                   f"{bound_by} ({moved / 1e6:.2f} MB, {ops / 1e9:.4f} G int32 "
-                  "operations), library call "
+                  f"operations; {100 * bound_ms / ms:.0f}% of it), on "
+                  f"{card}, library call "
                   + (f"{lib_name} {row['library_ms']:.4f} ms"
                      if lib_fn is not None else "none"), flush=True)
             if key is None:
@@ -2989,15 +3029,64 @@ def main() -> None:
                 entry[key] = row
         kernels.append(entry)
 
-    def s_ops(bits, method):
+    def s_ops(N, m, method):
         """S's int32 operations: LOG's 15 visits of about ten (a clamp, two
         mask tests, two reads, a compare) a stream; the others two a read
-        column."""
-        N, m = bits.shape
-        return N * (150 if method == P.OrderMethod.LOG else 2 * m)
+        column; the gather one a tap."""
+        return N * ((150 if method == P.OrderMethod.LOG else 2 * m) + 32)
 
-    def s_shape(key, label, args):
-        return (key, label, args, (args[0],), s_ops(args[0], args[1]))
+    def s_rows(args, entry, key, label, library):
+        """S on one captured call: with its gather (``select_candidate``)
+        and without (``select_order_bits``, the order alone), and its first
+        design (the order alone), each held against its plain version bit
+        for bit; all timed in turns beside an empty kernel on S's grid and,
+        under SEARCH, ``torch.argmin`` (SEARCH's selection alone, one
+        library call). Its bound: the bits once, the chosen rows and
+        shifts once, the outputs once."""
+        bits, refs, qc, sh, method, min_o, max_o = args
+        N, m = bits.shape
+        o_args = (bits, method, min_o, max_o)
+        _, detail = check("select_candidate",
+                          lambda: frame.select_candidate(*args),
+                          lambda: frame.select_candidate_plain(*args),
+                          cmp_exact)
+        for fn in (frame.select_order_bits, yard["s_before"]):
+            check("select_order_bits", lambda fn=fn: fn(*o_args),
+                  lambda: frame.select_order_bits_plain(*o_args), cmp_exact)
+        fns = [lambda: frame.select_candidate_plain(*args),
+               lambda: frame.select_candidate(*args),
+               lambda: frame.select_order_bits(*o_args),
+               lambda: yard["s_before"](*o_args),
+               lambda: yard["launch_floor"]((N + 3) // 4, 128)]
+        if library:
+            fns.append(lambda: torch.argmin(bits[..., :max_o], dim=-1))
+        times = time_turns(*fns, loop=(fns[0],))
+        out = frame.select_candidate(*args)
+        moved = nbytes(bits, *out) + N * (max_o + 1) * 4
+        bound_ms, bound_by = bound(moved, s_ops(N, m, method),
+                                   INT32_OPS_PER_MS)
+        order_bound_ms, _ = bound(nbytes(bits) + 4 * N, s_ops(N, m, method)
+                                  - 32 * N, INT32_OPS_PER_MS)
+        row = {"ms": times[1], "plain_ms": times[0], "bound_ms": bound_ms,
+               "bound_by": bound_by, "share_of_bound": bound_ms / times[1],
+               "ms_order_only": times[2], "order_only_bound_ms":
+               order_bound_ms, "ms_before": times[3],
+               "launch_floor_ms": times[4], "shape": label,
+               "method": int(method)}
+        if library:
+            row["library_ms"], row["library"] = times[5], "torch.argmin"
+        print(f"select_candidate on {label}: {detail}; kernel {times[1]:.4f} "
+              f"ms with the gather, {times[2]:.4f} ms the order alone (first "
+              f"design, the order alone, {times[3]:.4f} ms), an empty kernel "
+              f"on its grid ({(N + 3) // 4} x 128) {times[4]:.4f} ms, plain "
+              f"{times[0]:.4f} ms, bound {bound_ms:.5f} ms by {bound_by} "
+              f"({moved / 1e6:.3f} MB), on {card}, library call "
+              + (f"torch.argmin {times[5]:.4f} ms" if library else "none"),
+              flush=True)
+        if key is None:
+            entry.update(row)
+        else:
+            entry[key] = row
 
     def h_shape(key, label, args):
         """H reads the samples once; about 16 operations a sample for the
@@ -3030,21 +3119,20 @@ def main() -> None:
     xc = x_args[0]
     orders_x = x_args[3] - x_args[2] + 1
     x_ps = rice.limit_max_partition_order(x_args[5], xc.shape[-1], 1)
-    frame_kernel(
-        "select_order_bits", "flake_tpu_torch/csrc/select.cu",
-        "flake_tpu/ops/frame.py:102 (_select_order_log; LEVEL "
-        "_select_order_level :142, SEARCH's argmin :181; no pl.pallas_call)",
-        frame.select_order_bits, frame.select_order_bits_plain,
-        [s_shape(None, "the level-8 batch (LOG)",
-                 cap8["select_order_bits"][0]),
-         s_shape(f"level12_{vbs}", f"the level-12 {vbs} bucket",
-                 cap12["select_order_bits"][0])],
-        # SEARCH's function is one argmin (the first order among equal
-        # minima), then the 1-based int32 order
-        library={f"level12_{vbs}": (
-            "torch.argmin",
-            lambda bits, method, min_o, max_o: torch.argmin(
-                bits[..., :max_o], dim=-1))})
+    s_entry = {"name": "select_candidate", "route": "cuda",
+               "source": "flake_tpu_torch/csrc/select.cu",
+               "replaces": "flake_tpu/ops/frame.py:102 (_select_order_log; "
+               "LEVEL _select_order_level :142, SEARCH's argmin :181, MAX "
+               "and EST :167-170, the row select :462-476; no "
+               "pl.pallas_call)", "library_ms": None, "max_abs_err": 0.0,
+               "timed": {"ms": "back_to_back", "plain_ms": "loop"}}
+    s_rows(cap8["select_candidate"][0], s_entry, None,
+           "the level-8 batch (LOG)", False)
+    # SEARCH's selection is one argmin (the first order among equal
+    # minima), then the 1-based int32 order
+    s_rows(cap12["select_candidate"][0], s_entry, f"level12_{vbs}",
+           f"the level-12 {vbs} bucket (SEARCH)", True)
+    kernels.append(s_entry)
     frame_kernel(
         "fixed_search", "flake_tpu_torch/csrc/rice.cu",
         "flake_tpu/ops/frame.py:323 (the FIXED order loop: "
@@ -3065,7 +3153,9 @@ def main() -> None:
         frame.frame_head, frame.frame_head_plain,
         [h_shape(None, "the level-8 batch", cap8["frame_head"][0]),
          h_shape(f"level12_{vbs}", f"the level-12 {vbs} bucket",
-                 cap12["frame_head"][0])])
+                 cap12["frame_head"][0])], before=yard["h_before"],
+        floor=lambda samples, cfg: yard["launch_floor"](samples.shape[0],
+                                                         256))
     frame_kernel(
         "slot_layout", "flake_tpu_torch/csrc/slots.cu",
         "flake_tpu/ops/bitpack.py:402 (pack_frames_device's slot tables, "
@@ -3227,8 +3317,8 @@ def main() -> None:
             "sweep_granules": (sweep_mod.sweep_granules,
                                sweep_mod.sweep_granules_plain, cmp_exact),
             "candidates": (lpc.candidates, lpc.candidates_plain, cmp_bits),
-            "select_order_bits": (frame.select_order_bits,
-                                  frame.select_order_bits_plain, cmp_exact),
+            "select_candidate": (frame.select_candidate,
+                                 frame.select_candidate_plain, cmp_exact),
             "fixed_search": (rice.fixed_search, rice.fixed_search_plain,
                              cmp_exact),
             "frame_head": (frame.frame_head, frame.frame_head_plain,
@@ -3239,17 +3329,18 @@ def main() -> None:
 
     def with_rice(needs):
         """A path's kernels with R2, which runs wherever a stream is
-        predicted (LPC or FIXED), H, on every dense analysis, R1 and S,
-        which run wherever a sweep does (the order method reads bit
-        counts), L wherever LPC runs (K1 or a sweep; the float32 path has no
+        predicted (LPC or FIXED), H, on every dense analysis, R1, which
+        runs wherever a sweep does (the order method reads bit counts), L
+        and S wherever LPC runs (K1 or a sweep; the float32 path has no
         K1), X where it does not (the FIXED levels; at the LPC levels X
         takes only tails of at most the highest order's samples, and may
         run), and E wherever K3 does (every device emission)."""
         sweeps_run = set(needs) & {"sweep_sums", "sweep_granules"}
         lpc_runs = sweeps_run or "autocorr" in needs
         return tuple(needs) + ("final_pass", "frame_head") \
-            + (("rice_scan", "select_order_bits") if sweeps_run else ()) \
-            + (("candidates",) if lpc_runs else ("fixed_search",)) \
+            + (("rice_scan",) if sweeps_run else ()) \
+            + (("candidates", "select_candidate") if lpc_runs
+               else ("fixed_search",)) \
             + (("slot_layout",) if "merge_words" in needs else ())
 
     # the kernels each wide stream's encode calls: K2 only where a block
@@ -3276,7 +3367,7 @@ def main() -> None:
             [(frame, "autocorr"), (frame, "sweep_sums"),
              (frame, "sweep_granules"), (bitpack, "merge_words"),
              (rice, "rice_scan"), (frame, "final_pass"),
-             (lpc, "candidates"), (frame, "select_order_bits"),
+             (lpc, "candidates"), (frame, "select_candidate"),
              (frame, "fixed_search"), (frame, "frame_head"),
              (bitpack, "slot_layout")],
             lambda: Encoder(cfg, device="cuda").encode_stream(stream))
@@ -3293,7 +3384,8 @@ def main() -> None:
                                compare)
                 worst = max(worst, rel_err.pop(f"{name} on {label}", err))
             shapes = sorted({tuple(
-                (args[0]["residual"] if name == "slot_layout" else args[0])
+                (args[0]["residual"] if name == "slot_layout" else args[2]
+                 if name == "select_candidate" else args[0])
                 .shape) for args in args_of_calls})
             what = (f", {args_of_calls[0][2] + 1} lags" if name == "autocorr"
                     else f", order {args_of_calls[0][3]}"
@@ -3301,6 +3393,8 @@ def main() -> None:
             if name in rice_held:
                 at = 2 if name == "rice_scan" else 4
                 what = f", n {sorted({a[at] for a in args_of_calls})}"
+            if name == "select_candidate":
+                what = f", methods {sorted({a[4] for a in args_of_calls})}"
             if name == "candidates":
                 what = (f", EST {sorted({a[1] for a in args_of_calls})}, "
                         f"{sorted({str(a[0].dtype) for a in args_of_calls})}")
@@ -3336,7 +3430,7 @@ def main() -> None:
                "prof_merge_zero_rows": tool3.merge_zero_rows,
                "rice_scan": rice.rice_scan, "final_pass": rice.final_pass,
                "candidates": lpc.candidates,
-               "select_order_bits": frame.select_order_bits,
+               "select_candidate": frame.select_candidate,
                "fixed_search": rice.fixed_search,
                "frame_head": frame.frame_head,
                "slot_layout": bitpack.slot_layout}
@@ -3365,6 +3459,8 @@ def main() -> None:
                                     (lpc, "quantize_lpc_coefs"),
                                     (frame, "select_order_bits_plain"),
                                     (frame, "_select_order_log"),
+                                    (frame, "select_candidate_plain"),
+                                    (lpc, "estimate_order"),
                                     (rice, "fixed_search_plain"),
                                     (rice, "calc_rice_params"),
                                     (frame, "frame_head_plain"),
@@ -3375,8 +3471,11 @@ def main() -> None:
 
         def guard(name, plain):
             def run_plain(x, *args):
-                # the slot layout's plain version takes the analysis dict
-                t = x["sf_type"] if isinstance(x, dict) else x
+                # the slot layout's plain version takes the analysis dict;
+                # S's takes no bits under MAX and EST
+                t = next(a for a in (x["sf_type"] if isinstance(x, dict)
+                                     else x, *args)
+                         if isinstance(a, torch.Tensor))
                 if t.device.type != "cpu":
                     on_card.add(name)
                 return plain(x, *args)

@@ -43,11 +43,15 @@ SIGNATURES = {
     # pmax_static, log2(n ^ (n - 1))
     "flake_rice_scan": [_P] * 6 + [_I] * 7,
     # R2: smp, coefs, shift, order, res, fits, bits, porder, method, params,
-    # exact, N, taps, n, pmin, pmax, pmax_static, log2(n ^ (n - 1)), threads
-    "flake_final_pass": [_P] * 11 + [_I] * 8,
+    # exact, N, taps, coefs' row stride, n, pmin, pmax, pmax_static,
+    # log2(n ^ (n - 1)), threads
+    "flake_final_pass": [_P] * 11 + [_I] * 9,
     # L: autoc, qcoefs, shifts, refs, N, max_order, precision, est, float64
     "flake_lpc_candidates": [_P] * 4 + [_I] * 5,
-    # S: bits, order, N, m, method, min_o, max_o
+    # S: bits, refs, qcoefs, shifts, order, coefs, shift, N, m, method,
+    # min_o, max_o, float64 refs
+    "flake_select_candidate": [_P] * 7 + [_I] * 6,
+    # S without the gather: bits, order, N, m, method, min_o, max_o
     "flake_select_order": [_P, _P] + [_I] * 5,
     # X: smp, obits, order, coefs, N, n, min_o, max_o, taps, pmin, pmax,
     # pmax_static, log2(n ^ (n - 1))
@@ -142,12 +146,17 @@ def launch(name: str, device: torch.device, *args) -> None:
 
 
 def check(t: torch.Tensor, name: str, dtype: torch.dtype,
-          shape: tuple, device: torch.device) -> None:
+          shape: tuple, device: torch.device, rows: bool = False) -> None:
     """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
-    ``device`` (what the kernels take)."""
+    ``device`` (what the kernels take). With ``rows``, a 2-D ``t``'s rows
+    may lie apart, as in a column slice of a wider table: each row
+    contiguous, at a stride of at least its length."""
+    dense = t.is_contiguous() or (
+        rows and t.dim() == 2 and t.stride(1) == 1
+        and t.stride(0) >= t.shape[1])
     if t.dtype != dtype or tuple(t.shape) != tuple(shape) \
-            or t.device != device or not t.is_contiguous():
+            or t.device != device or not dense:
         raise ValueError(
             f"{name}: expected contiguous {dtype} {tuple(shape)} on "
             f"{device}, got {t.dtype} {tuple(t.shape)} on {t.device}"
-            f"{'' if t.is_contiguous() else ' (non-contiguous)'}")
+            f"{'' if dense else ' (non-contiguous)'}")

@@ -393,7 +393,7 @@ __global__ void __launch_bounds__(kThreads)
                       int* __restrict__ porder_out,
                       int* __restrict__ method_out, int* __restrict__ params,
                       long long* __restrict__ exact_out, int n, int taps,
-                      int pmin, int pmax, int ps, int ub) {
+                      int ldc, int pmin, int pmax, int ps, int ub) {
   constexpr int kWarps = kThreads / 32;
   constexpr int kTile = 4 * kThreads;
   extern __shared__ u64 final_smem[];
@@ -417,7 +417,7 @@ __global__ void __launch_bounds__(kThreads)
   const int nt = min(o, taps);              // taps that add
   int c[kTaps];
 #pragma unroll
-  for (int j = 0; j < kTaps; ++j) c[j] = j < nt ? coefs[s * taps + j] : 0;
+  for (int j = 0; j < kTaps; ++j) c[j] = j < nt ? coefs[s * ldc + j] : 0;
   if (tid <= kMaxPorder) lv.bits[tid] = lv.wide[tid] = 0;
 
   // the residual, a tile at a time; xs[kTaps + q] is sample t0 + q
@@ -585,14 +585,14 @@ template <int kThreads>
 int launch_final(const int* smp, const int* coefs, const int* shift,
                  const int* order, int* res, unsigned char* fits,
                  long long* bits, int* porder, int* method, int* params,
-                 long long* exact, int N, int n, int taps, int pmin, int pmax,
-                 int ps, int ub, cudaStream_t stream) {
+                 long long* exact, int N, int n, int taps, int ldc, int pmin,
+                 int pmax, int ps, int ub, cudaStream_t stream) {
   const size_t smem = heap_size(ps) * (sizeof(u64) + 1) +
                       (kTaps + 4 * kThreads) * sizeof(int) +
                       (n <= kZigCap ? n * sizeof(unsigned) : 0);
   final_pass_kernel<kThreads><<<N, kThreads, smem, stream>>>(
       smp, coefs, shift, order, res, fits, bits, porder, method, params,
-      exact, n, taps, pmin, pmax, ps, ub);
+      exact, n, taps, ldc, pmin, pmax, ps, ub);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -617,7 +617,9 @@ extern "C" int flake_rice_scan(const long long* sums, const int* order,
   return static_cast<int>(cudaGetLastError());
 }
 
-// R2. smp int32 [N, n], coefs int32 [N, taps] (taps <= 32), shift and
+// R2. smp int32 [N, n], coefs int32 [N, taps] (taps <= 32; row s starts at
+// coefs + s * ldc, ldc >= taps, so a column slice of a wider table needs no
+// copy), shift and
 // order int32 [N] -> res int32 [N, n], fits uint8 [N] (0 or 1), bits int64,
 // porder, method int32 [N], params int32 [N, 2^ps], exact int64 [N]; n a
 // multiple of 2^ps (limit_max_partition_order guarantees it), ps and ub as
@@ -626,23 +628,23 @@ extern "C" int flake_final_pass(const int* smp, const int* coefs,
                                 const int* shift, const int* order, int* res,
                                 unsigned char* fits, long long* bits,
                                 int* porder, int* method, int* params,
-                                long long* exact, int N, int taps, int n,
-                                int pmin, int pmax, int ps, int ub,
+                                long long* exact, int N, int taps, int ldc,
+                                int n, int pmin, int pmax, int ps, int ub,
                                 int threads, cudaStream_t stream) {
   if (N <= 0) return static_cast<int>(cudaGetLastError());
   switch (threads) {
     case 128:
       return launch_final<128>(smp, coefs, shift, order, res, fits, bits,
                                porder, method, params, exact, N, n, taps,
-                               pmin, pmax, ps, ub, stream);
+                               ldc, pmin, pmax, ps, ub, stream);
     case 256:
       return launch_final<256>(smp, coefs, shift, order, res, fits, bits,
                                porder, method, params, exact, N, n, taps,
-                               pmin, pmax, ps, ub, stream);
+                               ldc, pmin, pmax, ps, ub, stream);
     case 512:
       return launch_final<512>(smp, coefs, shift, order, res, fits, bits,
                                porder, method, params, exact, N, n, taps,
-                               pmin, pmax, ps, ub, stream);
+                               ldc, pmin, pmax, ps, ub, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -22,9 +22,11 @@ Two more Hopper kernels take the analysis's eager launch chains, each with
 its plain version beside it, which a CPU tensor takes: H,
 :func:`frame_head` (``csrc/head.cu``), everything before the prediction
 (the stereo mode and decorrelation, the wasted bits, the constant flags)
-in one launch, and S, :func:`select_order_bits` (``csrc/select.cu``), the
-LOG, LEVEL and SEARCH order selection from the per-order bits. The FIXED
-order search is X (``ops/rice.fixed_search``).
+in one launch, and S, :func:`select_candidate` (``csrc/select.cu``), the
+order selection under every order method and the gather of the chosen
+order's coefficients and shift in one launch (:func:`select_order_bits`
+is the same kernel without the gather). The FIXED order search is X
+(``ops/rice.fixed_search``).
 """
 
 from __future__ import annotations
@@ -165,8 +167,9 @@ def select_order_bits_plain(bits_all: torch.Tensor, method: int,
 def select_order_bits(bits_all: torch.Tensor, method: int, min_o: int,
                       max_o: int) -> torch.Tensor:
     """:func:`select_order_bits_plain`'s function. A CPU tensor takes the
-    plain version; a CUDA tensor launches S (``csrc/select.cu``), one
-    thread a stream, whose orders equal the plain version's."""
+    plain version; a CUDA tensor launches S (``csrc/select.cu``) with its
+    gather switched off, one warp a stream, whose orders equal the plain
+    version's."""
     if bits_all.device.type == "cpu":
         return select_order_bits_plain(bits_all, method, min_o, max_o)
     if bits_all.device.type != "cuda":
@@ -193,21 +196,103 @@ def select_order_bits(bits_all: torch.Tensor, method: int, min_o: int,
 select_order_bits.launches = 0
 
 
-def select_order(cfg: FrameConfig, bits_all, refs, batch,
-                 device: torch.device) -> torch.Tensor:
+def _order_of(method: int, min_o: int, max_o: int, bits_all, refs, batch,
+              device: torch.device, by_bits) -> torch.Tensor:
     """Order-method dispatch (optimize.c:196-261). bits_all int64
-    [..., max_order] (None for MAX and EST); refs float64
-    [..., max_order], the reflection coefficients (read by EST only).
-    Returns the order (1-based) int32 [batch]: MAX and EST here, the
-    methods that read bits through S (:func:`select_order_bits`)."""
-    method = cfg.order_method
-    max_o = cfg.max_prediction_order
+    [..., >= max_order] (None for MAX and EST); refs [..., max_order], the
+    reflection coefficients (read by EST only). Returns the order
+    (1-based) int32 [batch]: MAX's constant, EST's rule, or ``by_bits``
+    (:func:`select_order_bits` or its plain version) for the methods that
+    read bits."""
     if method == P.OrderMethod.MAX:
         return torch.full(batch, max_o, dtype=torch.int32, device=device)
     if method == P.OrderMethod.EST:
         return lpc_ops.estimate_order(refs, max_o)
-    return select_order_bits(bits_all, method, cfg.min_prediction_order,
-                             max_o)
+    return by_bits(bits_all, method, min_o, max_o)
+
+
+def select_order(cfg: FrameConfig, bits_all, refs, batch,
+                 device: torch.device) -> torch.Tensor:
+    """The order alone: :func:`select_candidate_plain`'s dispatch, with
+    the bit methods through S's order-only form
+    (:func:`select_order_bits`)."""
+    return _order_of(cfg.order_method, cfg.min_prediction_order,
+                     cfg.max_prediction_order, bits_all, refs, batch,
+                     device, select_order_bits)
+
+
+def select_candidate_plain(bits_all, refs, qcoefs: torch.Tensor,
+                           shifts: torch.Tensor, method: int, min_o: int,
+                           max_o: int):
+    """S's plain version with the gather: the order ``method`` picks (MAX's
+    constant, EST's rule on ``refs`` (:func:`~flake_tpu_torch.ops.lpc.
+    estimate_order`), or :func:`select_order_bits_plain` on ``bits_all``),
+    then that order's row of L's candidates. ``qcoefs`` int32 [..., max_o,
+    max_o], ``shifts`` int32 [..., max_o]; ``bits_all`` int64 [..., >=
+    max_o] (read under LEVEL2/4/8, SEARCH and LOG), ``refs`` [..., max_o]
+    (read under EST). Returns (order int32 [...] (1-based), coefs int32
+    [..., 32], the chosen row zero-padded, shift int32 [...])."""
+    batch = qcoefs.shape[:-2]
+    order = _order_of(method, min_o, max_o, bits_all, refs, batch,
+                      qcoefs.device, select_order_bits_plain)
+    sel = (order.to(torch.int64) - 1).clamp(0, max_o - 1)
+    coefs = torch.gather(qcoefs, -2, sel[..., None, None].expand(
+        batch + (1, max_o)))[..., 0, :]
+    shift = torch.gather(shifts, -1, sel[..., None])[..., 0]
+    coefs = torch.nn.functional.pad(coefs, (0, P.MAX_LPC_ORDER - max_o))
+    return order, coefs, shift
+
+
+def select_candidate(bits_all, refs, qcoefs: torch.Tensor,
+                     shifts: torch.Tensor, method: int, min_o: int,
+                     max_o: int):
+    """:func:`select_candidate_plain`'s function. A CPU tensor takes the
+    plain version; a CUDA tensor launches S (``csrc/select.cu``), one warp
+    a stream, whose outputs equal the plain version's."""
+    dev = qcoefs.device
+    if dev.type == "cpu":
+        return select_candidate_plain(bits_all, refs, qcoefs, shifts,
+                                      method, min_o, max_o)
+    if dev.type != "cuda":
+        raise ValueError(f"select_candidate: no kernel for {dev}")
+    if not 1 <= min_o <= max_o <= P.MAX_LPC_ORDER:
+        raise ValueError(f"select_candidate: orders {min_o}-{max_o}; the "
+                         f"kernel takes 1 <= min <= max <= "
+                         f"{P.MAX_LPC_ORDER}")
+    batch = qcoefs.shape[:-2]
+    N = batch.numel()
+    qcoefs = qcoefs.reshape(N, max_o, max_o).contiguous()
+    shifts = shifts.reshape(N, max_o).contiguous()
+    _cuda.check(qcoefs, "qcoefs", torch.int32, (N, max_o, max_o), dev)
+    _cuda.check(shifts, "shifts", torch.int32, (N, max_o), dev)
+    m, f64 = max_o, 1
+    if method == P.OrderMethod.EST:
+        refs = refs.reshape(N, max_o).contiguous()
+        f64 = int(refs.dtype == torch.float64)
+        _cuda.check(refs, "refs", torch.float64 if f64 else torch.float32,
+                    (N, max_o), dev)
+    elif method != P.OrderMethod.MAX:
+        m = bits_all.shape[-1]
+        if not max_o <= m <= P.MAX_LPC_ORDER:
+            raise ValueError(f"select_candidate: orders {min_o}-{max_o} of "
+                             f"{m} columns")
+        bits_all = bits_all.reshape(N, m).contiguous()
+        _cuda.check(bits_all, "bits_all", torch.int64, (N, m), dev)
+    order = torch.empty(N, dtype=torch.int32, device=dev)
+    coefs = torch.empty((N, P.MAX_LPC_ORDER), dtype=torch.int32, device=dev)
+    shift = torch.empty(N, dtype=torch.int32, device=dev)
+    if N:
+        _cuda.launch("flake_select_candidate", dev,
+                     bits_all if method > P.OrderMethod.EST else 0,
+                     refs if method == P.OrderMethod.EST else 0, qcoefs,
+                     shifts, order, coefs, shift, N, m, int(method), min_o,
+                     max_o, f64)
+        select_candidate.launches += 1
+    return (order.reshape(batch), coefs.reshape(batch + (P.MAX_LPC_ORDER,)),
+            shift.reshape(batch))
+
+
+select_candidate.launches = 0
 
 
 def finalize_analysis(cfg: FrameConfig, chans, obits, wasted_bits,
@@ -327,32 +412,16 @@ def candidate_bits(cfg: FrameConfig, cN: torch.Tensor, qcoefs, shifts,
         True)
 
 
-def final_residual(cfg: FrameConfig, cN: torch.Tensor, qcoefs, shifts,
-                   order: torch.Tensor):
-    """The selected order's coefficients and shift, and the final pass on
-    them (R2, :func:`~flake_tpu_torch.ops.rice.final_pass`): (coefs, shift,
-    rc), ``rc`` holding the Rice parameters and exact bits, the residual
-    wrapped to int32 (``residual``) and whether every exact residual fits
-    int32 (``fits``)."""
-    n = cN.shape[1]
-    max_o = cfg.max_prediction_order
-    sel = (order.to(torch.int64) - 1).clamp(0, max_o - 1)
-    coefs = torch.gather(qcoefs, 1,
-                         sel[:, None, None].expand(-1, 1, max_o))[:, 0]
-    shift = torch.gather(shifts, 1, sel[:, None])[:, 0]
-    rc = final_pass(cN, coefs, shift, order, n, cfg.min_partition_order,
-                    cfg.max_partition_order)
-    return coefs, shift, rc
-
-
 def _lpc_search(cfg: FrameConfig, chans, obits):
     """The LPC path (optimize.c:192-275) on the flattened [N = F*C]
     stream batch: K1 (in float64; the plain float32 autocorrelation under
     ``lpc_dtype="float32"``), :func:`lpc_candidates`, the sweep and the
     Rice scan for every candidate order where the order method reads bit
-    counts (:func:`candidate_bits`), order selection, the final residual
-    and its exact Rice parameters (:func:`final_residual`), and the
-    subframes whose residual leaves int32 under a shifted prediction."""
+    counts (:func:`candidate_bits`), the order selection and its
+    candidate's coefficients and shift (S, :func:`select_candidate`), the
+    final pass on them (R2, :func:`~flake_tpu_torch.ops.rice.final_pass`:
+    the residual and its exact Rice parameters), and the subframes whose
+    residual leaves int32 under a shifted prediction."""
     F, C, n = chans.shape
     N = F * C
     max_o = cfg.max_prediction_order
@@ -369,11 +438,12 @@ def _lpc_search(cfg: FrameConfig, chans, obits):
     bits_all = None
     if cfg.order_method not in (P.OrderMethod.MAX, P.OrderMethod.EST):
         bits_all = candidate_bits(cfg, cN, qcoefs, shifts, obitsN)
-    order = select_order(cfg, bits_all, refs, (N,), dev)
-
-    coefs, shift, rc = final_residual(cfg, cN, qcoefs, shifts, order)
+    order, coefs, shift = select_candidate(
+        bits_all, refs, qcoefs, shifts, cfg.order_method,
+        cfg.min_prediction_order, max_o)
+    rc = final_pass(cN, coefs[:, :max_o], shift, order, n,
+                    cfg.min_partition_order, cfg.max_partition_order)
     res, fits = rc.pop("residual"), rc.pop("fits")
-    coefs = torch.nn.functional.pad(coefs, (0, P.MAX_LPC_ORDER - max_o))
     return (order.reshape(F, C), coefs.reshape(F, C, P.MAX_LPC_ORDER),
             shift.reshape(F, C), res.reshape(F, C, n),
             {k: v.reshape((F, C) + v.shape[1:]) for k, v in rc.items()},

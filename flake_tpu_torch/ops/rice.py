@@ -362,7 +362,8 @@ def final_pass(smp: torch.Tensor, coefs: torch.Tensor, shift: torch.Tensor,
     """The final pass (R2): each stream's residual under its selected
     predictor and the partition search and exact Rice bits of it.
     ``smp`` int32 [..., n], ``coefs`` int32 [..., taps] (taps <= 32; those
-    at j >= order add nothing), ``shift`` and ``order`` int32 [...]; the
+    at j >= order add nothing; a column slice of a wider table is read in
+    place), ``shift`` and ``order`` int32 [...]; the
     FIXED predictors pass their binomial coefficients with shift 0.
     Returns :func:`rice_final_plain`'s dict with ``residual`` (int32 [...,
     n], wrapped, warm-up samples passed through) and ``fits`` (bool [...]:
@@ -381,11 +382,13 @@ def final_pass(smp: torch.Tensor, coefs: torch.Tensor, shift: torch.Tensor,
     parts = 1 << limit_max_partition_order(pmax, n, 1)
     dev = smp.device
     smp = smp.reshape(N, n).contiguous()
-    coefs = coefs.reshape(N, taps).contiguous()
+    coefs = coefs.reshape(N, taps)
+    if coefs.stride(-1) != 1 or (N > 1 and coefs.stride(0) < taps):
+        coefs = coefs.contiguous()
     shift = shift.reshape(N).contiguous()
     order = order.reshape(N).contiguous()
     _cuda.check(smp, "smp", torch.int32, (N, n), dev)
-    _cuda.check(coefs, "coefs", torch.int32, (N, taps), dev)
+    _cuda.check(coefs, "coefs", torch.int32, (N, taps), dev, rows=True)
     _cuda.check(shift, "shift", torch.int32, (N,), dev)
     _cuda.check(order, "order", torch.int32, (N,), dev)
     out = {"bits": torch.empty(N, dtype=torch.int64, device=dev),
@@ -399,7 +402,8 @@ def final_pass(smp: torch.Tensor, coefs: torch.Tensor, shift: torch.Tensor,
         _cuda.launch("flake_final_pass", dev, smp, coefs, shift, order,
                      out["residual"], out["fits"], out["bits"], out["porder"],
                      out["method"], out["params"], out["exact_rice_bits"], N,
-                     taps, *_search_args(n, pmin, pmax), FINAL_THREADS)
+                     taps, coefs.stride(0) if N > 1 else taps,
+                     *_search_args(n, pmin, pmax), FINAL_THREADS)
         final_pass.launches += 1
     return {k: v.reshape(batch + v.shape[1:]) for k, v in out.items()}
 

@@ -140,7 +140,7 @@ def main(argv=None) -> int:
                    "rice_scan": rice.rice_scan,
                    "final_pass": rice.final_pass,
                    "candidates": lpc.candidates,
-                   "select_order_bits": frame.select_order_bits,
+                   "select_candidate": frame.select_candidate,
                    "fixed_search": rice.fixed_search,
                    "frame_head": frame.frame_head,
                    "slot_layout": bitpack.slot_layout}

@@ -53,7 +53,7 @@ from flake_tpu_torch.ops import predict, stereo, wasted
 from flake_tpu_torch.ops.common import wrap_int32
 from flake_tpu_torch.ops.frame import (LPC_DTYPES, SF_LPC, FrameConfig,
                                        analyze_frames, finalize_analysis,
-                                       lpc_candidates, select_order)
+                                       lpc_candidates, select_candidate)
 from flake_tpu_torch.ops.rice import (_partition_sums,
                                       limit_max_partition_order, rice_scan,
                                       subframe_bits_from_sums, zigzag_u32)
@@ -343,16 +343,15 @@ def analyze_frames_sp(shards: list, cfg: FrameConfig,
             bits_all = subframe_bits_from_sums(
                 torch.stack(sums, dim=1), n, o_arr.expand(N, max_o),
                 obitsN[..., None], pmin, pmax, cfg.precision, True)
-    order = select_order(cfg, bits_all, refs, (N,), dev)
-
-    sel = (order.to(i64) - 1).clamp(0, max_o - 1)
-    coefs = torch.gather(qcoefs, 1,
-                         sel[:, None, None].expand(N, 1, max_o))[:, 0]
-    shift = torch.gather(shifts, 1, sel[:, None])[:, 0]
+    # S: the order and its candidate's coefficients (zero-padded to 32
+    # taps) and shift
+    order, coefs, shift = select_candidate(
+        bits_all, refs, qcoefs, shifts, cfg.order_method,
+        cfg.min_prediction_order, max_o)
     with annotate("sp final search"):
         o_r = _to_ranks(order[:, None], xs)
         res64 = [_residual_sp(e, x, c, s, o, g) for e, x, c, s, o, g in zip(
-            exts, xs, _to_ranks(coefs.to(i64), xs),
+            exts, xs, _to_ranks(coefs[:, :max_o].to(i64), xs),
             _to_ranks(shift.to(i64), xs), o_r, gidx)]
         res = [wrap_int32(r) for r in res64]
         unfit = (~_rank_fold([predict.fits_int32(r) for r in res64],
@@ -378,7 +377,6 @@ def analyze_frames_sp(shards: list, cfg: FrameConfig,
     rc = {"porder": porder.reshape(F, C), "method": method.reshape(F, C),
           "params": params.reshape(F, C, -1),
           "exact_rice_bits": exact.reshape(F, C)}
-    coefs = torch.nn.functional.pad(coefs, (0, P.MAX_LPC_ORDER - max_o))
     sf_type = torch.full((F, C), SF_LPC, dtype=i32, device=dev)
     out = finalize_analysis(cfg, chans[0], obits, wasted_bits, constant,
                             mode, sf_type, order.reshape(F, C),

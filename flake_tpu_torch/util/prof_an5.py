@@ -13,7 +13,8 @@ stereo channels as they are (``obits`` 17, as after decorrelation):
                        order (``frame.candidate_bits``)
   sweep_kernel_ms      the sweep's kernel alone
   final_res_rice_ms    the final residual and its Rice parameters at the
-                       highest order (``frame.final_residual``)
+                       highest order (S under MAX, ``frame.
+                       select_candidate``, then R2, ``rice.final_pass``)
   full_ms              ``analyze_frames`` end to end
 
 The two sweep keys are there where the order method reads bit counts
@@ -48,7 +49,7 @@ from flake_tpu_torch import params as P
 from flake_tpu_torch.encoder import resolve_device
 from flake_tpu_torch.ops import frame, lpc
 from flake_tpu_torch.ops.autocorr import autocorr
-from flake_tpu_torch.ops.rice import limit_max_partition_order
+from flake_tpu_torch.ops.rice import final_pass, limit_max_partition_order
 from flake_tpu_torch.util.prof_merge import time_ms
 
 FRAMES, BLOCK, CHANNELS, BPS = 512, 4096, 2, 16
@@ -104,9 +105,14 @@ def run(level: int = 8, device="cuda", frames: int = FRAMES,
             cfg, cN, qcoefs, shifts, obitsN))
         res["sweep_kernel_ms"] = ms(lambda: sweep(
             cN, qcoefs, shifts, max_o, pmax_static), True)
-    order0 = torch.full((N,), max_o, dtype=torch.int32, device=dev)
-    res["final_res_rice_ms"] = ms(lambda: frame.final_residual(
-        cfg, cN, qcoefs, shifts, order0))
+
+    def final_at_max():
+        order, coefs, shift = frame.select_candidate(
+            None, None, qcoefs, shifts, P.OrderMethod.MAX, 1, max_o)
+        return final_pass(cN, coefs[:, :max_o], shift, order, B,
+                          cfg.min_partition_order, cfg.max_partition_order)
+
+    res["final_res_rice_ms"] = ms(final_at_max)
     res["full_ms"] = ms(lambda: frame.analyze_frames(samples, cfg,
                                                      hdr_bits))
     print(json.dumps(res), flush=True)

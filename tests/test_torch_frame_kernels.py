@@ -2,7 +2,11 @@
 
 S (``frame.select_order_bits_plain``): LOG and LEVEL4 at orders 12 and 32
 and SEARCH on random int64 bit tables with forced ties and entries of
-``U32_MASK``, against ``flake_tpu.ops.frame.select_order``. X
+``U32_MASK``, against ``flake_tpu.ops.frame.select_order``; S with its
+gather (``frame.select_candidate_plain``) under every order method at
+orders 8, 12 and 32, EST on JAX ``lpc.schur_refs`` and the rule's edges in
+float64 and float32, against that selection and the JAX analysis's row
+select. X
 (``rice.fixed_search_plain``): FIXED orders 0-4 at n = 1152, 20 and 10 on
 16- and 32-bit content, against the JAX analysis's FIXED order loop
 (``predict.residual_fixed`` and ``rice.subframe_bits``, ascending strict
@@ -31,6 +35,7 @@ import jax.numpy as jnp
 from flake_tpu import params as JP
 from flake_tpu.ops import bitpack as jbitpack
 from flake_tpu.ops import frame as jframe
+from flake_tpu.ops import lpc as jlpc
 from flake_tpu.ops import predict as jpredict
 from flake_tpu.ops import rice as jrice
 from flake_tpu.ops import stereo as jstereo
@@ -94,6 +99,84 @@ def test_select_order_bits_matches_jax(method, max_o):
                                   torch.from_numpy(bits), None, (512,),
                                   torch.device("cpu"))
         np.testing.assert_array_equal(via.numpy(), want)
+
+
+@jax.disable_jit()
+def _jax_candidate(jcfg, bits, refs, qcoefs, shifts):
+    """The JAX analysis's selection and its one-hot row select
+    (``flake_tpu/ops/frame.py:460-476``), the taps padded to 32, run op by
+    op: a jit would compile each of the test's configurations again."""
+    max_o = jcfg.max_prediction_order
+    order = jframe.select_order(jcfg, bits, refs, (qcoefs.shape[0],))
+    oh_row = (jnp.arange(max_o, dtype=jnp.int32)
+              == (order - 1)[..., None].clip(0, max_o - 1))
+    coefs = jnp.sum(jnp.where(oh_row[..., None], qcoefs, 0), axis=-2)
+    shift = jnp.sum(jnp.where(oh_row, shifts, 0), axis=-1)
+    return order, jnp.pad(coefs, ((0, 0), (0, 32 - max_o))), shift
+
+
+def _est_refs(rows: int, max_o: int, seed: int) -> np.ndarray:
+    """JAX ``lpc.schur_refs`` of AR(2) and noise rows, then rows at the
+    rule's edges: 0.10 exactly and its float64 neighbours, NaN, zeros, and
+    a last order above with every other order below."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(256)
+    x = np.sin(2 * np.pi * rng.uniform(0.01, 0.3, (rows, 1)) * t) \
+        + rng.normal(0, rng.uniform(0.01, 1, (rows, 1)), (rows, 256))
+    autoc = np.stack([(x[:, k:] * x[:, :256 - k]).sum(-1)
+                      for k in range(max_o + 1)], -1)
+    refs = np.array(jlpc.schur_refs(jnp.asarray(autoc)))
+    refs[0] = 0.10
+    refs[1] = np.nextafter(0.10, 1.0)
+    refs[2, ::2] = -np.nextafter(0.10, 1.0)
+    refs[3] = np.nan
+    refs[4] = 0.0
+    refs[5] = 0.05
+    refs[5, -1] = -0.5
+    refs[6, 1::3] = np.nan
+    refs[7] = np.float32(0.10)
+    return refs
+
+
+@pytest.mark.parametrize("max_o", [8, 12, 32])
+@pytest.mark.parametrize("method", list(JP.OrderMethod))
+def test_select_candidate_matches_jax(method, max_o):
+    """S with its gather (``frame.select_candidate`` on CPU tensors, its
+    plain version) against the JAX selection and row select, every order
+    method: bit tables with ties, U32_MASK entries and values past 2^32;
+    EST on float64 and float32 reflection coefficients; min order 1 and
+    3."""
+    rows = 256
+    rng = np.random.default_rng(int(method) * 50 + max_o)
+    bits = _bit_table(rows, max_o, seed=int(method) * 41 + max_o)
+    bits[10:14] = rng.integers(1 << 32, 1 << 40, (4, max_o))
+    bits[14, ::3] = 1 << 32
+    est = method == JP.OrderMethod.EST
+    refs = _est_refs(rows, max_o, seed=max_o) if est else None
+    qcoefs = rng.integers(-2**31, 2**31, (rows, max_o, max_o),
+                          dtype=np.int64).astype(np.int32)
+    shifts = rng.integers(-16, 16, (rows, max_o)).astype(np.int32)
+    reads_bits = method > JP.OrderMethod.EST
+    for min_o, dtype in ((1, np.float64), (3, np.float64),
+                         (1, np.float32)):
+        if dtype == np.float32 and method != JP.OrderMethod.EST:
+            continue
+        p = JP.set_defaults(8)
+        p.order_method = method
+        p.min_prediction_order, p.max_prediction_order = min_o, max_o
+        jcfg = jframe.FrameConfig.from_params(p, 2, 16)
+        r = refs.astype(dtype) if est else None
+        want = _jax_candidate(
+            jcfg, jnp.asarray(bits) if reads_bits else None,
+            jnp.asarray(r) if est else None,
+            jnp.asarray(qcoefs), jnp.asarray(shifts))
+        got = tframe.select_candidate(
+            torch.from_numpy(bits) if reads_bits else None,
+            torch.from_numpy(r) if est else None, torch.from_numpy(qcoefs),
+            torch.from_numpy(shifts), int(method), min_o, max_o)
+        for g, w in zip(got, want):
+            assert g.dtype == torch.int32
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
 # -- X: the FIXED order search -----------------------------------------------
@@ -329,6 +412,11 @@ def test_wrappers_refuse_meta_tensors():
             _meta(torch.zeros((4, 12), dtype=torch.int64)),
             int(JP.OrderMethod.LOG), 1, 12)
     with pytest.raises(ValueError, match="no kernel for meta"):
+        tframe.select_candidate(
+            None, None, _meta(torch.zeros((4, 12, 12), dtype=torch.int32)),
+            _meta(torch.zeros((4, 12), dtype=torch.int32)),
+            int(JP.OrderMethod.MAX), 1, 12)
+    with pytest.raises(ValueError, match="no kernel for meta"):
         tframe.frame_head(_meta(torch.zeros((4, 64, 2), dtype=torch.int32)),
                           cfg)
     with pytest.raises(ValueError, match="no kernel for meta"):
@@ -341,5 +429,5 @@ def test_wrappers_refuse_meta_tensors():
                              _meta(torch.from_numpy(hdr_bytes)),
                              _meta(torch.from_numpy(hdr_nb)), tcfg)
     assert all(fn.launches == 0 for fn in (
-        tframe.select_order_bits, tframe.frame_head, trice.fixed_search,
-        tbitpack.slot_layout))
+        tframe.select_order_bits, tframe.select_candidate, tframe.frame_head,
+        trice.fixed_search, tbitpack.slot_layout))

@@ -56,7 +56,11 @@ slot layout) against their plain versions bit for bit: S under every
 order method on tables with ties and U32_MASK at the level-8 and level-12
 shapes and the edges, X at the level-2 batch, on 32-bit content, short
 tails and n up to 65,535, H at the level-8 batch, 32 bits (the side veto)
-and 1, 6 and 8 channels, E on the card's analyses at levels 2, 5, 8 and
+and 1, 6 and 8 channels, S with its gather under every order method at
+orders 1-32 on 1, 5, 33 and 1,024 streams (NaN and zero reflection
+coefficients under EST, float64 and float32) and H at 1-8 channels, 4-32
+bits, n 1 to 65,535, on frames off a 16-byte boundary and on samples
+outside their bits, E on the card's analyses at levels 2, 5, 8 and
 12, 24 and 32 bits and tails of 20, 10 and 3 samples, and on made-up
 analyses (every subframe type in a frame, 1 to 512 frames, the wide form,
 8 channels, odd n, ps 0 to 8, 65,535 samples); an encode launches them
@@ -997,6 +1001,30 @@ def test_rice_final_kernel(dev, n, pmin, pmax, max_order, N):
         assert not got["fits"].all()
 
 
+@pytest.mark.parametrize("N", [1, 2, 512])
+def test_final_pass_reads_a_column_slice(dev, N):
+    """R2 on the first 12 columns of a 32-tap table (S's padded rows, the
+    columns past 12 filled with other taps), in place and with [F, C]
+    leading dims, equals its plain version on the contiguous rows."""
+    from flake_tpu_torch.ops import rice
+
+    rng = np.random.default_rng(N)
+    smp, coefs, shift, order = (t.to(dev)
+                                for t in _pass_rows(rng, N, 4096, 12))
+    wide = torch.from_numpy(rng.integers(-2**14, 2**14, (N, 32)).astype(
+        np.int32)).to(dev)
+    wide[:, :12] = coefs
+    want = rice.final_pass_plain(smp, coefs, shift, order, 4096, 0, 8)
+    F = 1 if N == 1 else N // 2
+    for view in (wide[:, :12], wide.reshape(F, -1, 32)[..., :12]):
+        got = rice.final_pass(smp.reshape(view.shape[:-1] + (4096,)), view,
+                              shift.reshape(view.shape[:-1]),
+                              order.reshape(view.shape[:-1]), 4096, 0, 8)
+        for key, w in want.items():
+            g = got[key].reshape(w.shape)
+            assert g.dtype == w.dtype and torch.equal(g, w), key
+
+
 @pytest.mark.parametrize("level", [8, 2])
 def test_final_pass_is_one_launch(dev, level, monkeypatch):
     """On the card, the LPC (level 8) and FIXED (level 2) final passes are
@@ -1328,6 +1356,56 @@ def test_select_order_kernel(dev, method, m, min_o, N):
     assert got.dtype == torch.int32 and torch.equal(got.cpu(), want)
 
 
+def _candidate_inputs(rng, N, m):
+    """S's inputs with the gather: bit tables as above with values past
+    2^32, reflection coefficients with NaN, zero and 0.10 rows, random
+    quantized rows and shifts."""
+    bits = _order_bits(rng, max(N, 80), m)[:N].clone()
+    bits[N // 2:N // 2 + 2] += 1 << 32
+    refs = torch.from_numpy(rng.normal(0, 0.15, (N, m)))
+    refs[::7] = float("nan")
+    refs[1::7] = 0.0
+    refs[2::7] = 0.10
+    refs[3::7, ::2] = float("nan")
+    qcoefs = torch.from_numpy(rng.integers(-2**31, 2**31, (N, m, m),
+                                           dtype=np.int64).astype(np.int32))
+    shifts = torch.from_numpy(rng.integers(-16, 16, (N, m))
+                              .astype(np.int32))
+    return bits, refs, qcoefs, shifts
+
+
+@pytest.mark.parametrize("m", [1, 2, 5, 8, 12, 17, 31, 32])
+@pytest.mark.parametrize("N", [1, 5, 33, 1024])
+def test_select_kernel_both_forms(dev, m, N):
+    """S with the gather (``select_candidate``) under every order method,
+    EST on float64 and float32 reflection coefficients, and without it
+    (``select_order_bits``) under the methods that read bits, each one
+    launch equal to its plain version bit for bit."""
+    bits, refs, qcoefs, shifts = _candidate_inputs(
+        np.random.default_rng(m * 1000 + N), N, m)
+    for method in P.OrderMethod:
+        reads = method > P.OrderMethod.EST
+        for min_o in sorted({1, min(3, m), m}):
+            for r in ((refs, refs.float()) if method == P.OrderMethod.EST
+                      else (refs,)):
+                before = frame.select_candidate.launches
+                got = frame.select_candidate(
+                    bits.to(dev) if reads else None, r.to(dev),
+                    qcoefs.to(dev), shifts.to(dev), int(method), min_o, m)
+                assert frame.select_candidate.launches == before + 1
+                want = frame.select_candidate_plain(
+                    bits if reads else None, r, qcoefs, shifts, int(method),
+                    min_o, m)
+                for g, w in zip(got, want):
+                    assert g.dtype == torch.int32 and torch.equal(g.cpu(), w)
+            if reads:
+                got = frame.select_order_bits(bits.to(dev), int(method),
+                                              min_o, m)
+                want = frame.select_order_bits_plain(bits, int(method), min_o,
+                                                     m)
+                assert torch.equal(got.cpu(), want)
+
+
 def _fixed_chans(rng, F, n, bps):
     """[F, 2, n] int32: tones with noise, full-scale noise (whose fixed
     predictions wrap int32 at 32 bits), a ramp, silence, a constant."""
@@ -1409,6 +1487,70 @@ def test_frame_head_kernel(dev, C, bps, n, estimate, F):
         assert g.dtype == w.dtype and torch.equal(g.cpu(), w)
     if bps == 32 and estimate:
         assert want[3][6] == 1                  # LEFT_RIGHT: the veto
+
+
+def _head_equal(dev, x, cfg):
+    before = frame.frame_head.launches
+    got = frame.frame_head(x.to(dev) if x.device.type == "cpu" else x, cfg)
+    assert frame.frame_head.launches == before + 1
+    want = frame.frame_head_plain(x.cpu(), cfg)
+    assert got[0].is_contiguous()
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g.cpu(), w)
+    return want
+
+
+def _head_cfg(C, bps, n, estimate):
+    p = P.set_defaults(8)
+    p.stereo_method = int(estimate)
+    return frame.FrameConfig.from_params(p, C, bps, block_size=n)
+
+
+@pytest.mark.parametrize("C,bps,n,estimate,F", [
+    (2, 16, 6144, True, 8), (2, 16, 6080, True, 8), (2, 24, 6144, True, 8),
+    (2, 16, 8192, True, 214), (2, 4, 1152, True, 16), (2, 8, 1152, True, 16),
+    (2, 24, 4096, False, 16), (2, 24, 4608, True, 16),
+    (2, 32, 4097, True, 8), (2, 16, 1, True, 8), (2, 16, 3, True, 8),
+    (2, 16, 777, True, 16), (2, 16, 1152, False, 16), (1, 16, 1, False, 8),
+    (1, 32, 65535, False, 8), (3, 16, 1000, False, 8),
+    (4, 24, 1152, False, 8), (5, 8, 4095, False, 8), (6, 16, 8192, False, 8),
+    (7, 16, 333, False, 8), (8, 32, 8192, False, 8), (8, 4, 4096, False, 8),
+    (2, 32, 65535, True, 8), (2, 16, 65535, False, 8),
+    (8, 16, 65535, False, 8)])
+def test_frame_head_kernel_shapes(dev, C, bps, n, estimate, F):
+    """H's five outputs equal its plain version's at 1-8 channels, 4 to 32
+    bits, n from 1 to 65,535 (frames of 47.5 and 48 KB, whose shared
+    memory with the kernel's own passes the 48 KB a block takes without
+    opting in; frames above 200 KB, 65,535 stereo samples or 8 channels of
+    8,192, take the path that reads the frame twice), the stereo estimate
+    on and off; the frames
+    include all-zero, constant and 15-wasted-bit ones, and at 32 bits full
+    scale opposites (the side veto)."""
+    x = _head_frames(np.random.default_rng(C * n + bps + F), F, n, C, bps)
+    want = _head_equal(dev, x, _head_cfg(C, bps, n, estimate))
+    if bps == 32 and estimate and C == 2 and n > 32:
+        assert want[3][6] == 1                  # LEFT_RIGHT: the veto
+
+
+def test_frame_head_kernel_unaligned_and_wide_samples(dev):
+    """Frames off a 16-byte boundary (a view one int into its storage:
+    int4 loads in place of the bulk copy; odd n puts every other frame
+    off it), and 16-bit frames holding samples outside 16 bits, whose
+    second differences the kernel sums again in int64."""
+    rng = np.random.default_rng(5)
+    for n, F in ((4096, 16), (1153, 16), (3, 8)):
+        x = _head_frames(rng, F, n, 2, 16)
+        buf = torch.empty(x.numel() + 1, dtype=torch.int32, device=dev)
+        view = buf[1:].view(F, n, 2)
+        view.copy_(x.to(dev))
+        assert view.data_ptr() % 16 == 4
+        _head_equal(dev, view, _head_cfg(2, 16, n, True))
+    x = _head_frames(rng, 16, 4096, 2, 16)
+    x[0] = torch.from_numpy(rng.integers(-2**31, 2**31, (4096, 2),
+                                         dtype=np.int64).astype(np.int32))
+    x[9, ::3, 0] = 2**31 - 1
+    x[10, 7, 1] = 70000
+    _head_equal(dev, x, _head_cfg(2, 16, 4096, True))
 
 
 @pytest.mark.parametrize("level,C,bps,n,F", [
@@ -1517,8 +1659,9 @@ def test_slot_layout_kernel_made_up(dev, F, C, n, bps, level, ps):
 
 @pytest.mark.parametrize("level", [8, 2, 12])
 def test_encoder_launches_the_frame_kernels(dev, level):
-    """An encode launches H and E once a batch, S (LPC levels that read
-    bits) or X (FIXED levels), and its bytes equal the CPU encoder's."""
+    """An encode launches H and E once a batch, S with its gather (LPC
+    levels; never the order-only form) or X (FIXED levels), and its bytes
+    equal the CPU encoder's."""
     cfg = P.StreamConfig(channels=2, sample_rate=44100, bits_per_sample=16,
                          params=P.set_defaults(level))
     n = 2 * 44100 + 777
@@ -1528,8 +1671,8 @@ def test_encoder_launches_the_frame_kernels(dev, level):
                     7000 * np.sin(2 * np.pi * 330 * t / 44100)], 1) \
         + rng.normal(0, 200, (n, 2))
     pcm = np.clip(np.rint(pcm), -32768, 32767).astype(np.int32)
-    kernels = (frame.select_order_bits, rice.fixed_search, frame.frame_head,
-               bitpack.slot_layout)
+    kernels = (frame.select_candidate, rice.fixed_search, frame.frame_head,
+               bitpack.slot_layout, frame.select_order_bits)
     before = [k.launches for k in kernels]
     got = flake_tpu_torch.Encoder(cfg, device=dev,
                                   batch_frames=8).encode_stream(pcm)
@@ -1538,7 +1681,7 @@ def test_encoder_launches_the_frame_kernels(dev, level):
     want = flake_tpu_torch.Encoder(cfg, device="cpu",
                                    batch_frames=8).encode_stream(pcm)
     assert got == want
-    assert ran[2] >= 1 and ran[3] >= 1
+    assert ran[2] >= 1 and ran[3] >= 1 and ran[4] == 0
     if level == 2:
         assert ran[1] >= 1 and ran[0] == 0
     else:
@@ -1557,6 +1700,16 @@ def test_frame_kernels_refuse_other_types(dev):
     with pytest.raises(ValueError, match="orders"):
         frame.select_order_bits(torch.zeros((4, 40), dtype=torch.int64,
                                             device=dev), 6, 1, 40)
+    with pytest.raises(ValueError, match="int32"):
+        frame.select_candidate(
+            None, None, torch.zeros((4, 12, 12), dtype=torch.int64,
+                                    device=dev),
+            torch.zeros((4, 12), dtype=torch.int32, device=dev), 0, 1, 12)
+    with pytest.raises(ValueError, match="float32"):
+        frame.select_candidate(
+            None, torch.zeros((4, 12), dtype=torch.float16, device=dev),
+            torch.zeros((4, 12, 12), dtype=torch.int32, device=dev),
+            torch.zeros((4, 12), dtype=torch.int32, device=dev), 1, 1, 12)
     with pytest.raises(ValueError, match="orders"):
         rice.fixed_search(torch.zeros((4, 2, 64), dtype=torch.int32,
                                       device=dev),
