@@ -102,12 +102,14 @@ recursions of the EST order method must give the same float64 bits on
 the card and on the host, and torch.addcmul in both dtypes is read
 against the host's. S, H and E must give their plain versions' bits on
 the inputs of the first level-8 batch and of the level-12 8192 bucket, X
-on those of the first level-2 batch (512 frames of 1,152), each timed
-beside its plain version with its bound by bytes and int32 operations
-and its share of it; E (a thread-block cluster a frame), H (a block a
-frame, staged by bulk copies) and S (a warp a stream) beside their first
-designs (``csrc/yardsticks/slots_v1.cu``, ``head_v1.cu`` and
-``select_v1.cu``), which must give the same bits, H and S beside an
+on those of the first level-2 batch (512 frames of 1,152), the first
+level-1 and level-0 batches (orders 2-4, and order 2 alone) and the
+10-sample tail at level 8, each timed beside its plain version with its
+bound by bytes and int32 operations and its share of it; E (a
+thread-block cluster a frame), H (a block a frame, staged by bulk
+copies), S and X (a warp a stream) beside their first designs
+(``csrc/yardsticks/slots_v1.cu``, ``head_v1.cu``, ``select_v1.cu`` and
+``fixed_v1.cu``), which must give the same bits, H, S and X beside an
 empty kernel on their grids, S also without its gather (the order alone,
 as its first design computes it) and on the 8192 bucket (SEARCH) beside
 ``torch.argmin``, the one PyTorch call of SEARCH's selection (no PyTorch
@@ -1184,7 +1186,7 @@ def build_yardsticks():
     ``merge_v5d``, ``merge_v5c`` and of the zero floor, the combined-node
     merge with its spill sets read by flagged columns, the row-layout merges
     at other geometries, K4's design on the integer pipes, the zero floor by
-    bulk asynchronous stores, the first designs of L, E, S and H and the
+    bulk asynchronous stores, the first designs of L, E, S, H and X and the
     card's rate and latency probes) into a library of their own, one nvcc a
     source, all started together. Returns (the compiler's report, a dict of functions):
     ``k1_before`` to ``k4_before``, ``v2_before``, ``v3_before``,
@@ -1200,8 +1202,9 @@ def build_yardsticks():
     and ``r2_before`` a residual with ``rice_final_plain``'s (R1's and
     R2's first designs); ``l_before`` takes ``lpc.candidates``' arguments
     and ``e_before`` ``bitpack.slot_layout``'s (L's and E's first
-    designs), ``s_before`` ``frame.select_order_bits``' and ``h_before``
-    ``frame.frame_head``'s (S's and H's); ``mad_wide``, ``imad`` and ``dfma`` measure the card's rate
+    designs), ``s_before`` ``frame.select_order_bits``', ``h_before``
+    ``frame.frame_head``'s and ``x_before`` ``rice.fixed_search``'s (S's,
+    H's and X's); ``mad_wide``, ``imad`` and ``dfma`` measure the card's rate
     of each operation, in operations a ms, and the latency probes the ms
     of one dependent operation: ``dadd_latency`` and ``fadd_latency`` a
     float64 and a float32 add, ``ddiv_latency`` and ``fdiv_latency`` a
@@ -1257,6 +1260,7 @@ def build_yardsticks():
     lib.flake_rice_final_v1.argtypes = [P] * 7 + [I] * 6 + [P]
     lib.flake_select_order_v1.argtypes = [P, P] + [I] * 5 + [P]
     lib.flake_frame_head_v1.argtypes = [P] * 6 + [I] * 5 + [P]
+    lib.flake_fixed_search_v1.argtypes = [P] * 4 + [I] * 9 + [P]
 
     def call(fn, *args):
         rc = fn(*[P(a.data_ptr()) if isinstance(a, torch.Tensor) else a
@@ -1413,6 +1417,18 @@ def build_yardsticks():
              int(frame._stereo_estimate(cfg)))
         return outs
 
+    def x_before(chans, obits, min_o, max_o, pmin, pmax):
+        from flake_tpu_torch.ops import rice
+
+        batch, n = chans.shape[:-1], chans.shape[-1]
+        N = batch.numel()
+        order = torch.empty(N, dtype=torch.int32, device=chans.device)
+        coefs = torch.empty((N, max_o), dtype=torch.int32, device=chans.device)
+        call(lib.flake_fixed_search_v1, chans.contiguous(),
+             obits.contiguous(), order, coefs, N, n, min_o, max_o, max_o,
+             *rice._search_args(n, pmin, pmax)[1:])
+        return order.reshape(batch), coefs.reshape(batch + (max_o,))
+
     def rate(fn, dtype):
         """Operations a ms of ``fn`` on 8 blocks of 256 threads an SM."""
         blocks, threads, iters = 8 * 132, 256, 256
@@ -1451,7 +1467,7 @@ def build_yardsticks():
         "imad": lambda: rate(lib.flake_rate_imad, torch.int32),
         "dfma": lambda: rate(lib.flake_rate_dfma, torch.float64),
         "l_before": l_before, "e_before": e_before, "s_before": s_before,
-        "h_before": h_before,
+        "h_before": h_before, "x_before": x_before,
         **{f"{probe}_latency": (
             lambda probe=probe: latency(
                 getattr(lib, f"flake_latency_{probe}"),
@@ -3107,18 +3123,52 @@ def main() -> None:
         M = bitpack.slot_layout_plain(analysis, hb, hn, cfg)[0].shape[1]
         return (key, label, args, reads, 20 * F * M)
 
-    cfg2 = stream_config(2)
-    block2 = cfg2.params.block_size
-    fcfg2 = frame.FrameConfig.from_params(cfg2.params, 2, 16)
-    cap2 = capture(
+    def x_capture(level):
+        """X's arguments on the first batch of the level's stream."""
+        cfg = stream_config(level)
+        block = cfg.params.block_size
+        fcfg = frame.FrameConfig.from_params(cfg.params, 2, 16)
+        got = capture(
+            [(frame, "fixed_search")],
+            lambda: analyze_and_pack(
+                torch.from_numpy(pcm[:BATCH * block].reshape(BATCH, block, 2))
+                .to(dev), fcfg, np.arange(BATCH, dtype=np.int64), 0))
+        return got["fixed_search"][0]
+
+    def x_shape(key, label, args):
+        """X reads the samples once (none where one order leaves nothing
+        to search); about 8 operations a sample an order (the difference,
+        the zigzag, the sum) and 20 for each order's every pyramid slot
+        (the scan)."""
+        chans, obits, min_o, max_o, pmin, pmax = args
+        n = chans.shape[-1]
+        orders = max_o - min_o + 1
+        if orders == 1:
+            return (key, f"{label} ({tuple(chans.shape)}, order {min_o} "
+                    "alone)", args, (), 0)
+        ps = rice.limit_max_partition_order(pmax, n, 1)
+        return (key, f"{label} ({tuple(chans.shape)}, orders {min_o}-"
+                f"{max_o})", args, (chans, obits),
+                chans.numel() * 8 * orders
+                + chans.numel() // n * orders * (2 << ps) * 20)
+
+    def x_floor(chans, obits, min_o, max_o, pmin, pmax):
+        """An empty kernel on X's grid (csrc/rice.cu, flake_fixed_search):
+        four streams (warps) a block, or two where their five pyramids and
+        level tables (360 bytes) pass 48 KB."""
+        n = chans.shape[-1]
+        N = chans.numel() // n
+        part = 5 * (16 << rice.limit_max_partition_order(pmax, n, 1)) + 360
+        warps = 4
+        while warps > 1 and warps * part > 48 << 10:
+            warps >>= 1
+        yard["launch_floor"]((N + warps - 1) // warps, 32 * warps)
+
+    # the 10-sample tail of a level-8 stream: X at an LPC level
+    x_tail = capture(
         [(frame, "fixed_search")],
-        lambda: analyze_and_pack(
-            torch.from_numpy(pcm[:BATCH * block2].reshape(BATCH, block2, 2))
-            .to(dev), fcfg2, np.arange(BATCH, dtype=np.int64), 0))
-    x_args = cap2["fixed_search"][0]
-    xc = x_args[0]
-    orders_x = x_args[3] - x_args[2] + 1
-    x_ps = rice.limit_max_partition_order(x_args[5], xc.shape[-1], 1)
+        lambda: Encoder(cfg8, device="cuda").encode_stream(
+            pcm[:32 * BLOCK + 10]))["fixed_search"][0]
     s_entry = {"name": "select_candidate", "route": "cuda",
                "source": "flake_tpu_torch/csrc/select.cu",
                "replaces": "flake_tpu/ops/frame.py:102 (_select_order_log; "
@@ -3139,12 +3189,11 @@ def main() -> None:
         "predict.residual_fixed and rice.subframe_bits, whose "
         "calc_rice_params is rice.py:158; no pl.pallas_call)",
         rice.fixed_search, rice.fixed_search_plain,
-        # about 40 operations a sample over five orders (their multiply-
-        # adds, zigzags and sums) and R1's scan of each level's partitions
-        [(None, f"the level-2 batch ({xc.shape[0]} x {xc.shape[1]} x "
-          f"{xc.shape[2]})", x_args, x_args[:2],
-          xc.numel() * 8 * orders_x
-          + xc.numel() // xc.shape[-1] * orders_x * (2 << x_ps) * 20)])
+        [x_shape(None, "the level-2 batch", x_capture(2)),
+         x_shape("level1", "the level-1 batch", x_capture(1)),
+         x_shape("level0", "the level-0 batch", x_capture(0)),
+         x_shape("tail10", "the 10-sample tail at level 8", x_tail)],
+        before=yard["x_before"], floor=x_floor)
     frame_kernel(
         "frame_head", "flake_tpu_torch/csrc/head.cu",
         "flake_tpu/ops/frame.py:279 (analyze_frames before the prediction: "

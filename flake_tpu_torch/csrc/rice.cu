@@ -81,14 +81,26 @@
 // partitions of 4 samples needs no reduction at all), the block folds the
 // pyramid, all its warps scan the slots as R1's warp does, one thread picks
 // the level, and the exact pass runs over the same shares.
-// X reads a stream's samples once from device memory (the lags of the
-// five predictors come from the cache) and writes an order and four
+// X reads a stream's samples once and writes an order and four
 // coefficients: 4 bytes a sample, 4.7 MB on the level-2 batch of 1,024
-// streams of 1,152 samples. Its operations, at most fifteen multiply-adds,
-// five zigzags and five adds a sample for the five orders and R1's scan
-// five times, are of the same size at the int32 rate. Design: one block of
-// 256 a stream, R2's partition shares, pyramid and scan once an order;
-// thread 0 compares the orders' estimates.
+// streams of 1,152 samples. Its operations, about 24 integer instructions
+// a sample (four subtractions, five zigzags and five 64-bit adds) and R1's
+// scan once an order, outweigh its bytes; the batch is one wave of eight
+// warps an SM, so their integer issue and each warp's chain of steps set
+// the time. Design: one warp a stream, four a block, and no block barrier.
+// Order k's residual is the k-th difference of the samples (the binomial
+// predictors), so each lane reads a contiguous run once (int4 loads),
+// carries the last sample and its first three differences, and sums the
+// five orders' zigzag values side by side; it takes out what the warm-up
+// added. A run is a share of one partition, tpp lanes a partition: one xor
+// butterfly gives every level of the five pyramids, the first lane of each
+// span writing it. Above 32 partitions a lane takes whole ones and the
+// levels above them fold in shared memory. The (order, slot) pairs then
+// spread over the lanes, 32 at a time: each slot's k search, and one xor
+// butterfly sums every level's counts on its aligned span of lanes; lane j
+// picks order min_o + j's level and estimate, and shuffles give every lane
+// the first order of the least. One order (min_o == max_o) needs no search:
+// the kernel writes it without reading the samples.
 
 #include <cuda_runtime.h>
 
@@ -102,8 +114,10 @@ constexpr int kMaxK4bit = 14;                    // params.MAX_RICE_PARAM_4BIT
 constexpr int kScanWarps = 4;                    // R1: rows a block
 constexpr int kTaps = 32;                        // params.MAX_LPC_ORDER
 constexpr int kZigCap = 8192;                    // R2: samples kept in shared
-constexpr int kFixedThreads = 256;               // X: threads a block
+constexpr int kFixedWarps = 4;                   // X: streams a block
 constexpr int kMaxFixed = 4;                     // X: the highest order
+constexpr int kOrders = kMaxFixed + 1;           // X: orders 0-4
+constexpr int kSmemDefault = 48 << 10;           // without the opt-in
 // predict.FIXED_COEFS, orders 0-4: coef[j] applies to smp[i - 1 - j]
 __constant__ int kFixedCoefs[kMaxFixed + 1][kMaxFixed] = {
     {0, 0, 0, 0}, {1, 0, 0, 0}, {2, -1, 0, 0}, {3, -3, 1, 0}, {4, -6, 4, -1}};
@@ -511,74 +525,259 @@ __global__ void __launch_bounds__(kThreads)
   write_params(params + s * parts, ks, parts, ch, tid, kThreads);
 }
 
-// X: one block of kThreads a stream; dynamic shared memory: the pyramid
-// (heap_size(ps) uint64) and the k bytes. For each order o of min_o..max_o:
-// the order-o residual's zigzag values (warm-up zeroed) summed by partition
-// (partition_sums), R1's scan of the levels limit_max_partition_order(pmin
-// or pmax, n, o) allows, the pick, and the estimate of _overhead_bits
-// (precision 0, not LPC); thread 0 keeps the first order of the least
-// estimate (strict <, ascending) and writes it with its coefficients.
-template <int kThreads>
-__global__ void __launch_bounds__(kThreads)
+// X: one warp a stream, up to kFixedWarps streams a block, no block
+// barrier. A warp's part of the dynamic shared memory: the kOrders
+// pyramids of heap_size(ps) uint64, order o's at o * heap_size(ps), then
+// each order's level table (fixed_part).
+struct FixedLevels {
+  unsigned bits[kOrders][kMaxPorder + 1];  // count sums
+  unsigned wide[kOrders][kMaxPorder + 1];  // a k above 14
+};
+
+__host__ __device__ inline int fixed_part(int ps) {
+  return kOrders * heap_size(ps) * 8 + sizeof(FixedLevels);
+}
+
+// Sample i of the zero-padded row and the state at i - 1 (its value and
+// its first three differences) give the differences of orders 1-4 at i:
+// d1 = x_i - x_{i-1}, and d_k is d_{k-1} at i less d_{k-1} at i - 1. In
+// wrapping 32-bit arithmetic d_k is FIXED order k's residual wrapped to
+// int32 (the binomial predictor; reduction mod 2^32 commutes with + and -).
+// Adds every order's zigzag value into acc and advances the state.
+__device__ __forceinline__ void fixed_step(unsigned v, unsigned (&st)[4],
+                                           u64 (&acc)[kOrders]) {
+  const unsigned d1 = v - st[0], d2 = d1 - st[1], d3 = d2 - st[2],
+                 d4 = d3 - st[3];
+  acc[0] += zigzag(static_cast<int>(v));
+  acc[1] += zigzag(static_cast<int>(d1));
+  acc[2] += zigzag(static_cast<int>(d2));
+  acc[3] += zigzag(static_cast<int>(d3));
+  acc[4] += zigzag(static_cast<int>(d4));
+  st[0] = v;
+  st[1] = d1;
+  st[2] = d2;
+  st[3] = d3;
+}
+
+// Every order's zigzag sums over x[a..a+len) into acc, from the state at
+// a - 1; with `halo`, that state is first made from x[a-4..a-1] (zero
+// before the row). Where x + a is 16-byte aligned and len a multiple of 4,
+// by int4 loads (the loop unrolled twice: a longer body only slowed it),
+// elsewhere a sample at a time.
+__device__ __forceinline__ void fixed_run(const int* __restrict__ x, int a,
+                                          int len, bool vec, bool halo,
+                                          unsigned (&st)[4],
+                                          u64 (&acc)[kOrders]) {
+  if (halo) {
+    int4 h = make_int4(0, 0, 0, 0);
+    if (vec && a >= 4) {
+      h = __ldg(reinterpret_cast<const int4*>(x + a) - 1);
+    } else if (a > 0) {
+      h.w = __ldg(x + a - 1);
+      if (a >= 2) h.z = __ldg(x + a - 2);
+      if (a >= 3) h.y = __ldg(x + a - 3);
+      if (a >= 4) h.x = __ldg(x + a - 4);
+    }
+    u64 none[kOrders] = {0, 0, 0, 0, 0};
+    st[0] = st[1] = st[2] = st[3] = 0;
+    fixed_step(h.x, st, none);
+    fixed_step(h.y, st, none);
+    fixed_step(h.z, st, none);
+    fixed_step(h.w, st, none);
+  }
+  if (vec) {
+    const int4* v4 = reinterpret_cast<const int4*>(x + a);
+#pragma unroll 2
+    for (int q = 0; q < len >> 2; ++q) {
+      const int4 v = __ldg(v4 + q);
+      fixed_step(v.x, st, acc);
+      fixed_step(v.y, st, acc);
+      fixed_step(v.z, st, acc);
+      fixed_step(v.w, st, acc);
+    }
+  } else {
+    for (int i = a; i < a + len; ++i) fixed_step(__ldg(x + i), st, acc);
+  }
+}
+
+__global__ void __launch_bounds__(kFixedWarps * 32)
     fixed_search_kernel(const int* __restrict__ smp,
                         const int* __restrict__ obits,
                         int* __restrict__ order_out,
-                        int* __restrict__ coefs_out, int n, int min_o,
+                        int* __restrict__ coefs_out, int N, int n, int min_o,
                         int max_o, int taps, int pmin, int pmax, int ps,
                         int ub) {
   extern __shared__ u64 fixed_smem[];
-  __shared__ u64 quot_s[kThreads / 32];
-  __shared__ Levels lv;
-  u64* pyr = fixed_smem;
-  unsigned char* ks = reinterpret_cast<unsigned char*>(pyr + heap_size(ps));
-  const int tid = threadIdx.x;
-  const long long s = blockIdx.x;
-  const int* x = smp + s * n;
-  const Shares shares = shares_of<kThreads>(n, ps, tid);
-  long long best_bits = 0;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long s = static_cast<long long>(blockIdx.x) * (blockDim.x >> 5)
+                      + warp;
+  if (s >= N) return;                       // a whole warp
   int best_o = min_o;
-  for (int o = min_o; o <= max_o; ++o) {
-    if (tid <= kMaxPorder) lv.bits[tid] = lv.wide[tid] = 0;
-    // predict.residual_fixed: the prediction in int64, the residual
-    // wrapped to int32
-    auto zig = [&](int i) -> unsigned {
-      if (i < o) return 0u;
-      long long r = x[i];
-      switch (o) {
-        case 1: r -= x[i - 1]; break;
-        case 2: r -= 2ll * x[i - 1] - x[i - 2]; break;
-        case 3: r -= 3ll * x[i - 1] - 3ll * x[i - 2] + x[i - 3]; break;
-        case 4:
-          r -= 4ll * x[i - 1] - 6ll * x[i - 2] + 4ll * x[i - 3] - x[i - 4];
-          break;
-        default: break;
+  if (min_o < max_o) {
+    const int size = heap_size(ps), parts = 1 << ps, psize = n >> ps;
+    u64* pyr = reinterpret_cast<u64*>(
+        reinterpret_cast<char*>(fixed_smem) + warp * fixed_part(ps));
+    FixedLevels* lv = reinterpret_cast<FixedLevels*>(pyr + kOrders * size);
+    const int* x = smp + s * n;
+    const int ob = obits[s];
+    unsigned* table = &lv->bits[0][0];     // bits, then wide
+    for (int t = lane; t < 2 * kOrders * (kMaxPorder + 1); t += 32)
+      table[t] = 0;
+
+    // the lane's run: up to 32 partitions, tpp lanes a partition, each a
+    // contiguous share of it; above 32, parts / 32 whole partitions a lane
+    const int tpp_log2 = max(0, 5 - ps), tpp = 1 << tpp_log2;
+    const int segs = max(1, parts >> 5);
+    const int share = (psize + tpp - 1) >> tpp_log2;
+    const int from = min((lane & (tpp - 1)) * share, psize);
+    const int seg_len = parts > 32 ? psize : min(from + share, psize) - from;
+    const int a = parts > 32 ? lane * segs * psize
+                             : (lane >> tpp_log2) * psize + from;
+    const bool vec = (seg_len & 3) == 0 &&
+                     (reinterpret_cast<size_t>(x + a) & 15) == 0;
+    // the warm-up: sample j < o adds nothing to order o, and warm[o][j] is
+    // what a run adds there (its difference against the zero padding);
+    // every lane takes out those of the samples in its run
+    unsigned warm[kOrders][kMaxFixed], ws[4] = {0, 0, 0, 0};
+#pragma unroll
+    for (int j = 0; j < kMaxFixed; ++j) {
+      u64 d[kOrders] = {0, 0, 0, 0, 0};
+      fixed_step(j < n ? __ldg(x + j) : 0, ws, d);
+#pragma unroll
+      for (int o = 0; o < kOrders; ++o)
+        warm[o][j] = j < o ? static_cast<unsigned>(d[o]) : 0u;
+    }
+    unsigned st[4];                         // fixed_run's, from its halo
+    for (int g = 0; g < segs; ++g) {
+      u64 acc[kOrders] = {0, 0, 0, 0, 0};
+      const int sa = a + g * seg_len;
+      fixed_run(x, sa, seg_len, vec, g == 0, st, acc);
+#pragma unroll
+      for (int j = 0; j < kMaxFixed; ++j) {
+        if (j >= sa && j < sa + seg_len) {
+#pragma unroll
+          for (int o = 1; o < kOrders; ++o) acc[o] -= warm[o][j];
+        }
       }
-      return zigzag(static_cast<int>(static_cast<unsigned>(r)));
-    };
-    partition_sums<kThreads>(pyr, quot_s, shares, zig, n, ps, tid);
-    int lo, hi;
-    level_range(n, o, pmin, pmax, ub, ps, lo, hi);
-    scan_slots(pyr, ks, &lv, ps, n, o, lo, hi, tid, kThreads);
-    __syncthreads();
-    if (tid == 0) {
-      const Choice c = pick_level(&lv, lo, hi);
-      const long long est = (static_cast<long long>(c.bits) +
-                             static_cast<long long>(o) * obits[s] + 2 +
-                             c.method + 4) & 0xFFFFFFFFll;
-      if (o == min_o || est < best_bits) {
-        best_bits = est;
-        best_o = o;
+      if (parts > 32) {
+#pragma unroll
+        for (int o = 0; o < kOrders; ++o)
+          pyr[o * size + parts + lane * segs + g] = acc[o];
+        continue;
+      }
+      // every level of the pyramid by one xor butterfly: after the step at
+      // offset d a lane holds the sum of its aligned 2d lanes, one
+      // partition at level ps - log2(2d / tpp) once 2d >= tpp; the first
+      // lane of each such span writes it
+#pragma unroll
+      for (int d = 0; d <= 5; ++d) {
+        const int span = 1 << d;            // lanes summed so far
+        if (span >= tpp && (lane & (span - 1)) == 0) {
+          const int p = ps - (d - (5 - ps));
+          const int slot = (1 << p) + lane / span;
+#pragma unroll
+          for (int o = 0; o < kOrders; ++o) pyr[o * size + slot] = acc[o];
+        }
+        if (d < 5) {
+#pragma unroll
+          for (int o = 0; o < kOrders; ++o)
+            acc[o] += __shfl_xor_sync(0xffffffffu, acc[o], span);
+        }
       }
     }
-    __syncthreads();                // lv and the pyramid are rewritten
+    if (parts > 32) {
+      // the levels above a lane's partitions, every order's level at once
+      for (int p = ps - 1; p >= 0; --p) {
+        __syncwarp();
+        for (int t = lane; t < kOrders << p; t += 32) {
+          u64* row = pyr + (t >> p) * size;
+          const int i = (1 << p) + (t & ((1 << p) - 1));
+          row[i] = row[2 * i] + row[2 * i + 1];
+        }
+      }
+    }
+    __syncwarp();
+
+    // the (order, slot) pairs of min_o..max_o, size of them an order (slot
+    // 0 unused), 32 a round: each slot's k search where its level is in
+    // its order's range. A level's slots lie on 2^p neighbouring lanes,
+    // aligned (all 32 from level 5 up), so one xor butterfly, up to the
+    // widest level, sums each level's counts; the first lane of each level
+    // adds them, and the flags of its lanes in the ballot, into the order's
+    // level table.
+    u64 ranges = 0;                         // each order's lo | hi << 4
+#pragma unroll
+    for (int o = 0; o < kOrders; ++o) {
+      int lo, hi;
+      level_range(n, o, pmin, pmax, ub, ps, lo, hi);
+      ranges |= static_cast<u64>(lo | hi << 4) << (8 * o);
+    }
+    const int orders = max_o - min_o + 1, widest = min(32, size >> 1);
+    for (int t = lane; t - lane < orders * size; t += 32) {
+      const int i = t & (size - 1), p = 31 - __clz(i);  // -1 for slot 0
+      const int o = min(min_o + (t >> (ps + 1)), max_o);
+      const unsigned range = static_cast<unsigned>(ranges >> (8 * o));
+      const bool on = t < orders * size && i > 0 &&
+                      p >= static_cast<int>(range & 15) &&
+                      p <= static_cast<int>(range >> 4 & 15);
+      const int span = i ? min(1 << p, 32) : 1;
+      const int cnt = (n >> max(p, 0)) - (i == 1 << max(p, 0) ? o : 0);
+      const u64 sum = pyr[o * size + i];
+      unsigned kb = 0;
+      int k = 0;
+      if (on) k = rice_k(sum, cnt, kb);
+      const unsigned wide = __ballot_sync(0xffffffffu, on && k > kMaxK4bit);
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        if (d < widest) {
+          const unsigned other = __shfl_xor_sync(0xffffffffu, kb, d);
+          if (d < span) kb += other;
+        }
+      }
+      if (on && (lane & (span - 1)) == 0) {
+        lv->bits[o][p] += kb;
+        const unsigned mine = span == 32 ? 0xffffffffu : (1u << span) - 1u;
+        if ((wide >> lane) & mine) lv->wide[o][p] = 1;
+      }
+    }
+    __syncwarp();
+    // lane j picks order min_o + j's level (ascending, <=) and estimate
+    unsigned est = 0xFFFFFFFFu;
+    if (lane < orders) {
+      const int o = min_o + lane;
+      const unsigned range = static_cast<unsigned>(ranges >> (8 * o));
+      unsigned bits[kMaxPorder + 1], wide[kMaxPorder + 1];
+#pragma unroll
+      for (int p = 0; p <= kMaxPorder; ++p) {
+        bits[p] = lv->bits[o][p] + (4u << p);
+        wide[p] = lv->wide[o][p];
+      }
+      unsigned best = 0xFFFFFFFFu;
+      int method = 0;
+#pragma unroll
+      for (int p = 0; p <= kMaxPorder; ++p) {
+        if (p >= static_cast<int>(range & 15) &&
+            p <= static_cast<int>(range >> 4 & 15) && bits[p] <= best) {
+          best = bits[p];
+          method = wide[p] ? 1 : 0;
+        }
+      }
+      est = best + static_cast<unsigned>(o * ob) + 2u +
+            static_cast<unsigned>(method) + 4u;
+    }
+    // the first order of the least estimate (strict <), on every lane
+    unsigned best_est = __shfl_sync(0xffffffffu, est, 0);
+#pragma unroll
+    for (int j = 1; j < kOrders; ++j) {
+      const unsigned e = __shfl_sync(0xffffffffu, est, j);
+      if (j < orders && e < best_est) {
+        best_est = e;
+        best_o = min_o + j;
+      }
+    }
   }
-  __shared__ int chosen;
-  if (tid == 0) {
-    chosen = best_o;
-    order_out[s] = best_o;
-  }
-  __syncthreads();
-  if (tid < taps) coefs_out[s * taps + tid] = kFixedCoefs[chosen][tid];
+  if (lane == 0) order_out[s] = best_o;
+  if (lane < taps) coefs_out[s * taps + lane] = kFixedCoefs[best_o][lane];
 }
 
 template <int kThreads>
@@ -653,19 +852,23 @@ extern "C" int flake_final_pass(const int* smp, const int* coefs,
 // X. smp int32 [N, n], obits int32 [N] -> order int32 [N] (the FIXED
 // order of the least estimated bits, min_o..max_o, 0 <= min_o <= max_o <=
 // 4) and coefs int32 [N, taps] (its predictor's coefficients, zero-padded;
-// max_o <= taps <= 4); n a multiple of 2^ps, ps and ub as for R1.
+// max_o <= taps <= 4); n a multiple of 2^ps, ps and ub as for R1. A block
+// holds kFixedWarps streams, or two where their shared memory would pass
+// the 48 KB a block takes without the opt-in (ps = 8).
 extern "C" int flake_fixed_search(const int* smp, const int* obits,
                                   int* order, int* coefs, int N, int n,
                                   int min_o, int max_o, int taps, int pmin,
                                   int pmax, int ps, int ub,
                                   cudaStream_t stream) {
   if (min_o < 0 || min_o > max_o || max_o > kMaxFixed || taps < max_o ||
-      taps > kMaxFixed || n <= max_o)
+      taps > kMaxFixed || n <= max_o || ps < 0 || ps > kMaxPorder)
     return static_cast<int>(cudaErrorInvalidValue);
+  int warps = kFixedWarps;
+  while (warps > 1 && warps * fixed_part(ps) > kSmemDefault) warps >>= 1;
   if (N > 0)
-    fixed_search_kernel<kFixedThreads>
-        <<<N, kFixedThreads, heap_size(ps) * (sizeof(u64) + 1), stream>>>(
-            smp, obits, order, coefs, n, min_o, max_o, taps, pmin, pmax, ps,
-            ub);
+    fixed_search_kernel<<<(N + warps - 1) / warps, warps * 32,
+                          warps * fixed_part(ps), stream>>>(
+        smp, obits, order, coefs, N, n, min_o, max_o, taps, pmin, pmax, ps,
+        ub);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Where S's and H's time goes inside one launch: phase stamps from
-instrumented copies of ``flake_tpu_torch/csrc/select.cu`` and ``head.cu``.
+"""Where S's, H's and X's time goes inside one launch: phase stamps from
+instrumented copies of ``flake_tpu_torch/csrc/select.cu``, ``head.cu``,
+``rice.cu`` and X's first design, ``csrc/yardsticks/fixed_v1.cu``.
 
 Each source is copied with a stamp written at the end of each phase and
 built with nvcc into a library of its own beside the package's build
@@ -15,6 +16,16 @@ built with nvcc into a library of its own beside the package's build
   the SM the block ran on; on the level-8 batch (512 frames of 4,096 stereo
   16-bit samples, the stereo estimate on) and the 8192 bucket (214 frames
   of 8,192).
+- X (``rice.fixed_search``), ``clock64`` cycles: its first design
+  (``csrc/yardsticks/fixed_v1.cu``, a block a stream, thread 0's clock)
+  with the first sample in hand and, each order apart, the partition sums,
+  the pyramid's fold, the level scan, the pick and the order compare with
+  the barrier after it; the current design (``csrc/rice.cu``, a warp a
+  stream, lane 0's clock) with the set-up, the lane's run summed for
+  every order (the warm-up taken out), the pyramid, the fold above 32
+  partitions, the scan, the pick, the order compare and the stores; on the
+  level-2 batch (1,024 streams of 1,152 16-bit samples, orders 0-4, pmax
+  3) and a level-8 10-sample tail (2 streams, orders 1-4, pmax 6).
 
 The inputs are made from a seed, and the instrumented kernel's outputs must
 equal the package's. Five launches warm it, three stamped launches follow;
@@ -64,9 +75,11 @@ def at(text: str, anchor: str, before: str = "", after: str = "") -> str:
     return text.replace(anchor, before + anchor + after)
 
 
-def build(name: str, src: str, entry: str) -> ctypes.CDLL:
+def build(name: str, src: str, entry: str,
+          signature: str | None = None) -> ctypes.CDLL:
     """Build ``src`` into ``libflake_stamps_<name>.so``; bind ``entry`` as
-    the package binds it and ``flake_set_stamps``."""
+    the package binds ``signature`` (default: ``entry``) and
+    ``flake_set_stamps``."""
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     cu = _build.BUILD_DIR / f"stamps_{name}.cu"
     cu.write_text(src)
@@ -74,7 +87,8 @@ def build(name: str, src: str, entry: str) -> ctypes.CDLL:
     _build.build([_cuda.nvcc(), *_cuda.ARCH, "-std=c++17", "-O3",
                   "-Xcompiler", "-fPIC", "-shared"], [cu], lib_path)
     lib = ctypes.CDLL(str(lib_path))
-    getattr(lib, entry).argtypes = [*_cuda.SIGNATURES[entry], V]
+    getattr(lib, entry).argtypes = [*_cuda.SIGNATURES[signature or entry],
+                                    V]
     getattr(lib, entry).restype = ctypes.c_int
     lib.flake_set_stamps.argtypes = [V]
     lib.flake_set_stamps.restype = ctypes.c_int
@@ -219,9 +233,140 @@ def head_stamps() -> None:
         assert all(torch.equal(a, b) for a, b in zip(outs, want)), label
 
 
+def fixed_inputs(rng, N: int, n: int) -> torch.Tensor:
+    """[N, n] int32: tones with noise at 16 bits, as the level-2 batch."""
+    t = np.arange(n)
+    x = 9000 * np.sin(2 * np.pi * rng.uniform(50, 4000, (N, 1)) * t / 44100) \
+        + rng.normal(0, 300, (N, n))
+    return torch.from_numpy(np.clip(np.rint(x), -32768, 32767)
+                            .astype(np.int32)).to("cuda")
+
+
+# X's shapes: label, streams, samples, min_o, max_o, pmin, pmax
+FIXED_SHAPES = (("level-2 batch", 1024, 1152, 0, 4, 0, 3),
+                ("level-8 10-sample tail", 2, 10, 1, 4, 0, 6))
+
+
+def fixed_stamps() -> None:
+    """X's phases: the first design's a block (thread 0), each order apart,
+    and the current design's a warp (lane 0), in cycles."""
+    from flake_tpu_torch.ops import rice
+
+    v1 = ("if (tid == 0 && g_stamps) "
+          "g_stamps[s * 27 + ({})] = clock64();\n")
+    src = (CSRC / "yardsticks" / "fixed_v1.cu").read_text()
+    src = at(src, "namespace {\n", before=SETTER)
+    src = at(src, "namespace {\n", after="__shared__ unsigned long long "
+             "g_sums_at;\n")
+    src = at(src, "  const int tid = threadIdx.x;\n  const long long s = "
+             "blockIdx.x;\n  const int* x = smp + s * n;\n",
+             after="  " + v1.format(0) + "  if (tid == 0 && g_stamps) {\n"
+             "    const int v0 = x[0];\n    asm volatile(\"\" ::\"r\"(v0));"
+             "\n    g_stamps[s * 27 + 1] = clock64();\n  }\n")
+    src = at(src, "  for (int p = ps - 1; p >= 0; --p) {\n    for (int i = "
+             "(1 << p) + tid; i < (2 << p); i += kThreads)\n",
+             before="  if (tid == 0) g_sums_at = clock64();\n")
+    k = "2 + 5 * (o - min_o)"
+    src = at(src, "    partition_sums<kThreads>(pyr, quot_s, shares, zig, n, "
+             "ps, tid);\n",
+             after=f"    if (tid == 0 && g_stamps) g_stamps[s * 27 + {k}] = "
+             "g_sums_at;\n    " + v1.format(k + " + 1"))
+    src = at(src, "    scan_slots(pyr, ks, &lv, ps, n, o, lo, hi, tid, "
+             "kThreads);\n    __syncthreads();\n",
+             after="    " + v1.format(k + " + 2"))
+    src = at(src, "      const Choice c = pick_level(&lv, lo, hi);\n",
+             after='      asm volatile("" ::"r"(c.bits));\n      '
+             + v1.format(k + " + 3"))
+    src = at(src, "    __syncthreads();                // lv and the pyramid "
+             "are rewritten\n", after="    " + v1.format(k + " + 4"))
+    lib_v1 = build("fixed_v1", src, "flake_fixed_search_v1",
+                   "flake_fixed_search")
+
+    now = ("if ((threadIdx.x & 31) == 0 && g_stamps) g_stamps[(blockIdx.x *"
+           " (blockDim.x >> 5) + (threadIdx.x >> 5)) * 9 + ({})] = "
+           "clock64();\n")
+    src = (CSRC / "rice.cu").read_text()
+    src = at(src, "namespace {\n", before=SETTER)
+    src = at(src, "  if (s >= N) return;                       // a whole "
+             "warp\n", after="  " + now.format(0))
+    src = at(src, "    // the lane's run: up to 32 partitions",
+             before="    " + now.format(1))
+    src = at(src, "      if (parts > 32) {\n#pragma unroll",
+             before="      " + now.format(2))
+    for k, anchor in enumerate((
+            "    if (parts > 32) {\n      // the levels above",
+            "    // the (order, slot) pairs",
+            "    // lane j picks order",
+            "    // the first order of the least estimate"), 3):
+        src = at(src, anchor, before="    " + now.format(k))
+    src = at(src, "  if (lane == 0) order_out[s] = best_o;\n",
+             before="  " + now.format(7))
+    src = at(src, "  if (lane < taps) coefs_out[s * taps + lane] = "
+             "kFixedCoefs[best_o][lane];\n", after="  " + now.format(8))
+    lib = build("fixed", src, "flake_fixed_search")
+
+    rng = np.random.default_rng(SEED)
+    dev = torch.device("cuda")
+    for label, N, n, min_o, max_o, pmin, pmax in FIXED_SHAPES:
+        x = fixed_inputs(rng, N, n)
+        obits = torch.full((N,), 16, dtype=torch.int32, device=dev)
+        want = rice.fixed_search(x, obits, min_o, max_o, pmin, pmax)
+        args = rice._search_args(n, pmin, pmax)[1:]
+        orders = max_o - min_o + 1
+        stream = torch.cuda.current_stream().cuda_stream
+        for name, lib_x, entry, width in (
+                ("first design", lib_v1, "flake_fixed_search_v1", 27),
+                ("this design", lib, "flake_fixed_search", 9)):
+            outs = (torch.empty(N, dtype=torch.int32, device=dev),
+                    torch.empty((N, max_o), dtype=torch.int32, device=dev))
+
+            def call(lib_x=lib_x, entry=entry, outs=outs):
+                return getattr(lib_x, entry)(
+                    V(x.data_ptr()), V(obits.data_ptr()),
+                    *(V(t.data_ptr()) for t in outs), N, n, min_o, max_o,
+                    max_o, *args, V(stream))
+
+            stamps = torch.zeros((N, width), dtype=torch.int64, device=dev)
+            for rep, st in enumerate(stamped(lib_x, call, stamps)):
+                med = lambda a: float(np.median(a))  # noqa: E731
+                if width == 27:
+                    per = st[:, 2:2 + 5 * orders].reshape(N, orders, 5)
+                    prev = np.concatenate(
+                        [st[:, 1:2], per[:, :-1, 4]], axis=1)
+                    d = np.diff(np.concatenate([prev[..., None], per],
+                                               axis=2), axis=2)
+                    phases = "; ".join(
+                        f"order {min_o + o}: " + ", ".join(
+                            f"{k} {med(d[:, o, j]):.0f}"
+                            for j, k in enumerate(
+                                ("sums", "fold", "scan", "pick",
+                                 "compare and barrier")))
+                        for o in range(orders))
+                    total = per[:, -1, 4] - st[:, 0]
+                    print(f"X {name}, {label}, launch {rep + 1} (cycles a "
+                          f"block, median): first sample in hand "
+                          f"{med(st[:, 1] - st[:, 0]):.0f}; {phases}; entry "
+                          f"to end {med(total):.0f} (90% "
+                          f"{np.percentile(total, 90):.0f})", flush=True)
+                else:
+                    d = np.diff(st, axis=1)
+                    print(f"X {name}, {label}, launch {rep + 1} (cycles a "
+                          f"warp, median): " + ", ".join(
+                              f"{k} {med(d[:, j]):.0f}" for j, k in enumerate((
+                                  "set up", "run summed", "pyramid",
+                                  "fold above 32 partitions", "scan", "pick",
+                                  "compare", "stores")))
+                          + f"; entry to end {med(st[:, 8] - st[:, 0]):.0f} "
+                          f"(90% {np.percentile(st[:, 8] - st[:, 0], 90):.0f})",
+                          flush=True)
+            assert all(torch.equal(a, b) for a, b in zip(outs, want)), \
+                (name, label)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("prof_stamps.py needs a CUDA device")
+    fixed_stamps()
     select_stamps()
     head_stamps()
     print(torch.cuda.get_device_name(0), flush=True)

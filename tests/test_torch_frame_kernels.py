@@ -10,7 +10,9 @@ select. X
 (``rice.fixed_search_plain``): FIXED orders 0-4 at n = 1152, 20 and 10 on
 16- and 32-bit content, against the JAX analysis's FIXED order loop
 (``predict.residual_fixed`` and ``rice.subframe_bits``, ascending strict
-<) under one jit a size. H (``frame.frame_head_plain``): the stereo mode on
+<) under one jit a size; the kernel's contract, the FIXED residual as the
+wrapped k-th difference of the samples, on the port's
+``predict.residual_fixed`` alone. H (``frame.frame_head_plain``): the stereo mode on
 tied estimates, the 32-bit side veto, all-zero, constant and 15-wasted-bit
 frames at 1, 2 and 6 channels, against the JAX analysis's head
 (``stereo.decorr_mode``, ``apply_decorr``, ``wasted.remove_wasted_bits``
@@ -44,6 +46,7 @@ from flake_tpu.ops import wasted as jwasted
 from flake_tpu_torch import params as TP
 from flake_tpu_torch.ops import bitpack as tbitpack
 from flake_tpu_torch.ops import frame as tframe
+from flake_tpu_torch.ops import predict as tpredict
 from flake_tpu_torch.ops import rice as trice
 from flake_tpu_torch.ops.common import U32_MASK
 
@@ -249,6 +252,28 @@ def test_fixed_search_matches_jax(n):
                                           jnp.asarray(obits), 1, 2, pmin,
                                           pmax))
     np.testing.assert_array_equal(order12.numpy(), want12)
+
+
+def test_fixed_residual_is_the_wrapped_difference():
+    """The contract X's kernel sums by (``csrc/rice.cu``, ``fixed_step``):
+    past the warm-up, order k's FIXED residual (the int64 prediction
+    wrapped to int32) is the k-th difference of the samples taken in
+    wrapping 32-bit arithmetic, on rows of the int32 extremes, 0 and +-1,
+    full-range noise and alternating INT32_MIN / INT32_MAX. No JAX."""
+    rng = np.random.default_rng(21)
+    n = 4000
+    rows = np.stack([
+        rng.choice(np.array([-2**31, 2**31 - 1, 0, 1, -1]), n),
+        rng.integers(-2**31, 2**31, n),
+        np.where(np.arange(n) % 2, 2**31 - 1, -2**31)]).astype(np.int32)
+    x = torch.from_numpy(rows)
+    diff = rows.view(np.uint32)
+    for order in range(5):
+        res = tpredict.residual_fixed(x, order).numpy()
+        assert res.dtype == np.int32
+        np.testing.assert_array_equal(res[:, :order], rows[:, :order])
+        np.testing.assert_array_equal(res[:, order:], diff.view(np.int32))
+        diff = np.diff(diff, axis=-1)          # uint32: wraps mod 2^32
 
 
 # -- H: the frame head -------------------------------------------------------

@@ -54,8 +54,11 @@ view, and on every call of the encoder at levels 5, 8 and 12. S, X, H and
 E (the order selection, the FIXED order search, the frame head and the
 slot layout) against their plain versions bit for bit: S under every
 order method on tables with ties and U32_MASK at the level-8 and level-12
-shapes and the edges, X at the level-2 batch, on 32-bit content, short
-tails and n up to 65,535, H at the level-8 batch, 32 bits (the side veto)
+shapes and the edges, X at the level-2 batch, on 32-bit content and
+alternating INT32_MIN / INT32_MAX, short tails, one order (0, 1, 2 and
+4), 256 partitions at n 4,096 and 32,768, the first shape past each of its
+routes (32 and 64 partitions, four and two streams a block, odd
+partitions, a second batch of loads) and n up to 65,535, H at the level-8 batch, 32 bits (the side veto)
 and 1, 6 and 8 channels, S with its gather under every order method at
 orders 1-32 on 1, 5, 33 and 1,024 streams (NaN and zero reflection
 coefficients under EST, float64 and float32) and H at 1-8 channels, 4-32
@@ -1408,7 +1411,9 @@ def test_select_kernel_both_forms(dev, m, N):
 
 def _fixed_chans(rng, F, n, bps):
     """[F, 2, n] int32: tones with noise, full-scale noise (whose fixed
-    predictions wrap int32 at 32 bits), a ramp, silence, a constant."""
+    predictions wrap int32 at 32 bits), a ramp, silence, a constant and,
+    from 6 frames, alternating extremes (INT32_MIN and INT32_MAX at 32
+    bits, which wrap every order)."""
     lim = 1 << (bps - 1)
     t = np.arange(n)
     x = (lim // 3) * np.sin(2 * np.pi * rng.uniform(40, 900, (F, 2, 1))
@@ -1418,6 +1423,8 @@ def _fixed_chans(rng, F, n, bps):
     x[2] = (np.arange(n) * 7) % lim
     x[3] = 0
     x[4] = -5
+    if F > 5:
+        x[5] = np.where(np.arange(n) % 2, lim - 1, -lim)
     return torch.from_numpy(np.clip(np.rint(x), -lim, lim - 1)
                             .astype(np.int32))
 
@@ -1426,11 +1433,30 @@ def _fixed_chans(rng, F, n, bps):
     (1152, 0, 4, 0, 4, 512, 16), (1152, 0, 4, 0, 8, 64, 32),
     (4608, 1, 4, 0, 5, 16, 16), (20, 1, 4, 0, 8, 8, 16),
     (10, 0, 4, 0, 8, 8, 32), (5, 0, 4, 2, 3, 8, 16), (4096, 2, 2, 0, 6, 8, 24),
-    (65535, 0, 4, 0, 8, 5, 16), (16, 1, 1, 0, 8, 8, 16)])
+    (65535, 0, 4, 0, 8, 5, 16), (16, 1, 1, 0, 8, 8, 16),
+    # the level-2 batch's partitions at other lengths; 256 partitions of
+    # 16 and of 128
+    (576, 0, 4, 0, 3, 16, 16), (192, 0, 4, 0, 3, 16, 16),
+    (4096, 0, 4, 0, 8, 8, 16), (32768, 0, 4, 0, 8, 5, 16),
+    # the kernel's routes: 32 partitions (the last of shares of one, and
+    # level 5's one scan round) and 64 (the first of whole partitions a
+    # lane, here of 3 samples, read one at a time); 128 (the last with four
+    # streams a block; 256 above has two) and 256 of 28 samples; partitions
+    # of odd length on rows off 16 bytes; 13 int4 a lane (a second batch of
+    # loads)
+    (4096, 0, 4, 0, 5, 8, 16), (192, 0, 4, 0, 6, 8, 16),
+    (4096, 0, 4, 0, 6, 8, 32), (4096, 0, 4, 0, 7, 8, 16),
+    (7168, 0, 4, 0, 8, 5, 16), (1154, 0, 4, 0, 3, 8, 16),
+    (1664, 0, 4, 0, 5, 8, 16),
+    # one order, no search
+    (1152, 0, 0, 0, 3, 8, 16), (1152, 2, 2, 0, 3, 8, 16),
+    (1152, 4, 4, 0, 3, 8, 32)])
 def test_fixed_search_kernel(dev, n, min_o, max_o, pmin, pmax, F, bps):
     """X's orders and coefficient rows equal its plain version's, at the
     level-2 batch (512 stereo frames of 1,152) and the edges: 32-bit
-    content, short tails, one order, odd n, the longest block."""
+    content and alternating extremes, short tails, one order, odd n, the
+    longest block, 256 partitions, and the first shape past each of the
+    kernel's routes."""
     chans = _fixed_chans(np.random.default_rng(n + bps), F, n, bps)
     obits = torch.full((F, 2), bps, dtype=torch.int32)
     obits[:, 1] += 1
