@@ -1003,13 +1003,14 @@ def sp_paths(card, streams, count_launches, launched) -> None:
             files = [(f.name, f.stat().st_size)
                      for f in pathlib.Path(tmp).iterdir()]
         # the device's own events (kernels, copies) are the ops; each sp
-        # stage's range appears twice, on the host (its time, and the
-        # device time of the kernels launched inside it) and on the device
-        # timeline (the range's span there, idle gaps included)
+        # stage's range, and each ``flake.`` span, appears twice, on the
+        # host (its time, and the device time of the kernels launched
+        # inside it) and on the device timeline (the range's span there,
+        # idle gaps included)
         events = prof.key_averages()
         on_device = torch.autograd.DeviceType.CUDA
-        ops = [e for e in events
-               if e.device_type == on_device and not e.key.startswith("sp ")]
+        ops = [e for e in events if e.device_type == on_device
+               and not e.key.startswith(("sp ", "flake."))]
         if not ops:
             fail("the sp trace holds no op on the device")
         busy = sum(device_ms(e) for e in ops)

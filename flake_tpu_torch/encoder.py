@@ -54,6 +54,7 @@ from flake_tpu_torch.md5 import pcm_md5_bytes
 from flake_tpu_torch.native import crc_patch, pack_frames
 from flake_tpu_torch.ops import bitpack
 from flake_tpu_torch.ops.frame import LPC_DTYPES, FrameConfig
+from flake_tpu_torch.profiling import annotate
 
 PACK_BACKENDS = ("auto", "device", "host")
 
@@ -101,7 +102,8 @@ def upload(arr, device: torch.device) -> torch.Tensor:
     t = arr if isinstance(arr, torch.Tensor) \
         else torch.from_numpy(np.ascontiguousarray(arr))
     if device.type == "cuda":
-        return t.pin_memory().to(device, non_blocking=True)
+        with annotate("flake.encoder.upload"):
+            return t.pin_memory().to(device, non_blocking=True)
     return t
 
 
@@ -395,7 +397,11 @@ class Encoder:
     def _run_batches(self, frames: np.ndarray, block_size: int,
                      nums: np.ndarray, quantize: bool = True):
         """Encode [F, block_size, C] frames in device batches, two deep.
-        Returns (bytes, int64 [F] frame lengths)."""
+        Returns (bytes, int64 [F] frame lengths). Under ``torch.profiler``
+        a batch's host work shows as ``flake.encoder.*`` spans (headers,
+        upload, run; wait, compact, fetch, crc_patch), the stages' own
+        inside the run; the MD5 thread has none, as the profiler records
+        only on the thread that started it."""
         from flake_tpu_torch.parallel.mesh import on_host
 
         cfg = FrameConfig.from_params(self.params, self.channels, self.bps,
@@ -428,18 +434,24 @@ class Encoder:
                                      np.int32)])
                 cnums = np.concatenate(
                     [cnums, np.zeros(shape - n, cnums.dtype)])
-            hdr_bytes, hdr_nb = bitpack.frame_header_bytes(
-                cnums, bs_code=bs_code, sr_code=self.sr_code,
-                allow_vbs=self.params.allow_vbs)
-            # frame headers are whole bytes, CRC-8 included
-            hdr_bits = hdr_nb * 8
-            up = self._narrow(chunk)
+            with annotate("flake.encoder.headers"):
+                hdr_bytes, hdr_nb = bitpack.frame_header_bytes(
+                    cnums, bs_code=bs_code, sr_code=self.sr_code,
+                    allow_vbs=self.params.allow_vbs)
+                # frame headers are whole bytes, CRC-8 included
+                hdr_bits = hdr_nb * 8
+            # the pinned copies to the devices run inside the sharded run,
+            # a group at a time, under the same span (:func:`upload`)
+            with annotate("flake.encoder.upload"):
+                up = self._narrow(chunk)
             if host_emission:
-                analysis = self._sharded(cfg, False)(up, hdr_bits)
+                with annotate("flake.encoder.run"):
+                    analysis = self._sharded(cfg, False)(up, hdr_bits)
                 analysis.pop("global_max_frame_bytes")
                 return analysis, cnums, n
             run, gather, _ = self._sharded(cfg, True)
-            packed = run(up, hdr_bits, hdr_bytes, hdr_nb)
+            with annotate("flake.encoder.run"):
+                packed = run(up, hdr_bits, hdr_bytes, hdr_nb)
             return (packed["words"], packed["total_bits"],
                     packed["frame_bytes"], gather, hdr_nb, n)
 
@@ -453,10 +465,12 @@ class Encoder:
             on the host (``flake_tpu/encoder.py:467-504``)."""
             analysis, cnums, n = item
             t0 = time.perf_counter()
-            for t in analysis["frame_bytes"]:        # waits for the devices
-                t.cpu()
+            with annotate("flake.encoder.wait"):
+                for t in analysis["frame_bytes"]:    # waits for the devices
+                    t.cpu()
             t_ready = time.perf_counter()
-            host = {k: fetch(v)[:n] for k, v in analysis.items()}
+            with annotate("flake.encoder.fetch"):
+                host = {k: fetch(v)[:n] for k, v in analysis.items()}
             t1 = time.perf_counter()
             blob, lengths = pack_frames(
                 host, cnums[:n].astype(np.uint64), block_size=block_size,
@@ -491,8 +505,9 @@ class Encoder:
             exact bytes on the device, copy them back, patch the CRCs."""
             words, total_bits, frame_bytes, gather, hdr_nb, n = item
             t0 = time.perf_counter()
-            tb = fetch(total_bits)                   # waits for the devices
-            fb = fetch(frame_bytes)
+            with annotate("flake.encoder.wait"):
+                tb = fetch(total_bits)               # waits for the devices
+                fb = fetch(frame_bytes)
             t_ready = time.perf_counter()
             if not np.array_equal(tb[:n], fb[:n] * 8):
                 raise AssertionError(
@@ -500,10 +515,14 @@ class Encoder:
                     f"{tb[:8]} vs {fb[:8] * 8}")
             # each group compacts on its device; the CRC patch below runs
             # over the whole batch (flake_tpu/encoder.py:400-460)
-            buf = fetch(gather(words, frame_bytes, n))
+            with annotate("flake.encoder.compact"):
+                parts = gather(words, frame_bytes, n)
+            with annotate("flake.encoder.fetch"):
+                buf = fetch(parts)
             t1 = time.perf_counter()
             lengths = fb[:n].astype(np.int64)
-            crc_patch(buf, lengths, hdr_nb[:n])
+            with annotate("flake.encoder.crc_patch"):
+                crc_patch(buf, lengths, hdr_nb[:n])
             finish(buf.tobytes(), lengths, n, t0, t_ready, t1)
 
         drain = drain_host if host_emission else drain_device

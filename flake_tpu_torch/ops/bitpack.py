@@ -37,6 +37,7 @@ from flake_tpu_torch.ops.common import U32_MASK, wrap_int32
 from flake_tpu_torch.ops.frame import (SF_CONSTANT, SF_FIXED, SF_LPC,
                                        SF_VERBATIM, FrameConfig)
 from flake_tpu_torch.ops.rice import limit_max_partition_order, zigzag_u32
+from flake_tpu_torch.profiling import annotate
 
 HDR_SLOTS = 16  # max header bytes: 4 fixed + 7 utf8 + 2 + 2 + crc8
 
@@ -369,10 +370,14 @@ def pack_frames_device(analysis: dict, hdr_bytes: torch.Tensor,
     """Emit a batch's frames: (words int32 [F, word_rows(cfg), 128] —
     each frame's bytes as big-endian words with zeroed CRC placeholders
     — and total_bits int32 [F], == 8*frame_bytes when the layout agrees
-    with the analysis accounting)."""
-    lengths, leading, payload = slot_layout(analysis, hdr_bytes,
-                                            hdr_nbytes, cfg)
-    return merge_words(lengths, leading, payload, word_rows(cfg))
+    with the analysis accounting). Under ``torch.profiler`` the call is
+    the span ``flake.emission``, over ``.slots`` (E) and ``.merge`` (K3)."""
+    with annotate("flake.emission"):
+        with annotate("flake.emission.slots"):
+            lengths, leading, payload = slot_layout(analysis, hdr_bytes,
+                                                    hdr_nbytes, cfg)
+        with annotate("flake.emission.merge"):
+            return merge_words(lengths, leading, payload, word_rows(cfg))
 
 
 def to_rows(x: torch.Tensor) -> torch.Tensor:

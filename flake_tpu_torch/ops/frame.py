@@ -46,6 +46,7 @@ from flake_tpu_torch.ops.rice import (final_pass, fixed_search,
                                       subframe_bits_from_sums)
 from flake_tpu_torch.ops.sweep import (sweep_granules, sweep_sums,
                                        uses_granule_kernel)
+from flake_tpu_torch.profiling import annotate
 
 SF_CONSTANT = 0
 SF_VERBATIM = 1
@@ -428,21 +429,25 @@ def _lpc_search(cfg: FrameConfig, chans, obits):
     dev = chans.device
     cN = chans.reshape(N, n).contiguous()
     obitsN = obits.reshape(N)
-    if cfg.lpc_dtype == "float64":
-        autoc = autocorr(cN, lpc_ops.welch_window_on(n, dev), max_o)  # K1
-    else:
-        autoc = lpc_ops.autocorr(cN, max_o, lpc_ops.welch_window_on(
-            n, dev, LPC_DTYPES[cfg.lpc_dtype]))
-    qcoefs, shifts, refs = lpc_candidates(cfg, autoc)
+    with annotate("flake.analysis.lpc"):
+        if cfg.lpc_dtype == "float64":
+            autoc = autocorr(cN, lpc_ops.welch_window_on(n, dev), max_o)  # K1
+        else:
+            autoc = lpc_ops.autocorr(cN, max_o, lpc_ops.welch_window_on(
+                n, dev, LPC_DTYPES[cfg.lpc_dtype]))
+        qcoefs, shifts, refs = lpc_candidates(cfg, autoc)
 
     bits_all = None
     if cfg.order_method not in (P.OrderMethod.MAX, P.OrderMethod.EST):
-        bits_all = candidate_bits(cfg, cN, qcoefs, shifts, obitsN)
-    order, coefs, shift = select_candidate(
-        bits_all, refs, qcoefs, shifts, cfg.order_method,
-        cfg.min_prediction_order, max_o)
-    rc = final_pass(cN, coefs[:, :max_o], shift, order, n,
-                    cfg.min_partition_order, cfg.max_partition_order)
+        with annotate("flake.analysis.sweep"):
+            bits_all = candidate_bits(cfg, cN, qcoefs, shifts, obitsN)
+    with annotate("flake.analysis.select"):
+        order, coefs, shift = select_candidate(
+            bits_all, refs, qcoefs, shifts, cfg.order_method,
+            cfg.min_prediction_order, max_o)
+    with annotate("flake.analysis.final"):
+        rc = final_pass(cN, coefs[:, :max_o], shift, order, n,
+                        cfg.min_partition_order, cfg.max_partition_order)
     res, fits = rc.pop("residual"), rc.pop("fits")
     return (order.reshape(F, C), coefs.reshape(F, C, P.MAX_LPC_ORDER),
             shift.reshape(F, C), res.reshape(F, C, n),
@@ -535,48 +540,60 @@ def analyze_frames(samples: torch.Tensor, cfg: FrameConfig,
       the exact frame byte counts and the verbatim fallback
       (encode.c:949-964).
     Returns the dict of per-frame/channel selection tensors + residuals.
+
+    Under ``torch.profiler`` the call is the span ``flake.analysis``, with
+    a span a stage inside it: ``.head`` (H), ``.lpc`` (K1, L), ``.sweep``
+    (K4 or K2, R1; where the order method reads bit counts), ``.select``
+    (S, or X on the FIXED path), ``.final`` (R2), ``.finalize``.
     """
     n = cfg.block_size
     C = cfg.channels
     F = samples.shape[0]
     dev = samples.device
     i32 = torch.int32
-
-    # stereo decorrelation, wasted bits and constant blocks (H)
-    chans, obits, wasted_bits, mode, constant = frame_head(samples, cfg)
-
     pmin, pmax = cfg.min_partition_order, cfg.max_partition_order
-    zeros32 = torch.zeros((F, C, P.MAX_LPC_ORDER), dtype=i32, device=dev)
-    if n < 5 or cfg.prediction_type == P.Prediction.NONE:
-        # VERBATIM for every subframe (optimize.c:153-158)
-        order = torch.zeros((F, C), dtype=i32, device=dev)
-        sf_type = torch.full((F, C), SF_VERBATIM, dtype=i32, device=dev)
-        shift = torch.zeros_like(order)
-        coefs = zeros32
-        res = chans
-        rc = {"porder": torch.zeros_like(order),
-              "method": torch.zeros_like(order),
-              "params": torch.zeros((F, C, 1 << pmax), dtype=i32,
-                                    device=dev)}
-        unfit = None
-    elif (cfg.prediction_type == P.Prediction.FIXED
-          or n <= cfg.max_prediction_order):
-        # FIXED path (optimize.c:167-190): the order search (X), then the
-        # final pass (R2) with the chosen predictor's coefficients
-        order, fcoefs = fixed_search(chans, obits, cfg.min_prediction_order,
-                                     min(cfg.max_prediction_order, 4), pmin,
-                                     pmax)
-        shift = torch.zeros_like(order)
-        rc = final_pass(chans, fcoefs, shift, order, n, pmin, pmax)
-        res = rc.pop("residual")
-        del rc["fits"]         # an unshifted prediction decodes mod 2^32
-        unfit = None
-        sf_type = torch.full((F, C), SF_FIXED, dtype=i32, device=dev)
-        coefs = zeros32
-    else:
-        order, coefs, shift, res, rc, unfit = _lpc_search(cfg, chans, obits)
-        sf_type = torch.full((F, C), SF_LPC, dtype=i32, device=dev)
 
-    return finalize_analysis(cfg, chans, obits, wasted_bits, constant,
-                             mode, sf_type, order, coefs, shift, res, rc,
-                             hdr_bits, unfit)
+    with annotate("flake.analysis"):
+        # stereo decorrelation, wasted bits and constant blocks (H)
+        with annotate("flake.analysis.head"):
+            chans, obits, wasted_bits, mode, constant = frame_head(samples,
+                                                                   cfg)
+        zeros32 = torch.zeros((F, C, P.MAX_LPC_ORDER), dtype=i32,
+                              device=dev)
+        if n < 5 or cfg.prediction_type == P.Prediction.NONE:
+            # VERBATIM for every subframe (optimize.c:153-158)
+            order = torch.zeros((F, C), dtype=i32, device=dev)
+            sf_type = torch.full((F, C), SF_VERBATIM, dtype=i32, device=dev)
+            shift = torch.zeros_like(order)
+            coefs = zeros32
+            res = chans
+            rc = {"porder": torch.zeros_like(order),
+                  "method": torch.zeros_like(order),
+                  "params": torch.zeros((F, C, 1 << pmax), dtype=i32,
+                                        device=dev)}
+            unfit = None
+        elif (cfg.prediction_type == P.Prediction.FIXED
+              or n <= cfg.max_prediction_order):
+            # FIXED path (optimize.c:167-190): the order search (X), then
+            # the final pass (R2) with the chosen predictor's coefficients
+            with annotate("flake.analysis.select"):
+                order, fcoefs = fixed_search(
+                    chans, obits, cfg.min_prediction_order,
+                    min(cfg.max_prediction_order, 4), pmin, pmax)
+            shift = torch.zeros_like(order)
+            with annotate("flake.analysis.final"):
+                rc = final_pass(chans, fcoefs, shift, order, n, pmin, pmax)
+            res = rc.pop("residual")
+            del rc["fits"]     # an unshifted prediction decodes mod 2^32
+            unfit = None
+            sf_type = torch.full((F, C), SF_FIXED, dtype=i32, device=dev)
+            coefs = zeros32
+        else:
+            order, coefs, shift, res, rc, unfit = _lpc_search(cfg, chans,
+                                                              obits)
+            sf_type = torch.full((F, C), SF_LPC, dtype=i32, device=dev)
+
+        with annotate("flake.analysis.finalize"):
+            return finalize_analysis(cfg, chans, obits, wasted_bits,
+                                     constant, mode, sf_type, order, coefs,
+                                     shift, res, rc, hdr_bits, unfit)

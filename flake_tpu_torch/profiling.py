@@ -2,11 +2,9 @@
 
 - :func:`trace`: a context manager around ``torch.profiler`` that writes a
   Chrome trace of the host and the device into a directory;
-- :func:`annotate`: a named range (``torch.profiler.record_function``),
-  which shows as a span of its own in the trace;
-- :class:`StageTimer`: host wall-clock counters per stage with a
-  samples/sec report (the Encoder's ``stats`` dict is the always-on subset
-  of this);
+- :func:`annotate`: the program's one span call, a named range
+  (``torch.profiler.record_function``) while a profiler records on the
+  calling thread, else a shared null context;
 - :func:`device_memory_stats`: the live device memory of each CUDA device;
 - :func:`card_name`: the card's name and power limit, which every
   measurement states beside its numbers.
@@ -46,52 +44,21 @@ def trace(logdir: str):
             logdir, f"trace_{os.getpid()}_{int(time.time() * 1000)}.json"))
 
 
+# whether a profiler records on the calling thread; the span off it
+_recording = torch._C._autograd._profiler_enabled
+_OFF = contextlib.nullcontext()
+
+
 def annotate(name: str):
-    """Named range for trace legibility: ``with annotate("sp order loop"):
-    ...`` (nests; a span of its own in the trace, costs a few
-    microseconds of host time when no profiler runs)."""
-    return torch.profiler.record_function(name)
+    """A named range in a ``torch.profiler`` trace: ``with annotate(
+    "flake.analysis.head"): ...``. Ranges nest, and share the trace's
+    clock with the device events of the launches made inside them.
 
-
-class StageTimer:
-    """Wall-clock accumulation per pipeline stage.
-
-    >>> t = StageTimer()
-    >>> with t.stage("analyze"):
-    ...     ...
-    >>> t.report(samples=n)
-    """
-
-    def __init__(self):
-        self.seconds: dict[str, float] = {}
-        self.calls: dict[str, int] = {}
-
-    @contextlib.contextmanager
-    def stage(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            dt = time.perf_counter() - t0
-            self.seconds[name] = self.seconds.get(name, 0.0) + dt
-            self.calls[name] = self.calls.get(name, 0) + 1
-
-    def report(self, samples: int | None = None,
-               sample_rate: int = 44100) -> str:
-        lines = []
-        total = sum(self.seconds.values())
-        for name, sec in sorted(self.seconds.items(),
-                                key=lambda kv: -kv[1]):
-            line = (f"{name:24s} {sec:9.4f}s  x{self.calls[name]:<6d}"
-                    f" {sec / total * 100:5.1f}%")
-            if samples:
-                line += f"  {samples / max(sec, 1e-12):,.0f} smp/s"
-            lines.append(line)
-        if samples:
-            xrt = (samples / sample_rate) / max(total, 1e-12)
-            lines.append(f"{'TOTAL':24s} {total:9.4f}s"
-                         f"  {xrt:,.1f}x realtime")
-        return "\n".join(lines)
+    Where no profiler records on the calling thread (its state is
+    thread-local: a thread started under a profiler is not recorded) it
+    enters no ``record_function`` and returns a shared null context, so a
+    span costs under a microsecond of host time on the hot path."""
+    return torch.profiler.record_function(name) if _recording() else _OFF
 
 
 def device_memory_stats() -> list[dict]:

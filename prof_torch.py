@@ -8,8 +8,10 @@ up, three times timed on the host clock, and
 once under ``torch.profiler``. Prints the warm walls, the profiled wall,
 the device's busy time (the union of its kernel and copy intervals), its
 device events and the encoder's batches (and their ratio), the idle share
-of the median warm wall that this leaves, and the operators with the most
-device time.
+of the median warm wall that this leaves, the host ms a batch in each of
+the program's ``flake.`` spans (the Encoder's and the stages', each whole,
+the spans inside it included), and the operators with the most device
+time.
 
     python3 prof_torch.py [--levels 8 5 12 11] [--rows 14]
 
@@ -27,11 +29,15 @@ import chip_smoke
 
 
 def busy_ms(events) -> tuple[float, int]:
-    """Union of the device events' intervals, in ms, and their count."""
+    """Union of the device events' intervals, in ms, and their count; the
+    spans the profiler also draws on the device's timeline are no device
+    work and are left out."""
     import torch
 
     spans = sorted((e.time_range.start, e.time_range.end) for e in events
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)
+                   and not e.name.startswith("flake."))
     total, end = 0, None
     for s, e in spans:
         if end is None or s > end:
@@ -41,6 +47,19 @@ def busy_ms(events) -> tuple[float, int]:
             total += e - end
             end = e
     return total / 1000, len(spans)
+
+
+def span_ms(events, batches: int) -> dict:
+    """Host ms a batch in each ``flake.`` span, by name."""
+    import torch
+
+    out: dict = {}
+    for e in events:
+        if e.name.startswith("flake.") \
+                and e.device_type == torch.autograd.DeviceType.CPU:
+            out[e.name] = out.get(e.name, 0.0) + (
+                e.time_range.end - e.time_range.start) / 1000 / batches
+    return out
 
 
 def main() -> None:
@@ -96,6 +115,9 @@ def main() -> None:
               f"{n_ev} device events ({batches} batches, "
               f"{n_ev / batches:.1f} events a batch); idle share of the "
               f"median warm wall {1 - busy / 1000 / warm:.3f}", flush=True)
+        print("host ms a batch by span: " + "; ".join(
+            f"{k} {v:.4f}" for k, v in sorted(
+                span_ms(prof.events(), batches).items())), flush=True)
         print(prof.key_averages().table(sort_by="self_cuda_time_total",
                                         row_limit=args.rows), flush=True)
 
