@@ -15,8 +15,10 @@ the seeded Levinson, then the quantizer, in one launch), and the four
 kernels of the last launch chains: S, the order selection under every
 order method and its candidate's coefficients and shift, X, the FIXED
 order search, H, the frame head (stereo mode and decorrelation, wasted
-bits, constant flags) and E, the slot layout; no
-Pallas kernel stands behind R1, R2, L, S, X, H or E) and its host
+bits, constant flags) and E, the slot layout, and Z, the analysis'
+finalize (the CONSTANT, unfit and over-size overrides, the frame sizes,
+the samples copied only into the rows stored raw); no Pallas kernel
+stands behind R1, R2, L, S, X, H, E or Z) and its host
 libraries (CRC
 patcher, decoder helpers) from this checkout, and holds each kernel
 against its plain PyTorch version: R1 and R2 on the inputs the first
@@ -130,7 +132,12 @@ each of those and the level-12 and level-11 streams is encoded once with
 K1-K4, R1, R2 and L recorded, and every call they got, each batch and the
 partial last block, is held against the plain version again (K1 at 13, 9, 7 and 33
 lags, K2 at orders 12, 8 and 32, K3 on 1152- to 8192-sample frames and in
-both instantiations, K4 on every bucket it sums; S, X, H and E too).
+both instantiations, K4 on every bucket it sums; S, X, H, E and Z too,
+Z on a residual of its own, every bit flipped, so that a row it copies or
+misses shows). Section 4e also puts Z on the benchmark's 12,288-frame
+``bulk`` batches at levels 8 and 5 (the share of subframes it copies in
+each content class; Z beside its plain version and its bytes bound with no
+row to copy, the quiet batch's rows and every row flagged).
 Then the main paths run, each with the launch counts set to 0 just before it
 and read just after: the profiling tool
 (``flake_tpu_torch.util.prof_merge.main``; K1, K3, K4, K5 and U1 must
@@ -503,7 +510,8 @@ kernels = {"autocorr": autocorr.autocorr, "sweep_sums": sweep.sweep_sums,
            "final_pass": rice.final_pass, "candidates": lpc.candidates,
            "select_candidate": frame.select_candidate,
            "fixed_search": rice.fixed_search, "frame_head": frame.frame_head,
-           "slot_layout": bitpack.slot_layout}
+           "slot_layout": bitpack.slot_layout,
+           "finalize_analysis": frame.finalize_analysis}
 for fn in kernels.values():
     fn.launches = 0
 t0 = time.perf_counter()
@@ -610,11 +618,11 @@ def sharded_paths(card, pcm, count_launches, launched) -> None:
 
     k1234 = ("autocorr", "sweep_sums", "merge_words", "sweep_granules",
              "rice_scan", "final_pass", "candidates", "select_candidate",
-             "frame_head", "slot_layout")
+             "frame_head", "slot_layout", "finalize_analysis")
     # config 5's tails (2,048 and 512 samples) take K4, so K2 need not run
     on_card = ("autocorr", "sweep_granules", "merge_words", "rice_scan",
                "final_pass", "candidates", "select_candidate", "frame_head",
-               "slot_layout")
+               "slot_layout", "finalize_analysis")
     cfg8 = P.StreamConfig(channels=2, sample_rate=SAMPLE_RATE,
                           bits_per_sample=16, params=P.set_defaults(8))
 
@@ -849,7 +857,8 @@ def sp_paths(card, streams, count_launches, launched) -> None:
               (rice, "final_pass_plain"), (lpc, "candidates_plain"),
               (frame, "select_order_bits_plain"),
               (frame, "select_candidate_plain"), (lpc, "estimate_order"),
-              (bitpack, "slot_layout_plain")]
+              (bitpack, "slot_layout_plain"),
+              (frame, "finalize_analysis_plain")]
     originals = [(mod, name, getattr(mod, name)) for mod, name in plains]
     for mod, name, orig in originals:
         setattr(mod, name, cpu_only(name, orig))
@@ -903,11 +912,12 @@ def sp_paths(card, streams, count_launches, launched) -> None:
                 t0 = time.perf_counter()
                 # R1: the order loop's scan and the final search; L: the
                 # coefficient stage and S, the selection and its gather,
-                # once a group; E before K3
+                # and Z, once a group; E before K3
                 blob = count_launches(path, lambda: enc.encode_stream(pcm),
                                       ("merge_words", "slot_layout",
                                        "rice_scan", "candidates",
-                                       "select_candidate"))
+                                       "select_candidate",
+                                       "finalize_analysis"))
                 cold = time.perf_counter() - t0
                 peaks = {m["device"]: m["peak_bytes_in_use"] / 2**20
                          for m in profiling.device_memory_stats()
@@ -931,8 +941,8 @@ def sp_paths(card, streams, count_launches, launched) -> None:
                     f"{path}, host emission",
                     lambda: Encoder(cfg, mesh=mesh, pack_backend="host")
                     .encode_stream(pcm),
-                    ("rice_scan", "candidates", "select_candidate"),
-                    ("merge_words", "slot_layout"))
+                    ("rice_scan", "candidates", "select_candidate",
+                     "finalize_analysis"), ("merge_words", "slot_layout"))
                 if host != blob:
                     fail(f"{path}: the host emission's bytes differ from "
                          "K3's")
@@ -1043,12 +1053,13 @@ def sp_paths(card, streams, count_launches, launched) -> None:
     # the entry points
     count_launches("dryrun_multichip(4)",
                    lambda: graft_entry.dryrun_multichip(4),
-                   ("merge_words", "slot_layout"))
+                   ("merge_words", "slot_layout", "finalize_analysis"))
     fn, args = graft_entry.entry()
     out = count_launches("graft entry", lambda: fn(*args),
                          ("autocorr", "sweep_granules", "merge_words",
                           "rice_scan", "final_pass", "candidates",
-                          "select_candidate", "frame_head", "slot_layout"))
+                          "select_candidate", "frame_head", "slot_layout",
+                          "finalize_analysis"))
     if not torch.equal(out["total_bits"].to(torch.int64),
                        8 * out["frame_bytes"]):
         fail("graft entry: total_bits is not 8 x frame_bytes")
@@ -1072,9 +1083,10 @@ def measurement_paths(card, count_launches) -> None:
 
     k1234 = ("autocorr", "sweep_granules", "merge_words", "sweep_sums")
     rice12 = ("rice_scan", "final_pass", "candidates")
-    # S wherever LPC runs, H on every dense analysis, E on every device
-    # emission; X at the level matrix's FIXED levels
-    she = ("select_candidate", "frame_head", "slot_layout")
+    # S wherever LPC runs, H and Z on every dense analysis, E on every
+    # device emission; X at the level matrix's FIXED levels
+    she = ("select_candidate", "frame_head", "slot_layout",
+           "finalize_analysis")
     t0 = time.perf_counter()
     res = count_launches("bench", lambda: bench.run(device="cuda"),
                          k1234 + rice12 + she)
@@ -1100,9 +1112,9 @@ def measurement_paths(card, count_launches) -> None:
           flush=True)
     for level in (5, 8, 12):
         needs = ("autocorr", "final_pass", "candidates", "select_candidate",
-                 "frame_head") \
+                 "frame_head", "finalize_analysis") \
             if level == 5 else ("autocorr", "sweep_granules") + rice12 \
-            + ("select_candidate", "frame_head")
+            + ("select_candidate", "frame_head", "finalize_analysis")
         res = count_launches(
             f"prof_an5 level {level}",
             lambda: prof_an5.run(level, device="cuda"), needs,
@@ -1540,6 +1552,114 @@ def time_turns(*fns, loop=(), reps: int = 20):
     back = [device_ms(fn, dev, reps, fn not in loop)
             for fn in reversed(fns)][::-1]
     return [(f + b) / 2 for f, b in zip(forth, back)]
+
+
+def z_args(args) -> list:
+    """Z's captured arguments (``finalize_analysis``'s: cfg, chans, obits,
+    wasted, constant, mode, sf_type, order, coefs, shift, res, rc,
+    hdr_bits, unfit) with a residual of their own, every bit of the
+    analysis' flipped, so that a row Z copies or misses shows; on the
+    VERBATIM path, where the residual is the samples, the samples."""
+    args = list(args)
+    if args[10] is not args[1]:
+        args[10] = ~args[10]
+    return args
+
+
+def finalize_section(card) -> dict:
+    """Section 4e's Z on the benchmark's 12,288-frame ``bulk`` batches at
+    levels 8 and 5 (``flakebench``'s pool from SEED): the share of
+    subframes Z copies in each content class, then Z held against its plain
+    version bit for bit and timed in turns beside it (Z back to back, the
+    plain version in a loop, as the analysis calls it) and beside its bytes
+    bound (the [F, C] tables read and written once, each copied row read
+    and written once), with no row to copy (the music batch), the quiet
+    batch's rows (CONSTANT: its side channel, its two channels being
+    alike, and both in its leading digital silence) and every row flagged
+    CONSTANT (the music batch's, into a residual of its own).
+    Returns Z's entry of the kernels' table."""
+    import torch
+
+    from flake_tpu_torch.ops import frame
+    from flakebench import run as bench
+
+    dev = torch.device("cuda", 0)
+    entry = {"name": "finalize_analysis", "route": "cuda",
+             "source": "flake_tpu_torch/csrc/finalize.cu",
+             "replaces": "flake_tpu/ops/frame.py:188 (finalize_analysis, "
+             "fused by XLA; no pl.pallas_call)", "library_ms": None,
+             "max_abs_err": 0.0,
+             "timed": {"ms": "back_to_back", "plain_ms": "loop"}}
+    mix = bench.load("traffic", "bulk")
+    for name in ("level8_cd", "level5_cd"):
+        cfg = bench.load("configs", name)
+        fcfg = bench.program_config(cfg)
+        kept, shares = {}, {}
+        for cls, (samples, hdr_bits, _, _) in zip(
+                mix["pool"], bench.make_batches(mix, cfg, SEED, dev)):
+            calls = []
+            kern = frame.finalize_analysis
+
+            @functools.wraps(kern)      # carries .launches, which Z counts on
+            def rec(*args, kern=kern):
+                calls.append(args)
+                return kern(*args)
+
+            frame.finalize_analysis = rec
+            try:
+                out = frame.analyze_frames(samples, fcfg, hdr_bits)
+            finally:
+                frame.finalize_analysis = kern
+            shares[cls] = (out["sf_type"] <= frame.SF_VERBATIM).double() \
+                .mean().item()
+            if cls in ("music", "quiet"):
+                kept[cls] = calls[0]
+            del out, calls
+        print(f"Z on {name}.bulk: the share of subframes it copies, by "
+              "content class: " + ", ".join(
+                  f"{cls} {100 * v:.4f}%" for cls, v in shares.items()),
+              flush=True)
+        music = kept["music"]
+        flagged = list(music)
+        flagged[4] = torch.ones_like(music[4])
+        flagged[10] = music[10].clone()
+        rows = {"shares": shares}
+        for key, label, args in (
+                ("none", "no row to copy (music)", music),
+                ("quiet", "the quiet batch's rows", kept["quiet"]),
+                ("every", "every row flagged", flagged)):
+            got = frame.finalize_analysis(*z_args(args))
+            want = frame.finalize_analysis_plain(*z_args(args))
+            torch.cuda.synchronize()
+            if any(not torch.equal(got[k], want[k]) or got[k].dtype
+                   != want[k].dtype for k in want):
+                fail(f"Z differs from its plain version on {name}, {label}")
+            copied = int((got["sf_type"] <= frame.SF_VERBATIM).sum())
+            F, C, L = args[1].shape
+            tables = [args[i] for i in (2, 3, 4, 6, 7, 12)] + [
+                a for a in (args[11].get("exact_rice_bits"), args[13])
+                if a is not None]
+            moved = nbytes(*tables) + F * C * 12 + F * 8 + copied * L * 8
+
+            def z_plain(args=args):
+                return frame.finalize_analysis_plain(*args)
+
+            plain_ms, ms = time_turns(
+                z_plain, lambda: frame.finalize_analysis(*args),
+                loop=(z_plain,))
+            bound_ms = moved / HBM_BYTES_PER_MS
+            rows[key] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                         "bound_by": "bytes", "share_of_bound": bound_ms / ms,
+                         "rows_copied": copied, "shape": [F, C, L]}
+            print(f"finalize_analysis (Z) on {name}.bulk, {label} ({F} x {C} "
+                  f"x {L}, {copied} rows copied): bit-exact True; kernel "
+                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                  f"{bound_ms:.5f} ms by bytes ({moved / 1e6:.2f} MB; "
+                  f"{100 * bound_ms / ms:.0f}% of it), on {card}", flush=True)
+        entry[name] = rows
+        del kept, music, flagged
+    entry.update(entry["level8_cd"]["none"])
+    return entry
 
 
 def main() -> None:
@@ -2980,7 +3100,7 @@ def main() -> None:
           f"{ {int(k): int(v) for k, v in zip(*torch.unique(est, return_counts=True))} }",
           flush=True)
 
-    # -- 4e. S, X, H and E: the analysis's and the emission's launch chains --
+    # -- 4e. S, X, H, E and Z: the analysis and the emission launch chains --
     def frame_kernel(name, source, replaces, kern, plain, shapes,
                      before=None, library=None, floor=None):
         """One of X, H and E held against its plain version bit for bit on
@@ -3214,6 +3334,7 @@ def main() -> None:
         [e_shape(None, "the level-8 batch", cap8["slot_layout"][0]),
          e_shape(f"level12_{vbs}", f"the level-12 {vbs} bucket",
                  cap12["slot_layout"][0])], before=yard["e_before"])
+    kernels.append(finalize_section(card))
 
     # -- 5. the sweeps on every shape the level-12 path gives them ----------
     # every shape the sweeping levels give them: order 8 at level 7 and
@@ -3375,6 +3496,11 @@ def main() -> None:
                            cmp_exact),
             "slot_layout": (bitpack.slot_layout, bitpack.slot_layout_plain,
                             cmp_exact),
+            "finalize_analysis": (
+                lambda *a: tuple(frame.finalize_analysis(*z_args(a))
+                                 .values()),
+                lambda *a: tuple(frame.finalize_analysis_plain(*z_args(a))
+                                 .values()), cmp_exact),
             **{name: (*fns, cmp_exact) for name, fns in rice_held.items()}}
 
     def with_rice(needs):
@@ -3384,10 +3510,12 @@ def main() -> None:
         and S wherever LPC runs (K1 or a sweep; the float32 path has no
         K1), X where it does not (the FIXED levels; at the LPC levels X
         takes only tails of at most the highest order's samples, and may
-        run), and E wherever K3 does (every device emission)."""
+        run), E wherever K3 does (every device emission), and Z on every
+        analysis."""
         sweeps_run = set(needs) & {"sweep_sums", "sweep_granules"}
         lpc_runs = sweeps_run or "autocorr" in needs
-        return tuple(needs) + ("final_pass", "frame_head") \
+        return tuple(needs) + ("final_pass", "frame_head",
+                               "finalize_analysis") \
             + (("rice_scan",) if sweeps_run else ()) \
             + (("candidates", "select_candidate") if lpc_runs
                else ("fixed_search",)) \
@@ -3419,7 +3547,7 @@ def main() -> None:
              (rice, "rice_scan"), (frame, "final_pass"),
              (lpc, "candidates"), (frame, "select_candidate"),
              (frame, "fixed_search"), (frame, "frame_head"),
-             (bitpack, "slot_layout")],
+             (bitpack, "slot_layout"), (frame, "finalize_analysis")],
             lambda: Encoder(cfg, device="cuda").encode_stream(stream))
         tails = {"fixed_search"} if "candidates" in needs else set()
         if set(calls) - tails != set(needs):
@@ -3435,7 +3563,8 @@ def main() -> None:
                 worst = max(worst, rel_err.pop(f"{name} on {label}", err))
             shapes = sorted({tuple(
                 (args[0]["residual"] if name == "slot_layout" else args[2]
-                 if name == "select_candidate" else args[0])
+                 if name == "select_candidate" else args[1]
+                 if name == "finalize_analysis" else args[0])
                 .shape) for args in args_of_calls})
             what = (f", {args_of_calls[0][2] + 1} lags" if name == "autocorr"
                     else f", order {args_of_calls[0][3]}"
@@ -3483,7 +3612,8 @@ def main() -> None:
                "select_candidate": frame.select_candidate,
                "fixed_search": rice.fixed_search,
                "frame_head": frame.frame_head,
-               "slot_layout": bitpack.slot_layout}
+               "slot_layout": bitpack.slot_layout,
+               "finalize_analysis": frame.finalize_analysis}
     launched = {name: {} for name in counted}   # name -> {path: count}
     k3_launched_by = {}     # path -> K3's launches by instantiation
 
@@ -3495,8 +3625,8 @@ def main() -> None:
         k3_mod.merge_words.launches_by = {"shared": 0, "global": 0}
         # no plain Rice search, no lag loop of the plain final pass, no
         # plain recursion or quantizer, and no plain order selection, FIXED
-        # search, frame head or slot layout (nor the pieces of them) may run
-        # on a card tensor on a main path
+        # search, frame head, finalize or slot layout (nor the pieces of
+        # them) may run on a card tensor on a main path
         plains = [(mod, name, getattr(mod, name))
                   for mod, name in ((rice, "rice_scan_plain"),
                                     (rice, "rice_final_plain"),
@@ -3516,6 +3646,7 @@ def main() -> None:
                                     (frame, "frame_head_plain"),
                                     (stereo, "decorr_mode"),
                                     (wasted, "remove_wasted_bits"),
+                                    (frame, "finalize_analysis_plain"),
                                     (bitpack, "slot_layout_plain"))]
         on_card = set()
 

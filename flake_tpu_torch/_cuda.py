@@ -58,6 +58,10 @@ SIGNATURES = {
     "flake_fixed_search": [_P] * 4 + [_I] * 9,
     # H: smp, chans, obits, wasted, mode, constant, F, n, C, bps, est
     "flake_frame_head": [_P] * 6 + [_I] * 5,
+    # Z: chans, res, obits, wasted, constant, sf_type, order, exact, unfit,
+    # hdr_bits, sf_out, order_out, type_code, frame_bytes, F, C, L, n, vsize,
+    # precision, chans' strides (3), copy
+    "flake_finalize": [_P] * 14 + [_I] * 10,
     # E: sf_type, order, obits, wasted, method, porder, type_code, shift,
     # coefs, rice_params, residual, ch_mode, hdr_bytes, hdr_nbytes, lengths,
     # leading, payload, F, n, C, pmax_static, rp, wide, precision, bps_code

@@ -26,7 +26,10 @@ in one launch, and S, :func:`select_candidate` (``csrc/select.cu``), the
 order selection under every order method and the gather of the chosen
 order's coefficients and shift in one launch (:func:`select_order_bits`
 is the same kernel without the gather). The FIXED order search is X
-(``ops/rice.fixed_search``).
+(``ops/rice.fixed_search``). The last step, :func:`finalize_analysis`
+(the CONSTANT, unfit and over-size overrides, the frame sizes and type
+codes), is Z (``csrc/finalize.cu``), one launch that copies the samples
+only into the subframes it stores raw.
 """
 
 from __future__ import annotations
@@ -296,12 +299,32 @@ def select_candidate(bits_all, refs, qcoefs: torch.Tensor,
 select_candidate.launches = 0
 
 
-def finalize_analysis(cfg: FrameConfig, chans, obits, wasted_bits,
-                      constant, mode, sf_type, order, coefs, shift, res,
-                      rc, hdr_bits, unfit=None) -> dict:
-    """CONSTANT override (optimize.c:143-151), exact frame-size
-    accounting, the verbatim fallback (encode.c:949-964), header type
-    codes, and the output dict (``frame.py:188-261``).
+def _analysis_dict(mode, obits, wasted_bits, sf_type, type_code, order,
+                   coefs, shift, rc, res, frame_bytes) -> dict:
+    i32 = torch.int32
+    return {
+        "ch_mode": mode.to(i32),             # [F]
+        "obits": obits.to(i32),              # [F, C]
+        "wasted": wasted_bits.to(i32),       # [F, C]
+        "sf_type": sf_type.to(i32),          # [F, C] 0/1/8/32
+        "type_code": type_code.to(i32),      # [F, C] 6-bit header code
+        "order": order.to(i32),              # [F, C]
+        "coefs": coefs.to(i32),              # [F, C, 32]
+        "shift": shift.to(i32),              # [F, C]
+        "porder": rc["porder"].to(i32),      # [F, C]
+        "method": rc["method"].to(i32),      # [F, C]
+        "rice_params": rc["params"].to(i32),  # [F, C, 2^pmax_static]
+        "residual": res.to(i32),             # [F, C, B]
+        "frame_bytes": frame_bytes,          # [F] int64
+    }
+
+
+def finalize_analysis_plain(cfg: FrameConfig, chans, obits, wasted_bits,
+                            constant, mode, sf_type, order, coefs, shift,
+                            res, rc, hdr_bits, unfit=None) -> dict:
+    """Z's plain version: CONSTANT override (optimize.c:143-151), exact
+    frame-size accounting, the verbatim fallback (encode.c:949-964),
+    header type codes, and the output dict (``frame.py:188-261``).
 
     ``unfit`` (bool [F, C]) marks the LPC subframes whose exact residual
     leaves int32 under a shifted prediction, which only 32-bit input
@@ -357,23 +380,71 @@ def finalize_analysis(cfg: FrameConfig, chans, obits, wasted_bits,
     type_code = torch.where(
         sf_type == SF_FIXED, SF_FIXED + order,
         torch.where(sf_type == SF_LPC, SF_LPC + order - 1, sf_type))
+    return _analysis_dict(mode, obits, wasted_bits, sf_type, type_code,
+                          order, coefs, shift, rc, res, frame_bytes)
 
-    i32 = torch.int32
-    return {
-        "ch_mode": mode.to(i32),             # [F]
-        "obits": obits.to(i32),              # [F, C]
-        "wasted": wasted_bits.to(i32),       # [F, C]
-        "sf_type": sf_type.to(i32),          # [F, C] 0/1/8/32
-        "type_code": type_code.to(i32),      # [F, C] 6-bit header code
-        "order": order.to(i32),              # [F, C]
-        "coefs": coefs.to(i32),              # [F, C, 32]
-        "shift": shift.to(i32),              # [F, C]
-        "porder": rc["porder"].to(i32),      # [F, C]
-        "method": rc["method"].to(i32),      # [F, C]
-        "rice_params": rc["params"].to(i32),  # [F, C, 2^pmax_static]
-        "residual": res.to(i32),             # [F, C, B]
-        "frame_bytes": frame_bytes,          # [F] int64
-    }
+
+def finalize_analysis(cfg: FrameConfig, chans, obits, wasted_bits,
+                      constant, mode, sf_type, order, coefs, shift, res,
+                      rc, hdr_bits, unfit=None) -> dict:
+    """:func:`finalize_analysis_plain`'s function. A CPU tensor takes the
+    plain version; a CUDA tensor launches Z (``csrc/finalize.cu``), a warp
+    a frame, whose outputs equal the plain version's. Z updates ``res`` in
+    place, and only the rows stored raw (CONSTANT, unfit, or in a frame
+    over the verbatim bound), where it copies ``chans``: ``res`` is the
+    analysis' own tensor (R2's output, or ``chans`` itself on the VERBATIM
+    path, where nothing is copied). The row length is ``res``'s (on the sp
+    path a rank's slice of the block), the sizes take ``cfg.block_size``.
+    """
+    dev = chans.device
+    if dev.type == "cpu":
+        return finalize_analysis_plain(cfg, chans, obits, wasted_bits,
+                                       constant, mode, sf_type, order, coefs,
+                                       shift, res, rc, hdr_bits, unfit)
+    if dev.type != "cuda":
+        raise ValueError(f"finalize_analysis: no kernel for {dev}")
+    F, C = sf_type.shape
+    L = res.shape[-1]
+    i32, i64, b8 = torch.int32, torch.int64, torch.bool
+    if chans.dtype != i32 or tuple(chans.shape) != (F, C, L) \
+            or chans.device != dev:
+        raise ValueError(f"chans: expected {i32} {(F, C, L)} on {dev}, got "
+                         f"{chans.dtype} {tuple(chans.shape)} on "
+                         f"{chans.device}")
+    res = res.to(i32).contiguous()
+    copy = not (res.data_ptr() == chans.data_ptr()
+                and res.stride() == chans.stride())
+    tables = {"obits": (obits, i32), "wasted": (wasted_bits, i32),
+              "constant": (constant, b8), "sf_type": (sf_type, i32),
+              "order": (order, i32), "unfit": (unfit, b8),
+              "exact": (rc.get("exact_rice_bits"), i64)}
+    t = {}                          # an absent table passes a null pointer
+    for name, (v, dtype) in tables.items():
+        t[name] = 0
+        if v is not None:
+            t[name] = v.to(dtype).contiguous()
+            _cuda.check(t[name], name, dtype, (F, C), dev)
+    hdr = hdr_bits.to(i32).contiguous()
+    _cuda.check(res, "res", i32, (F, C, L), dev)
+    _cuda.check(hdr, "hdr_bits", i32, (F,), dev)
+    sf_out = torch.empty((F, C), dtype=i32, device=dev)
+    order_out = torch.empty((F, C), dtype=i32, device=dev)
+    type_code = torch.empty((F, C), dtype=i32, device=dev)
+    frame_bytes = torch.empty(F, dtype=i64, device=dev)
+    if F:
+        n = cfg.block_size
+        _cuda.launch("flake_finalize", dev, chans, res, t["obits"],
+                     t["wasted"], t["constant"], t["sf_type"], t["order"],
+                     t["exact"], t["unfit"], hdr, sf_out, order_out,
+                     type_code, frame_bytes, F, C, L, n,
+                     P.max_frame_size(n, C, cfg.bps), cfg.precision,
+                     *chans.stride(), int(copy))
+        finalize_analysis.launches += 1
+    return _analysis_dict(mode, obits, wasted_bits, sf_out, type_code,
+                          order_out, coefs, shift, rc, res, frame_bytes)
+
+
+finalize_analysis.launches = 0
 
 
 def sweep_route(n: int, pmax_static: int):
@@ -544,7 +615,7 @@ def analyze_frames(samples: torch.Tensor, cfg: FrameConfig,
     Under ``torch.profiler`` the call is the span ``flake.analysis``, with
     a span a stage inside it: ``.head`` (H), ``.lpc`` (K1, L), ``.sweep``
     (K4 or K2, R1; where the order method reads bit counts), ``.select``
-    (S, or X on the FIXED path), ``.final`` (R2), ``.finalize``.
+    (S, or X on the FIXED path), ``.final`` (R2), ``.finalize`` (Z).
     """
     n = cfg.block_size
     C = cfg.channels

@@ -143,7 +143,8 @@ def main(argv=None) -> int:
                    "select_candidate": frame.select_candidate,
                    "fixed_search": rice.fixed_search,
                    "frame_head": frame.frame_head,
-                   "slot_layout": bitpack.slot_layout}
+                   "slot_layout": bitpack.slot_layout,
+                   "finalize_analysis": frame.finalize_analysis}
         for fn in kernels.values():
             fn.launches = 0
         t0 = time.perf_counter()

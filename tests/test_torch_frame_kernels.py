@@ -19,7 +19,10 @@ frames at 1, 2 and 6 channels, against the JAX analysis's head
 and the constant test) under one jit a shape. E
 (``bitpack.slot_layout_plain``): the three slot tables of the port's
 analysis at 16, 24 and 32 bits (the wide (hi, lo) form) against JAX's
-``pack_frames_device(debug=True)`` on the same analysis. Each wrapper
+``pack_frames_device(debug=True)`` on the same analysis. Z's plain version
+(``frame.finalize_analysis_plain``): made-up tables that force CONSTANT
+rows, unfit rows and over-size frames on the LPC, FIXED and VERBATIM paths
+against the JAX ``finalize_analysis`` under two jits. Each wrapper
 refuses a tensor on a device it has no kernel for. The kernels themselves
 are held against these plain versions on the card
 (``tests/test_torch_kernels_cuda.py``).
@@ -423,6 +426,118 @@ def test_slot_layout_matches_jax(bps):
     assert (got[0].sum(dim=-1) % 8 == 0).all()
 
 
+# -- Z: the analysis' finalize -----------------------------------------------
+
+_FIN_F, _FIN_C, _FIN_N, _FIN_BPS = 16, 2, 64, 32
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_finalize(with_exact: bool):
+    """The JAX package's ``finalize_analysis`` under one jit: one compile
+    with the exact Rice bits (the predicted paths), one without
+    (VERBATIM)."""
+    cfg = jframe.FrameConfig.from_params(JP.set_defaults(8), _FIN_C,
+                                         _FIN_BPS, block_size=_FIN_N)
+
+    def run(chans, obits, wasted, constant, mode, sf_type, order, coefs,
+            shift, res, rc, hdr_bits):
+        return jframe.finalize_analysis(cfg, chans, obits, wasted, constant,
+                                        mode, sf_type, order, coefs, shift,
+                                        res, rc, hdr_bits)
+    return cfg, jax.jit(run)
+
+
+def _finalize_tables(path: str, overrides: tuple, seed: int) -> dict:
+    """Made-up numpy inputs of the finalize at 16 frames of 64 32-bit stereo
+    samples: CONSTANT rows, unfit rows (LPC) and frames over the verbatim
+    bound, as ``overrides`` names them; residual rows unlike the
+    samples."""
+    F, C, n = _FIN_F, _FIN_C, _FIN_N
+    rng = np.random.default_rng(seed)
+    sf = {"lpc": 32, "fixed": 8, "verbatim": 1}[path]
+    vbits = 8 * TP.max_frame_size(n, C, _FIN_BPS)
+    share = np.where(rng.random(F) < 0.5, 1.3, 0.7) \
+        if "oversize" in overrides else np.full(F, 0.3)
+    t = {"chans": rng.integers(-2**31, 2**31, (F, C, n)),
+         "obits": rng.integers(29, 34, (F, C)),
+         "wasted": rng.integers(0, 4, (F, C)),
+         "constant": (rng.random((F, C)) < 0.25) & ("constant" in overrides),
+         "mode": rng.integers(0, 11, F),
+         "sf_type": np.full((F, C), sf),
+         "order": (rng.integers(1, 33, (F, C)) if path == "lpc"
+                   else rng.integers(0, 5, (F, C)) if path == "fixed"
+                   else np.zeros((F, C))),
+         "coefs": rng.integers(-(1 << 14), 1 << 14, (F, C, 32)),
+         "shift": rng.integers(0, 16, (F, C)),
+         "porder": rng.integers(0, 7, (F, C)),
+         "method": rng.integers(0, 2, (F, C)),
+         "params": rng.integers(0, 31, (F, C, 64)),
+         "hdr_bits": rng.integers(6, 17, F) * 8,
+         "exact": (share[:, None] * vbits / C).astype(np.int64)
+         + rng.integers(0, 40, (F, C)),
+         "unfit": (rng.random((F, C)) < 0.25) & ("unfit" in overrides)}
+    t = {k: v.astype(np.int64 if k == "exact" else bool
+                     if k in ("constant", "unfit") else np.int32)
+         for k, v in t.items()}
+    t["res"] = t["chans"] if path == "verbatim" \
+        else t["chans"] ^ rng.integers(1, 1 << 30, (F, C, n)).astype(np.int32)
+    return t
+
+
+def _finalize_args(t: dict, lib, exact: bool, unfit: bool):
+    """The finalize's positional arguments from the tables, as ``lib``'s
+    arrays (``torch.from_numpy`` or ``jnp.asarray``)."""
+    rc = {k: lib(t[k]) for k in ("porder", "method", "params")}
+    if exact:
+        rc["exact_rice_bits"] = lib(t["exact"])
+    args = [lib(t[k]) for k in ("chans", "obits", "wasted", "constant",
+                                "mode", "sf_type", "order", "coefs",
+                                "shift")]
+    args += [args[0] if t["res"] is t["chans"] else lib(t["res"]), rc,
+             lib(t["hdr_bits"])]
+    return args + ([lib(t["unfit"])] if unfit else [])
+
+
+@pytest.mark.parametrize("path,overrides", [
+    ("lpc", ("constant",)), ("lpc", ("oversize",)), ("lpc", ("unfit",)),
+    ("lpc", ("constant", "unfit", "oversize")),
+    ("fixed", ("constant", "oversize")),
+    ("verbatim", ("constant", "oversize"))])
+def test_finalize_plain_matches_jax(path, overrides):
+    """``finalize_analysis_plain`` against the JAX package's
+    ``finalize_analysis`` on made-up tables that force each override: the
+    CONSTANT rows, the frames over the verbatim bound (on the LPC, FIXED
+    and VERBATIM paths, the last with ``res`` the samples and no exact
+    bits), every key. The JAX package has no unfit flag: the port stores an
+    unfit subframe verbatim, which JAX gives where the subframe comes in
+    VERBATIM with the samples as its residual (here every unfit frame lies
+    within the bound before the override, so the port takes each unfit row
+    that is not CONSTANT)."""
+    t = _finalize_tables(path, overrides, seed=len(path) + 7 * len(overrides))
+    exact, unfit = path != "verbatim", path == "lpc"
+    cfg, run = _jax_finalize(exact)
+    got = tframe.finalize_analysis_plain(
+        TP.from_reference(cfg), *_finalize_args(t, torch.from_numpy, exact,
+                                                unfit))
+    if unfit:
+        u = t["unfit"] & ~t["constant"]
+        t["sf_type"] = np.where(u, 1, t["sf_type"]).astype(np.int32)
+        t["order"] = np.where(u, 0, t["order"]).astype(np.int32)
+        t["res"] = np.where(u[..., None], t["chans"], t["res"])
+    want = run(*_finalize_args(t, jnp.asarray, exact, False))
+    assert got.keys() == want.keys()
+    for k, w in want.items():
+        assert got[k].dtype == (torch.int64 if k == "frame_bytes"
+                                else torch.int32), k
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(w),
+                                      err_msg=k)
+    kinds = got["sf_type"].numpy()
+    if "constant" in overrides:
+        assert (kinds == 0).any()
+    if "oversize" in overrides or "unfit" in overrides:
+        assert (kinds == 1).any() and (kinds != 1).any()
+
+
 # -- every wrapper refuses a device it has no kernel for ---------------------
 
 def _meta(t: torch.Tensor) -> torch.Tensor:
@@ -453,6 +568,12 @@ def test_wrappers_refuse_meta_tensors():
         tbitpack.slot_layout({k: _meta(v) for k, v in analysis.items()},
                              _meta(torch.from_numpy(hdr_bytes)),
                              _meta(torch.from_numpy(hdr_nb)), tcfg)
+    meta = [_meta(a) if isinstance(a, torch.Tensor) else
+            {k: _meta(v) for k, v in a.items()} if isinstance(a, dict) else a
+            for a in _finalize_args(_finalize_tables("lpc", ("constant",), 1),
+                                    torch.from_numpy, True, True)]
+    with pytest.raises(ValueError, match="no kernel for meta"):
+        tframe.finalize_analysis(tcfg, *meta)
     assert all(fn.launches == 0 for fn in (
         tframe.select_order_bits, tframe.select_candidate, tframe.frame_head,
-        trice.fixed_search, tbitpack.slot_layout))
+        trice.fixed_search, tbitpack.slot_layout, tframe.finalize_analysis))

@@ -67,7 +67,13 @@ outside their bits, E on the card's analyses at levels 2, 5, 8 and
 12, 24 and 32 bits and tails of 20, 10 and 3 samples, and on made-up
 analyses (every subframe type in a frame, 1 to 512 frames, the wide form,
 8 channels, odd n, ps 0 to 8, 65,535 samples); an encode launches them
-once a batch. L also at max orders 1, 2, 31 and 32 on 1, 5 and 1,024
+once a batch. Z (the analysis' finalize, ``csrc/finalize.cu``) against its
+plain version on every output key on made-up tables that force CONSTANT
+rows, unfit rows and over-size frames, alone and mixed, on the LPC, FIXED
+and VERBATIM paths, at 1-8 channels and 16-32 bits, rows of 4,096, 4,608,
+1,152, 777 and 333 samples and an sp rank's half block, 0 to 12,288
+frames, samples in other layouts; ``analyze_frames`` launches it once a
+call on every path, the Encoder once a batch, the pipeline entry once. L also at max orders 1, 2, 31 and 32 on 1, 5 and 1,024
 streams with degenerate rows among them. The
 command line (``flake_tpu_torch.cli``) on the card writes the file it
 writes with ``--device cpu`` at ``-5 -b 4608`` (both emissions) and
@@ -1741,3 +1747,259 @@ def test_frame_kernels_refuse_other_types(dev):
                                       device=dev),
                           torch.zeros((4, 2), dtype=torch.int32, device=dev),
                           0, 5, 0, 3)
+
+
+# -- Z: the analysis' finalize -----------------------------------------------
+
+_SF_OF = {"lpc": frame.SF_LPC, "fixed": frame.SF_FIXED,
+          "verbatim": frame.SF_VERBATIM}
+
+
+def _finalize_case(rng, path, overrides, C, bps, n, L, F):
+    """Made-up inputs of ``finalize_analysis`` on the CPU: (cfg, args). The
+    residual rows differ from the samples everywhere, so a row copied or
+    missed shows. ``overrides`` names the ones forced: ``constant`` (about
+    a fifth of the rows), ``unfit`` (about a fifth; LPC only),
+    ``oversize`` (exact Rice bits that put about half the frames over the
+    verbatim bound, the rest under it); under none, frames well
+    within the bound. VERBATIM: ``res`` is ``chans`` and no exact bits."""
+    level = {"lpc": 8, "fixed": 2, "verbatim": 8}[path]
+    cfg = frame.FrameConfig.from_params(P.set_defaults(level), C, bps,
+                                        block_size=n)
+    lim = 1 << (bps - 1)
+    i32 = torch.int32
+
+    def ints(lo, hi, shape):
+        return torch.from_numpy(rng.integers(lo, hi, shape, dtype=np.int64))
+
+    chans = ints(-lim, lim, (F, C, L)).to(i32)
+    obits = ints(max(bps - 3, 1), bps + (C == 2) + 1, (F, C)).to(i32)
+    wasted = ints(0, 4, (F, C)).to(i32)
+    constant = torch.from_numpy(rng.random((F, C)) < 0.2) \
+        if "constant" in overrides else torch.zeros((F, C), dtype=torch.bool)
+    sf_type = torch.full((F, C), _SF_OF[path], dtype=i32)
+    order = (ints(1, 33, (F, C)) if path == "lpc" else ints(0, 5, (F, C))
+             if path == "fixed" else torch.zeros((F, C), dtype=torch.int64)
+             ).to(i32)
+    # each frame's exact bits a share of the verbatim bound: over it or
+    # under it where over-size frames are forced, a third of it otherwise
+    vbits = 8 * P.max_frame_size(n, C, bps)
+    share = torch.from_numpy(np.where(rng.random(F) < 0.5, 1.3, 0.7)
+                             if "oversize" in overrides else np.full(F, 0.3))
+    exact = (share[:, None] * vbits / C).to(torch.int64) \
+        + ints(-40, 40, (F, C))
+    rc = {"porder": ints(0, 7, (F, C)).to(i32),
+          "method": ints(0, 2, (F, C)).to(i32),
+          "params": ints(0, 31, (F, C, 64)).to(i32)}
+    if path == "verbatim":
+        res = chans
+    else:
+        res = chans ^ ints(1, 1 << 30, (F, C, L)).to(i32)
+        rc["exact_rice_bits"] = exact.clamp_min(0)
+    unfit = None
+    if path == "lpc":
+        unfit = torch.from_numpy(rng.random((F, C)) < 0.2) \
+            if "unfit" in overrides else torch.zeros((F, C), dtype=torch.bool)
+    mode = ints(0, 11, (F,)).to(i32)
+    coefs = ints(-(1 << 14), 1 << 14, (F, C, P.MAX_LPC_ORDER)).to(i32)
+    shift = ints(0, 16, (F, C)).to(i32)
+    hdr_bits = (ints(6, 17, (F,)) * 8).to(i32)
+    return cfg, (chans, obits, wasted, constant, mode, sf_type, order, coefs,
+                 shift, res, rc, hdr_bits, unfit)
+
+
+def _on(dev, args, chans_on=None):
+    """The case's arguments on the card; ``res`` stays ``chans`` where it
+    is, and ``chans_on`` (a function of the card's samples) may give them
+    another layout."""
+    chans, res = args[0], args[9]
+    moved = [a.to(dev) if isinstance(a, torch.Tensor)
+             else {k: v.to(dev) for k, v in a.items()} if isinstance(a, dict)
+             else a for a in args]
+    if chans_on is not None:
+        moved[0] = chans_on(moved[0])
+    if res is chans:
+        moved[9] = moved[0]
+    return moved
+
+
+def _finalize_equal(dev, cfg, args, chans_on=None):
+    """Z's dict equals its plain version's, key by key, dtype and bytes;
+    one launch where there are frames. Returns the plain version's dict."""
+    plain_args = [a.clone() if isinstance(a, torch.Tensor) else a
+                  for a in args]
+    if args[9] is args[0]:
+        plain_args[9] = plain_args[0]
+    want = frame.finalize_analysis_plain(cfg, *plain_args)
+    before = frame.finalize_analysis.launches
+    got = frame.finalize_analysis(cfg, *_on(dev, args, chans_on))
+    torch.cuda.synchronize()
+    assert frame.finalize_analysis.launches \
+        == before + (args[0].shape[0] > 0)
+    assert got.keys() == want.keys()
+    for k, w in want.items():
+        g = got[k]
+        assert g.dtype == w.dtype and g.shape == w.shape, k
+        assert torch.equal(g.cpu(), w), k
+    return want
+
+
+@pytest.mark.parametrize("path,overrides,C,bps,n,L,F", [
+    ("lpc", ("constant",), 2, 16, 4096, 4096, 64),
+    ("lpc", ("unfit",), 2, 32, 4096, 4096, 64),
+    ("lpc", ("oversize",), 2, 16, 4096, 4096, 64),
+    ("lpc", ("constant", "unfit", "oversize"), 2, 32, 4608, 4608, 64),
+    ("lpc", ("constant", "unfit", "oversize"), 1, 24, 4608, 4608, 33),
+    ("lpc", ("constant", "unfit", "oversize"), 6, 16, 1152, 1152, 40),
+    ("lpc", ("constant", "unfit", "oversize"), 8, 32, 4096, 4096, 17),
+    ("lpc", ("constant", "oversize"), 2, 16, 4096, 2048, 64),
+    ("lpc", ("constant", "unfit", "oversize"), 2, 32, 1554, 777, 16),
+    ("lpc", ("constant", "oversize"), 2, 16, 333, 333, 24),
+    ("lpc", (), 2, 16, 4096, 4096, 512),
+    ("lpc", ("constant", "unfit", "oversize"), 2, 16, 4096, 4096, 0),
+    ("lpc", ("constant", "unfit", "oversize"), 2, 16, 4096, 4096, 1),
+    ("lpc", ("constant", "unfit", "oversize"), 2, 16, 1152, 1152, 12288),
+    ("fixed", ("constant", "oversize"), 2, 16, 1152, 1152, 64),
+    ("fixed", ("constant", "oversize"), 6, 24, 777, 777, 9),
+    ("fixed", ("constant", "oversize"), 8, 32, 4608, 4608, 12),
+    ("verbatim", ("constant", "oversize"), 2, 16, 4, 4, 64),
+    ("verbatim", ("constant", "oversize"), 8, 32, 1152, 1152, 9)])
+def test_finalize_kernel(dev, path, overrides, C, bps, n, L, F):
+    """Z's outputs equal its plain version's, byte for byte, on made-up
+    tables that force each override alone (CONSTANT rows, unfit rows of
+    32-bit input, over-size frames) and all of them mixed in a frame
+    (unfit rows in over-size frames among them), on the LPC, FIXED and
+    VERBATIM paths (where ``res`` is ``chans`` and no exact bits come), at
+    1, 2, 6 and 8 channels and 16, 24 and 32 bits, on rows of 4,096, 4,608,
+    1,152, 777 and 333 samples (odd rows start off a 16-byte boundary), on
+    an sp rank's half of a block (the row length the residual's, the sizes
+    the block's), and on 0, 1, 64 and 12,288 frames; and where no override
+    fires."""
+    cfg, args = _finalize_case(np.random.default_rng(C * L + bps + F), path,
+                               overrides, C, bps, n, L, F)
+    want = _finalize_equal(dev, cfg, args)
+    raw = want["sf_type"] <= frame.SF_VERBATIM
+    if F > 1 and path != "verbatim":
+        assert bool(raw.any()) == bool(overrides)
+        assert not bool(raw.all())
+    if "oversize" in overrides and F > 1 and path != "verbatim":
+        vb = (want["sf_type"] == frame.SF_VERBATIM).all(dim=-1)
+        assert bool(vb.any()) and not bool(vb.all())
+
+
+@pytest.mark.parametrize("layout", ["permuted", "offset", "strided"])
+def test_finalize_kernel_sample_layouts(dev, layout):
+    """Z reads samples in any layout: a permuted view of [F, B, C] (the sp
+    path's samples without the stereo estimate), rows one int off the
+    residual's 16-byte phase (int loads in place of int4), and a column
+    slice of wider rows."""
+    rng = np.random.default_rng(7)
+    cfg, args = _finalize_case(rng, "lpc", ("constant", "unfit", "oversize"),
+                               2, 32, 4096, 4096, 48)
+
+    def permuted(c):
+        return c.permute(0, 2, 1).contiguous().permute(0, 2, 1)
+
+    def offset(c):
+        buf = torch.empty(c.numel() + 1, dtype=c.dtype, device=c.device)
+        view = buf[1:].view(c.shape)
+        view.copy_(c)
+        assert view.data_ptr() % 16 == 4
+        return view
+
+    def strided(c):
+        wide = torch.zeros(c.shape[:-1] + (c.shape[-1] + 8,), dtype=c.dtype,
+                           device=c.device)
+        wide[..., 3:3 + c.shape[-1]] = c
+        return wide[..., 3:3 + c.shape[-1]]
+
+    fn = {"permuted": permuted, "offset": offset, "strided": strided}[layout]
+    _finalize_equal(dev, cfg, args, chans_on=fn)
+
+
+def _cpu_copy(args):
+    """A call's arguments copied to the CPU; ``res`` stays ``chans`` where
+    it is."""
+    out = [a.cpu().clone() if isinstance(a, torch.Tensor)
+           else {k: v.cpu() for k, v in a.items()} if isinstance(a, dict)
+           else a for a in args]
+    if args[10] is args[1]:
+        out[10] = out[1]
+    return out
+
+
+@pytest.mark.parametrize("level,n,prediction", [
+    (8, 4096, None), (5, 4608, None), (2, 1152, None), (8, 4, None),
+    (8, 1152, "NONE")])
+def test_analyze_frames_launches_z_once(dev, level, n, prediction,
+                                        monkeypatch):
+    """``analyze_frames`` on the card launches Z once a call on the LPC
+    (levels 8 and 5), FIXED (level 2) and VERBATIM (blocks under 5 samples,
+    prediction NONE) paths and runs no plain finalize; its dict equals the
+    plain version's on the same inputs, frames with silent, constant and
+    full-scale rows among them."""
+    p = P.set_defaults(level)
+    if prediction:
+        p.prediction_type = int(P.Prediction[prediction])
+    cfg = frame.FrameConfig.from_params(p, 2, 16, block_size=n)
+    x = _head_frames(np.random.default_rng(level + n), 16, n, 2, 16)
+    plain, kern, calls = frame.finalize_analysis_plain, \
+        frame.finalize_analysis, []
+
+    @functools.wraps(kern)      # carries .launches, which Z counts on
+    def rec(*args):
+        calls.append(_cpu_copy(args))
+        return kern(*args)
+
+    monkeypatch.setattr(frame, "finalize_analysis", rec)
+    monkeypatch.setattr(frame, "finalize_analysis_plain", None)
+    got = frame.analyze_frames(x.to(dev), cfg, torch.full(
+        (16,), 48, dtype=torch.int32, device=dev))
+    torch.cuda.synchronize()
+    assert rec.launches == kern.launches + 1 and len(calls) == 1
+    want = plain(*calls[0])
+    assert got.keys() == want.keys()
+    for k, w in want.items():
+        assert got[k].dtype == w.dtype and torch.equal(got[k].cpu(), w), k
+    if prediction or n < 5:
+        assert (want["sf_type"] <= frame.SF_VERBATIM).all()
+    else:
+        assert (want["sf_type"] <= frame.SF_VERBATIM).any()
+
+
+def test_finalize_launches_on_encoder_and_entry_paths(dev):
+    """The Encoder launches Z once a batch, and the pipeline entry
+    (``graft_entry.entry``) once a step."""
+    from flake_tpu_torch import graft_entry
+
+    cfg = P.StreamConfig(channels=2, sample_rate=44100, bits_per_sample=16,
+                         params=P.set_defaults(8))
+    pcm = np.zeros((3 * 4096 * 8 + 777, 2), dtype=np.int32)
+    pcm[4096:] = np.random.default_rng(3).integers(
+        -9000, 9000, (pcm.shape[0] - 4096, 2))
+    enc = flake_tpu_torch.Encoder(cfg, device=dev, batch_frames=8)
+    before = frame.finalize_analysis.launches
+    got = enc.encode_stream(pcm)
+    torch.cuda.synchronize()
+    assert frame.finalize_analysis.launches - before == enc.stats["batches"]
+    assert got == flake_tpu_torch.Encoder(
+        cfg, device="cpu", batch_frames=8).encode_stream(pcm)
+    fn, args = graft_entry.entry(device=dev)
+    before = frame.finalize_analysis.launches
+    fn(*args)
+    torch.cuda.synchronize()
+    assert frame.finalize_analysis.launches == before + 1
+
+
+def test_finalize_refuses_other_types(dev):
+    cfg, args = _finalize_case(np.random.default_rng(1), "lpc",
+                               ("constant",), 2, 16, 64, 64, 4)
+    args = _on(dev, args)
+    bad = list(args)
+    bad[0] = args[0].to(torch.int64)
+    with pytest.raises(ValueError, match="chans"):
+        frame.finalize_analysis(cfg, *bad)
+    bad = list(args)
+    bad[1] = args[1][:3]
+    with pytest.raises(ValueError, match="obits"):
+        frame.finalize_analysis(cfg, *bad)
